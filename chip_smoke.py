@@ -11,9 +11,11 @@ Phases, in order; any failure raises and the script exits nonzero:
               the serving shapes.
 4. serve    - the full-width generator (Config() defaults; weights drawn
               from --seed, or read from --ckpt) serves two requests of 64
-              shapes through Manipulator.generate; every kernel must have
-              launched in that run. A small input is also checked against
-              the CPU run of the port.
+              shapes through Manipulator.generate, which takes the fused
+              eval path; every kernel must have launched as often as that
+              path launches it. A small input is also checked against the
+              CPU run of the port, and one more request runs under
+              torch.profiler for the device time by kernel.
 5. timings  - median kernel times (CUDA events) beside their plain
               versions and the card's bound for the same work.
 
@@ -36,6 +38,11 @@ sys.path.insert(0, HERE)
 # published H100 SXM peaks (NVIDIA data sheet) for the bound column
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+
+
+# kernel launches per request of the fused eval path: EdgeConv1 selects
+# with kernel A, EdgeConv2 with kernel B, and each runs its tail as kernel C
+PER_REQUEST = {"knn": 1, "knn_edge": 1, "edge_tail": 2}
 
 
 def log(*a) -> None:
@@ -166,6 +173,71 @@ def check_small_reference(seed: int) -> None:
         raise AssertionError("cuda output disagrees with the cpu reference")
 
 
+def tail_args(block, ee):
+    """Kernel C's arguments for EdgeBlock `block` on edges `ee`, as the
+    fused eval path builds them."""
+    from sp_gan_tpu_torch.nn.fused_eval import fold_bn
+    w1, a1 = fold_bn(block.conv_w1, block.bn_w1)
+    w2, a2 = fold_bn(block.conv_w2, block.bn_w2)
+    wx, ax = fold_bn(block.conv_x, block.bn_x)
+    return (ee, w1, a1, w2, a2, wx, ax,
+            block.out_kernel.detach().float().contiguous(),
+            block.out_bias.detach()[None].float().contiguous())
+
+
+def check_edge_tail(args, k):
+    """Kernel C against its plain version (TF32 off): |err| <= 1e-5 +
+    1e-4 |plain|. The two sum the same f32 products in other orders (up to
+    1280 terms in conv_out) and take exp from different libraries."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
+                                                        edge_tail_plain)
+    out = edge_tail(*args, k=k)
+    torch.cuda.synchronize()
+    ref = edge_tail_plain(*args, k=k)
+    err = (out - ref).abs()
+    if not bool(torch.isfinite(out).all()) or \
+            bool((err > 1e-5 + 1e-4 * ref.abs()).any()):
+        raise AssertionError(f"edge_tail: max abs err {err.max().item()} "
+                             f"on outputs up to {ref.abs().max().item()}")
+    return {"max_abs_err": err.max().item(),
+            "max_abs_out": ref.abs().max().item()}
+
+
+def bound(flops: float, nbytes: float):
+    """(bound ms, what bounds it) from f32 operations and bytes moved."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def profile_request(man, seed: int) -> dict:
+    """Device time by kernel of one request of 64 shapes under
+    torch.profiler, and the device's idle share of its wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        man.generate(64, seed=seed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[2])
+    busy = sum(ms for _, _, ms in rows)
+    log(f"  profiled request: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms, idle {100 * (1 - busy / wall_ms):.1f}%")
+    for name, count, ms in rows[:12]:
+        log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
+            f"{name[:90]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms,
+            "top": [{"name": n[:120], "count": c, "ms": ms}
+                    for n, c, ms in rows[:12]]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -205,30 +277,44 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 3
     ph.start("kernels")
+    import numpy as np
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.data.sphere import sphere_template
-    from sp_gan_tpu_torch.ops import kernels
-    cfg = Config()
-    k = cfg.k
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    x_a = torch.as_tensor(sphere_template(cfg.np), device=dev)[None]
-    x_b = torch.randn(64, cfg.np, 64, generator=gen, device=dev)
-    res_a = check_knn(x_a.contiguous(), k)
-    log(f"  knn [1, {cfg.np}, 3] k={k}: {res_a}")
-    res_b = check_knn_edge(x_b, k)
-    ph.end()
-
-    # ---------------------------------------------------------------- 4
-    ph.start("serve")
-    import numpy as np
     from sp_gan_tpu_torch.manipulate import Manipulator, from_checkpoint
     from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops.edge import edge_features
+    cfg = Config()
+    k, B = cfg.k, 64
     if args.ckpt:
         man = from_checkpoint(args.ckpt, cfg, device="cuda")
         log(f"  weights from {args.ckpt}")
     else:
         man = Manipulator(cfg, Generator(cfg, seed=args.seed), device="cuda")
         log(f"  weights drawn from seed {args.seed} (Config() full width)")
+    if not man.fused:
+        raise AssertionError("Config() must be served by the fused path")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # EdgeConv1's input: the template, broadcast over the batch
+    x_a = torch.as_tensor(sphere_template(cfg.np), device=dev)[None] \
+        .expand(B, -1, -1).contiguous()
+    x_b = torch.randn(B, cfg.np, 64, generator=gen, device=dev)
+    res_a = check_knn(x_a, k)
+    log(f"  knn [{B}, {cfg.np}, 3] k={k}: {res_a}")
+    res_b = check_knn_edge(x_b, k)
+    with torch.inference_mode():
+        tails = {
+            "edge1": tail_args(man.G.edge1, edge_features(x_a, k)),
+            "edge2": tail_args(man.G.edge2, edge_features(x_b, k))}
+        res_c = {}
+        for name, targs in tails.items():
+            res_c[name] = check_edge_tail(targs, k)
+            log(f"  edge_tail[{name}, ee {list(targs[0].shape)}]: "
+                f"{res_c[name]}")
+    ph.end()
+
+    # ---------------------------------------------------------------- 4
+    ph.start("serve")
     man.generate(64, seed=args.seed + 1000)          # warm-up request
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -242,63 +328,93 @@ def main() -> None:
     if pcs.shape != (128, cfg.np, 3) or not np.isfinite(pcs).all():
         raise AssertionError(f"bad output: shape {pcs.shape}, "
                              f"finite {np.isfinite(pcs).all()}")
-    for name, n_launch in launches.items():
-        if n_launch != 2:
-            raise AssertionError(f"{name} launched {n_launch} times in two "
-                                 "requests, expected 2")
+    for name, per in PER_REQUEST.items():
+        if launches[name] != 2 * per:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"two requests, expected {2 * per}")
     radius = np.sqrt((pcs ** 2).sum(-1)).max(axis=1)
     if not np.allclose(radius, 1.0, atol=1e-4):
         raise AssertionError("normalized clouds must reach radius 1")
     check_small_reference(args.seed)
+    prof = profile_request(man, args.seed)
+    log(json.dumps({"serve": {"ms_per_request": serve_s * 1e3 / 2,
+                              "launches": launches, "profile": prof}}))
     ph.end()
 
     # ---------------------------------------------------------------- 5
     ph.start("timings")
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
+                                                        edge_tail_plain)
     from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
     from sp_gan_tpu_torch.ops.kernels.knn_edge import (knn_edge,
                                                        knn_edge_plain)
-    counts = dict(launches)
-    B, N, C = x_b.shape
-    serve_b = dict(out_dtype=torch.bfloat16, diff_only=True,
-                   select_mode="packed")
+    N, C = cfg.np, x_b.shape[-1]
     rows = []
-    # kernel A at [1, 2048, 3]
+    # kernel A at [64, 2048, 3]
     a_ms = cuda_ms(lambda: knn(x_a, k), 50)
-    a_plain = cuda_ms(lambda: knn_plain(x_a, k), 20)
-    a_flops = 2 * 1 * cfg.np ** 2 * 3
-    a_bytes = cfg.np * 3 * 4 + 2 * cfg.np * k * 4
+    a_plain = cuda_ms(lambda: knn_plain(x_a, k), 10)
+    a_bound, a_by = bound(2 * B * N * N * 3, B * N * 3 * 4 + 2 * B * N * k * 4)
+    x_a1 = x_a[:1].contiguous()
+    log(f"  knn at batch 1 [1, {N}, 3] (the unfused path): "
+        f"{cuda_ms(lambda: knn(x_a1, k), 50):.4f} ms")
     rows.append(dict(
         name="knn", route="cuda", source="sp_gan_tpu_torch/csrc/knn.cu",
         replaces="sp_gan_tpu/ops/pallas/knn.py:515 (knn_pallas, "
                  "_knn_kernel :24)",
-        launches=counts["knn"], agree=res_a["agree"],
+        launches=launches["knn"], agree=res_a["agree"],
         max_abs_err=res_a["max_abs_err"], max_err=res_a["max_abs_err"],
-        ms=a_ms, plain_ms=a_plain,
-        bound_ms=max(a_flops / F32_FLOPS, a_bytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if a_flops / F32_FLOPS
-        > a_bytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=None, shape=[1, cfg.np, 3]))
-    # kernel B at [64, 2048, 64] -> bf16 diff, packed (the serving call)
+        ms=a_ms, plain_ms=a_plain, bound_ms=a_bound, bound_by=a_by,
+        library_ms=None, shape=[B, N, 3]))
+    # kernel B at [64, 2048, 64] -> f32 [central, nbr - central], packed
+    serve_b = dict(out_dtype=torch.float32, diff_only=False,
+                   select_mode="packed")
     b_ms = cuda_ms(lambda: knn_edge(x_b, k, **serve_b), 20)
     b_plain = cuda_ms(lambda: knn_edge_plain(x_b, k, **serve_b), 5)
-    b_flops = 2 * B * N * N * C
-    b_bytes = B * N * C * 4 + B * N * k * C * 2 + B * N * k * 4
+    b_bound, b_by = bound(2 * B * N * N * C, B * N * C * 4
+                          + B * N * k * 2 * C * 4 + B * N * k * 4)
     rows.append(dict(
         name="knn_edge", route="cuda",
         source="sp_gan_tpu_torch/csrc/knn_edge.cu",
         replaces="sp_gan_tpu/ops/pallas/knn.py:313 (knn_edge_pallas, "
                  "_knn_edge_kernel :177)",
-        launches=counts["knn_edge"], agree=res_b["agree"],
+        launches=launches["knn_edge"], agree=res_b["agree"],
         max_abs_err=res_b["max_abs_err"], max_err=res_b["max_abs_err"],
-        ms=b_ms, plain_ms=b_plain,
-        bound_ms=max(b_flops / F32_FLOPS, b_bytes / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if b_flops / F32_FLOPS
-        > b_bytes / HBM_BYTES_PER_S else "bytes",
+        ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
         library_ms=None, shape=[B, N, C]))
     for mode in ("exact", "packed"):
         for cd in (torch.float32, torch.bfloat16):
             ms = cuda_ms(lambda: knn_edge(x_b, k, cd, True, mode), 20)
             log(f"  knn_edge[{mode}, {str(cd)[6:]}, diff_only]: {ms:.3f} ms")
+    # kernel C at both call sites of one request
+    calls = {}
+    for name, targs in tails.items():
+        ee, w1, w2 = targs[0], targs[1], targs[3]
+        _, _, _, c2 = ee.shape
+        f2, f = w1.shape[1], w2.shape[1]
+        flops = 2 * B * N * k * (c2 // 2 * f2 + f2 * f + c2 * f + f * f)
+        nbytes = 4 * (ee.numel() + sum(t.numel() for t in targs[1:])
+                      + B * N * f)
+        c_bound, c_by = bound(flops, nbytes)
+        calls[name] = dict(
+            ee=list(ee.shape), F2=f2, F=f,
+            ms=cuda_ms(lambda: edge_tail(*targs, k=k), 20),
+            plain_ms=cuda_ms(lambda: edge_tail_plain(*targs, k=k), 10),
+            bound_ms=c_bound, bound_by=c_by,
+            max_abs_err=res_c[name]["max_abs_err"])
+        log(f"  edge_tail[{name}]: {calls[name]}")
+    rows.append(dict(
+        name="edge_tail", route="cuda",
+        source="sp_gan_tpu_torch/csrc/edgeblock.cu",
+        replaces="sp_gan_tpu/ops/pallas/edgeblock.py:102 (edge_tail_pallas,"
+                 " _edge_tail_kernel :28)",
+        launches=launches["edge_tail"],
+        max_abs_err=max(c["max_abs_err"] for c in calls.values()),
+        max_err=max(c["max_abs_err"] for c in calls.values()),
+        ms=sum(c["ms"] for c in calls.values()),
+        plain_ms=sum(c["plain_ms"] for c in calls.values()),
+        bound_ms=sum(c["bound_ms"] for c in calls.values()),
+        bound_by=calls["edge2"]["bound_by"], library_ms=None,
+        per="one request: the edge1 and the edge2 call", calls=calls))
     for r in rows:
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "

@@ -6,10 +6,15 @@
 // to the lower index (k rounds of min/argmin on the TPU; a running top-k in
 // registers here, which gives the same order).
 //
-// What bounds it on an H100: at the serving shape [1, 2048, 3], k=10 the
-// work is 2048^2 distances of 3 channels, a few MFLOP, spread over 16
-// blocks. Launch latency and a mostly idle card bound it, not bytes or
-// operations; the generator launches it once per request batch.
+// What bounds it on an H100: per candidate key a thread spends a few
+// FLOPs on the distance and up to k compare-and-shift steps on its running
+// top-k, so the latency of that serial loop, not bytes, bounds it. At the
+// serving shape [64, 2048, 3], k=10 (the fused eval path runs EdgeConv1 at
+// the full batch) 1024 blocks of 128 queries cover the card. At the unfused
+// path's batch-1 shape [1, 2048, 3] only 16 blocks run, on 16 of the 132
+// SMs: 0.458 ms measured against a 0.4 us bound (chip_smoke.py on an H100,
+// 700 W). A warp per query, or keys split across threads with a top-k
+// merge, would fill the card there.
 #include "knn_common.cuh"
 
 namespace {

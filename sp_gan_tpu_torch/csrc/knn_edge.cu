@@ -16,8 +16,9 @@
 //
 // What bounds it on an H100: at the serving shape [64, 2048, 64], k=10 the
 // distances are 2*64*2048^2*64 = 34.4 GFLOP of f32 arithmetic (0.51 ms at
-// 67 TFLOP/s), against 207 MB of input and output (62 us at 3.35 TB/s), so
-// it is bound by f32 operations. It keeps them off the tensor cores on
+// 67 TFLOP/s), against 0.71 GB of input and output in the f32 concat form
+// that the fused eval path asks for (0.21 ms at 3.35 TB/s; 207 MB and 62 us
+// for bf16 diffs), so it is bound by f32 operations. It keeps them off the tensor cores on
 // purpose: selection needs the exact f32 distances. This first version
 // issues a separate multiply and add per channel (no FMA, to stay
 // bit-identical with its PyTorch twin) and one query per thread; more

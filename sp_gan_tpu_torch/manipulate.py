@@ -4,6 +4,11 @@ routine of the reference's `model_test.py`).
 
 `Manipulator.generate` loops over batches of 64 codes, runs the generator
 in eval mode on the broadcast sphere template and normalizes the clouds.
+Like the JAX Manipulator on a TPU, it serves every configuration that
+`nn.fused_eval.supports_fused` accepts (the defaults among them) through
+the fused eval forward, and the others through `Generator.forward`. The
+JAX package takes the fused path only where Pallas runs; the port's
+kernels all have CPU twins, so it takes it on every device.
 The JAX package's scanned bulk path (`_generate_scanned`) exists to cut
 XLA dispatches and is not ported. The editing routines (interpolation, part
 edit, flip, exchange) come in a later slice.
@@ -21,6 +26,8 @@ from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data.noise import sample_z
 from sp_gan_tpu_torch.data.sphere import sphere_template
 from sp_gan_tpu_torch.device import resolve_device
+from sp_gan_tpu_torch.nn.fused_eval import (generator_forward_eval,
+                                            supports_fused)
 from sp_gan_tpu_torch.nn.generator import Generator
 
 
@@ -46,8 +53,9 @@ class Manipulator:
         self.sphere = torch.as_tensor(np.asarray(self.ball, np.float32),
                                       device=self.device)
         self.G = generator.to(self.device).eval()
-        # every routine forwards the broadcast template, so the first
-        # EdgeConv runs at batch 1
+        self.fused = supports_fused(cfg)
+        # every routine forwards the broadcast template, so the unfused
+        # path runs the first EdgeConv at batch 1
         self.b1 = cfg.edge1_b1 and not cfg.use_head
 
     @torch.inference_mode()
@@ -56,6 +64,8 @@ class Manipulator:
             z = torch.from_numpy(np.array(z, dtype=np.float32))
         z = z.to(self.device, torch.float32)
         x = self.sphere[None].expand(z.shape[0], -1, -1)
+        if self.fused:
+            return generator_forward_eval(self.G, x, z)
         return self.G(x, z, train=False, template_batch_const=self.b1)
 
     def forward(self, z) -> np.ndarray:

@@ -30,13 +30,16 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu; every function returns its cudaError_t
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
     "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, ee, idx, B, N, C, k, diff_only, packed, out_bf16, stream
     "spgan_knn_edge": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # ee, w1, a1, w2, a2, wx, ax, wout, bout, vbuf, out, B, N, C, F2, F, k,
+    # neg, stream
+    "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,10 @@ each point of each cloud, the k nearest other points of the same cloud by
 f32 squared distance, ascending, ties to the lower index, self masked to
 +inf. Returns idx [B, N, k] int32 and dist [B, N, k] f32.
 
-On an H100 at the serving shape [1, 2048, 3], k=10, the kernel is bound by
-launch latency: a few MFLOP over 16 blocks of the card's 132 SMs.
+On an H100 the serial per-query loop (distance, then insertion into a
+running top-k) bounds the kernel; at batch 1 ([1, 2048, 3], the unfused
+path) its 16 blocks use 16 of the card's 132 SMs. The CUDA source has the
+numbers.
 
 `knn` launches the kernel for a CUDA tensor and runs `knn_plain`, the plain
 PyTorch version of the same arithmetic, for a CPU tensor. `knn.launches`
@@ -18,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from sp_gan_tpu_torch.ops.kernels import _build
-from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
+from sp_gan_tpu_torch.ops.pairwise import self_sqdist, smallest_k
 
 MAX_C = 128
 MAX_K = 32
@@ -42,14 +44,10 @@ def _check(x: torch.Tensor, k: int) -> None:
 
 def knn_plain(x: torch.Tensor, k: int):
     """The kernel's function in plain PyTorch: the same f32 distances
-    (`ops.pairwise.pairwise_sqdist`), self masked to +inf, a stable sort for
-    the (distance, index) order."""
-    d = pairwise_sqdist(x, x)
-    n = d.shape[-1]
-    eye = torch.eye(n, dtype=torch.bool, device=d.device)
-    d = d.masked_fill(eye, float("inf"))
-    srt = torch.sort(d, dim=-1, stable=True)
-    return srt.indices[..., :k].to(torch.int32), srt.values[..., :k]
+    (`ops.pairwise.self_sqdist`, self at +inf) in (distance, index)
+    order."""
+    dist, idx = smallest_k(self_sqdist(x), k)
+    return idx.to(torch.int32), dist
 
 
 def knn(x: torch.Tensor, k: int):

@@ -42,6 +42,21 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (sq_norms(x)[..., :, None] - two_cross) + sq_norms(y)[..., None, :]
 
 
+def self_sqdist(x: torch.Tensor) -> torch.Tensor:
+    """`pairwise_sqdist(x, x)` with each point's distance to itself +inf."""
+    d = pairwise_sqdist(x, x)
+    n = d.shape[-1]
+    return d.masked_fill(torch.eye(n, dtype=torch.bool, device=d.device),
+                         float("inf"))
+
+
+def smallest_k(key: torch.Tensor, k: int):
+    """(values, int64 indices) of the k smallest entries of each row of
+    `key`, ascending, ties to the lower index (a stable sort)."""
+    srt = torch.sort(key, dim=-1, stable=True)
+    return srt.values[..., :k], srt.indices[..., :k]
+
+
 def stable_knn_grid() -> float:
     """Bucket width of the sort-stable tie-break mode, or 0.0 (off), from
     env `SPGAN_KNN_STABLE` as in the JAX package: unset or empty is off,
@@ -61,11 +76,7 @@ def knn_indices(x: torch.Tensor, k: int, *, exclude_self: bool = True,
     tie_break="stable" (or env SPGAN_KNN_STABLE) orders by distance buckets
     on a relative grid, stably by index inside a bucket: the JAX package's
     cross-implementation parity mode."""
-    d = pairwise_sqdist(x, x)
-    if exclude_self:
-        n = d.shape[-1]
-        eye = torch.eye(n, dtype=torch.bool, device=d.device)
-        d = d.masked_fill(eye, float("inf"))
+    d = self_sqdist(x) if exclude_self else pairwise_sqdist(x, x)
     grid = stable_knn_grid()
     if tie_break == "stable" or grid:
         rel = grid or 1e-4
@@ -75,7 +86,7 @@ def knn_indices(x: torch.Tensor, k: int, *, exclude_self: bool = True,
         key = torch.floor(d / (rel * scale))
     else:
         key = d
-    idx = torch.sort(key, dim=-1, stable=True).indices[..., :k]
+    idx = smallest_k(key, k)[1]
     if return_dists:
         return idx.to(torch.int32), torch.gather(d, -1, idx)
     return idx.to(torch.int32)

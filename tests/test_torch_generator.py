@@ -14,15 +14,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from sp_gan_tpu.config import Config as JaxConfig
 from sp_gan_tpu.nn import Generator as JaxGenerator
 from sp_gan_tpu.nn import layers as jlayers
+from sp_gan_tpu.nn.fused_eval import generator_forward_eval as jfused_forward
+from sp_gan_tpu.nn.fused_eval import supports_fused as jsupports_fused
 from sp_gan_tpu_torch.compat import generator_state_from_jax, generator_trees
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data.sphere import sphere_template
 from sp_gan_tpu_torch.manipulate import load_jax_generator
 from sp_gan_tpu_torch.nn import layers
+from sp_gan_tpu_torch.nn.fused_eval import (fold_bn, generator_forward_eval,
+                                            supports_fused)
 from sp_gan_tpu_torch.nn.generator import Generator
 from sp_gan_tpu_torch.train.checkpoint import load_generator
 
@@ -226,3 +231,66 @@ class TestGeneratorParity:
         # trained weights, mixed_edge as trained (see the class docstring)
         assert np.abs(ours - theirs).max() < 0.12
         assert np.abs(ours - theirs).mean() < 0.014
+
+
+class TestFusedEval:
+    """The fused eval forward (the serving path: BatchNorm folded, each
+    EdgeBlock's tail in kernel C) against the JAX package's
+    `generator_forward_eval`, jitted with `edge_tail_pallas` in interpret
+    mode, at B=2, N=256, full widths, BatchNorm statistics randomized. Both
+    compute in f32 whatever `dtype` says. Limit: the roadmap's 2e-4;
+    measured 6.3e-7 (defaults) and 6.0e-7 (off, z_norm)."""
+
+    @pytest.mark.parametrize("cfg_kw", [
+        {}, dict(dtype="float32"), dict(eql=True), dict(attn=True),
+        dict(use_head=True), dict(dtype="bfloat16"),
+        dict(dtype="bfloat16_tail32")])
+    def test_supports_matches_jax(self, cfg_kw):
+        assert supports_fused(Config(**cfg_kw)) == \
+            jsupports_fused(JaxConfig(**cfg_kw))
+
+    @pytest.mark.parametrize("cfg_kw", [{}, dict(off=True, z_norm=True)])
+    def test_matches_jax_fused_forward(self, cfg_kw):
+        cfg = Config(np=256, **cfg_kw)
+        G = Generator(cfg, seed=1)
+        randomize_bn(G, seed=2)
+        x, z = template_batch(256, 2), tiled_codes(2, 256, cfg.nz, seed=3)
+        with torch.inference_mode():
+            ours = generator_forward_eval(G, torch.from_numpy(x),
+                                          torch.from_numpy(z)).numpy()
+        jcfg = JaxConfig(np=256, **cfg_kw)
+        fwd = jax.jit(lambda v, x, z: jfused_forward(jcfg, v, x, z))
+        with pltpu.force_tpu_interpret_mode():
+            theirs = np.asarray(fwd(jax_vars(G), jnp.asarray(x),
+                                    jnp.asarray(z)))
+        assert ours.shape == (2, 256, 3) and ours.dtype == np.float32
+        np.testing.assert_allclose(ours, theirs, rtol=2e-4, atol=2e-4)
+
+    def test_matches_unfused_forward(self):
+        """Folding BatchNorm and fusing the tail change only rounding:
+        measured 4.1e-7 against `Generator.forward` in f32."""
+        cfg = Config(np=256, dtype="float32")
+        G = Generator(cfg, seed=4)
+        randomize_bn(G, seed=5)
+        x = torch.from_numpy(template_batch(256, 2))
+        z = torch.from_numpy(tiled_codes(2, 256, cfg.nz, seed=6))
+        with torch.inference_mode():
+            fused = generator_forward_eval(G, x, z)
+            ref = G(x, z)
+        np.testing.assert_allclose(fused.numpy(), ref.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        with pytest.raises(ValueError):
+            generator_forward_eval(Generator(Config(np=64, attn=True)), x, z)
+
+    def test_fold_bn(self):
+        """dense + eval BatchNorm == x @ kernel * scale + shift (f32
+        rounding, measured 4.8e-7)."""
+        dense, bn = layers.TorchDense(16, 8), layers.SPBatchNorm(8)
+        dense.init_weights(np.random.default_rng(0))
+        randomize_bn(bn, seed=1)
+        x = torch.from_numpy(_np((4, 16), seed=2))
+        kernel, aff = fold_bn(dense, bn)
+        assert not kernel.requires_grad and not aff.requires_grad
+        np.testing.assert_allclose(
+            (x @ kernel * aff[0] + aff[1]).numpy(),
+            bn(dense(x)).detach().numpy(), rtol=1e-5, atol=1e-5)

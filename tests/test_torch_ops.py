@@ -22,12 +22,14 @@ from sp_gan_tpu.data import sphere as jsphere
 from sp_gan_tpu.ops import edge as jedge
 from sp_gan_tpu.ops.pairwise import knn_indices as jknn_indices
 from sp_gan_tpu.ops.pairwise import pairwise_sqdist as jpairwise_sqdist
+from sp_gan_tpu.ops.pallas.edgeblock import edge_tail_pallas
 from sp_gan_tpu.ops.pallas.knn import knn_edge_pallas, knn_pallas
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data import noise, sphere
 from sp_gan_tpu_torch.ops import edge, pairwise
-from sp_gan_tpu_torch.ops.kernels import (_build, knn, knn_edge,
-                                          knn_edge_plain, knn_plain)
+from sp_gan_tpu_torch.ops.kernels import (_build, edge_tail, edge_tail_plain,
+                                          knn, knn_edge, knn_edge_plain,
+                                          knn_plain)
 
 torch.set_num_threads(2)   # six test workers share the host's cores
 
@@ -227,6 +229,65 @@ class TestKnnEdgeKernelPlain:
             knn_edge(x, 4, select_mode="approx")
 
 
+def tail_inputs(C, F2, F, k=10, B=1, N=64, seed=0):
+    """Kernel C's inputs at EdgeBlock widths: edges, folded weights with
+    scale rows in [0.5, 1.5], and the conv_out kernel and bias."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def aff(w):
+        return np.stack([rng.uniform(0.5, 1.5, w), n(w, scale=0.2)]) \
+            .astype(np.float32)
+
+    return [n(B, N, k, 2 * C), n(C, F2, scale=C ** -0.5), aff(F2),
+            n(F2, F, scale=F2 ** -0.5), aff(F), n(2 * C, F,
+                                                  scale=(2 * C) ** -0.5),
+            aff(F), n(k, F, F, scale=(k * F) ** -0.5), n(1, F, scale=0.1)]
+
+
+def _tail(C=3, F2=32, F=64):
+    return [torch.from_numpy(a) for a in tail_inputs(C, F2, F, k=4, N=16)]
+
+
+class TestEdgeTailKernelPlain:
+    """Kernel C's plain version against edge_tail_pallas (interpret mode)
+    at both EdgeBlocks' widths: f32 matmuls summed in other orders, measured
+    2.1e-7 on outputs up to 0.45; 1e-5 relative plus 1e-6 allowed."""
+
+    @pytest.mark.parametrize("C, F2, F", [(3, 32, 64), (64, 64, 128)])
+    def test_matches_pallas(self, C, F2, F):
+        args = tail_inputs(C, F2, F)
+        ours = edge_tail_plain(*map(torch.from_numpy, args), k=10)
+        with pltpu.force_tpu_interpret_mode():
+            ref = edge_tail_pallas(*map(jnp.asarray, args), k=10, tq=64)
+        assert ours.shape == (1, 64, F) and ours.dtype == torch.float32
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        args = _tail()
+        before = edge_tail.launches
+        assert torch.equal(edge_tail(*args, k=4, neg=0.2),
+                           edge_tail_plain(*args, k=4, neg=0.2))
+        assert edge_tail.launches == before
+
+    @pytest.mark.parametrize("call, err", [
+        (lambda a: edge_tail(a[0].double(), *a[1:], k=4), TypeError),
+        (lambda a: edge_tail(a[0].transpose(2, 3).contiguous()
+                             .transpose(2, 3), *a[1:], k=4), ValueError),
+        (lambda a: edge_tail(a[0], a[1][:, :28], *a[2:], k=4), ValueError),
+        (lambda a: edge_tail(*a[:8], a[8][0], k=4), ValueError),
+        (lambda a: edge_tail(a[0].to("meta"), *a[1:], k=4), ValueError),
+        (lambda a: edge_tail(*a, k=5), ValueError),
+        (lambda a: edge_tail(*_tail(3, 16, 32), k=4), ValueError),
+    ])
+    def test_wrapper_rejects(self, call, err):
+        with pytest.raises(err):
+            call(_tail())
+
+
 class TestEdgeOps:
     def test_gather_and_features_with_idx(self):
         x = _x((2, 64, 8))
@@ -348,3 +409,9 @@ class TestOnCard:
         idx, dist = knn(x[:, :, :3].contiguous(), 10)
         ridx, rdist = knn_plain(x[:, :, :3].contiguous(), 10)
         assert torch.equal(idx, ridx) and torch.equal(dist, rdist)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for widths in ((3, 32, 64), (64, 64, 128)):
+            args = [torch.from_numpy(a).cuda() for a in tail_inputs(*widths)]
+            torch.testing.assert_close(edge_tail(*args, k=10),
+                                       edge_tail_plain(*args, k=10),
+                                       rtol=1e-4, atol=1e-5)

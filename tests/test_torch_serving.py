@@ -2,6 +2,12 @@
 checkpoint reading, the generate CLI, device choice, and the port's import
 boundary (no JAX, nothing of sp_gan_tpu).
 
+The JAX Manipulator serves every configuration that `supports_fused`
+accepts through `generator_forward_eval` wherever Pallas runs, i.e. on a
+TPU: kNN by `knn_pallas` and `knn_edge_pallas`, each EdgeBlock's tail by
+`edge_tail_pallas`. The reference here is that path, jitted, with
+`pallas_enabled` switched on and the three kernels in interpret mode.
+
 Checkpoints are written by the JAX package's own `save_checkpoint` into
 tmp_path, holding weights drawn by the port from a seed.
 """
@@ -17,9 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from jax.experimental.pallas import tpu as pltpu
+
 from sp_gan_tpu.config import Config as JaxConfig
 from sp_gan_tpu.data.augment import normalize_point_cloud as jnormalize
+from sp_gan_tpu.data.sphere import sphere_template as jsphere_template
 from sp_gan_tpu.manipulate import Manipulator as JaxManipulator
+from sp_gan_tpu.nn import fused_eval as jfused
+from sp_gan_tpu.ops import dispatch as jdispatch
 from sp_gan_tpu.ops.pairwise import knn_indices as jknn_indices
 from sp_gan_tpu.train.checkpoint import save_checkpoint
 from sp_gan_tpu.train.state import TrainState
@@ -36,7 +47,7 @@ torch.set_num_threads(2)   # six test workers share the host's cores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 256
-CFG_KW = dict(np=N, dtype="float32")
+CFG_KW = dict(np=N)
 
 
 @pytest.fixture(autouse=True)
@@ -67,13 +78,42 @@ def run_dir(tmp_path_factory, weights):
     return d
 
 
-def assert_parity_up_to_knn_flips(man, jman, z, ours, theirs):
+@pytest.fixture
+def jax_served(monkeypatch):
+    """fn(params, stats, z) -> (clouds, EdgeConv2's input) of the JAX
+    Manipulator's TPU path, see the module docstring."""
+    seen = []
+    block_eval = jfused.edge_block_eval
+
+    def recording(p, s, x, k, idx=None):
+        seen.append(x)
+        return block_eval(p, s, x, k, idx=idx)
+
+    monkeypatch.setattr(jfused, "edge_block_eval", recording)
+    monkeypatch.setattr(jdispatch, "pallas_enabled", lambda: True)
+    jcfg = JaxConfig(**CFG_KW)
+    fwd = jax.jit(lambda v, x, z: (jfused.generator_forward_eval(
+        jcfg, v, x, z), seen[-1]))
+    sphere = jnp.asarray(jsphere_template(N))
+
+    def run(params, stats, z):
+        x = jnp.broadcast_to(sphere[None], (z.shape[0], N, 3))
+        with pltpu.force_tpu_interpret_mode():
+            out, x1 = fwd({"params": params, "batch_stats": stats}, x,
+                          jnp.asarray(np.asarray(z)))
+        return np.asarray(out), np.asarray(x1)
+
+    return run
+
+
+def assert_parity_up_to_knn_flips(man, z, ours, theirs, their_x1):
     """Per shape: the port's clouds `ours` equal the JAX clouds `theirs`
     within the f32 parity of 2e-4, unless the two packages pick different
     EdgeConv2 neighbors for that shape. EdgeConv2 selects on features that
     the two packages round differently (1e-6 relative), so a near-tie can
     swap, and the global max-pool then moves the whole shape. Every such
-    swap must be a near-tie: exact distances within 1e-4 relative."""
+    swap must be a near-tie: exact distances within 1e-4 relative.
+    `their_x1` is the JAX EdgeConv2's input."""
     got = {}
     hook = man.G.adain1.register_forward_hook(
         lambda m, a, o: got.__setitem__("x1", o.detach().clone()))
@@ -82,13 +122,8 @@ def assert_parity_up_to_knn_flips(man, jman, z, ours, theirs):
     k = man.cfg.k
     ours_idx = knn_edge_plain(got["x1"], k, diff_only=True,
                               select_mode="exact")[1].numpy()
-    x = jnp.broadcast_to(jman.sphere[None], (z.shape[0],) + jman.sphere.shape)
-    capture = jax.jit(lambda v, x, z: jman.G.apply(
-        v, x, z, train=False, template_batch_const=True,
-        capture_intermediates=True, mutable=["intermediates"])[1])
-    st = capture(jman.variables, x, jnp.asarray(z))
-    x1 = np.asarray(st["intermediates"]["adain1"]["__call__"][0], np.float64)
-    their_idx = np.asarray(jknn_indices(jnp.asarray(x1, jnp.float32), k))
+    x1 = np.asarray(their_x1, np.float64)
+    their_idx = np.asarray(jknn_indices(jnp.asarray(their_x1), k))
     swapped = (ours_idx != their_idx).any(axis=(1, 2))
     for b, q, j in np.argwhere(ours_idx != their_idx):
         da = ((x1[b, q] - x1[b, ours_idx[b, q, j]]) ** 2).sum()
@@ -108,32 +143,53 @@ def _man(weights, device="cpu"):
 
 
 class TestServingParity:
-    def test_forward_matches_jax_manipulator(self, weights):
+    def test_forward_matches_jax_manipulator(self, weights, jax_served):
+        """Config() defaults at N=256 (`mixed_edge`, served in f32 by the
+        fused path on both sides); measured 4.0e-7, no neighbor swaps."""
         params, stats, _ = weights
         z = np.broadcast_to(np.random.default_rng(0).standard_normal(
             (3, 1, 128)).astype(np.float32) * 0.2, (3, N, 128))
         man = _man(weights)
-        jman = JaxManipulator(JaxConfig(**CFG_KW), params, stats)
-        ours, theirs = man.forward(z), jman.forward(jnp.asarray(z))
+        assert man.fused
+        ours = man.forward(z)
+        theirs, their_x1 = jax_served(params, stats, z)
         assert ours.shape == (3, N, 3)
-        assert_parity_up_to_knn_flips(man, jman, z, ours, theirs)
+        assert_parity_up_to_knn_flips(man, z, ours, theirs, their_x1)
 
-    def test_generate_is_normalized_jax_forward_of_its_codes(self, weights):
+    def test_generate_is_normalized_jax_forward_of_its_codes(
+            self, weights, jax_served):
         """generate(n=3, batch=2) draws batch b with seed `seed + 2b`; the
-        same codes through the JAX Manipulator, then the JAX package's
-        normalization, give the same clouds."""
+        same codes through the JAX Manipulator's TPU path, then the JAX
+        package's normalization, give the same clouds."""
         params, stats, _ = weights
         man = _man(weights)
         pcs = man.generate(3, seed=5, batch=2)
         assert pcs.shape == (3, N, 3) and pcs.dtype == np.float32
         z = torch.cat([man.sample_codes(2, 5), man.sample_codes(1, 7)])
-        jman = JaxManipulator(JaxConfig(**CFG_KW), params, stats)
-        ref = np.asarray(jnormalize(jman.forward(jnp.asarray(z.numpy()))))
-        # measured: shapes 0 and 2 within 4.3e-7; shape 1 has one adjacent
-        # swap of EdgeConv2 neighbors on features 3.7e-6 apart
-        assert_parity_up_to_knn_flips(man, jman, z.numpy(), pcs, ref)
+        theirs, their_x1 = jax_served(params, stats, z.numpy())
+        ref = np.asarray(jnormalize(jnp.asarray(theirs)))
+        assert_parity_up_to_knn_flips(man, z.numpy(), pcs, ref, their_x1)
         np.testing.assert_allclose(np.sqrt((pcs ** 2).sum(-1)).max(-1), 1.0,
                                    rtol=1e-6)
+
+    def test_unfused_config_matches_jax_manipulator(self):
+        """A configuration the fused path does not take (attn) is served by
+        `Generator.forward`, as the JAX Manipulator serves it by
+        `Generator.apply` on every backend; f32, measured 4.2e-6 in the
+        generator tests, limit 2e-4."""
+        cfg_kw = dict(np=N, dtype="float32", attn=True)
+        G = Generator(Config(**cfg_kw), seed=13)
+        with torch.no_grad():
+            G.attn.gamma.fill_(0.5)
+        params, stats = generator_trees(G)
+        man = Manipulator(Config(**cfg_kw), G, device="cpu")
+        assert not man.fused
+        z = np.broadcast_to(np.random.default_rng(1).standard_normal(
+            (2, 1, 128)).astype(np.float32) * 0.2, (2, N, 128))
+        jman = JaxManipulator(JaxConfig(**cfg_kw), params, stats)
+        np.testing.assert_allclose(man.forward(z),
+                                   jman.forward(jnp.asarray(z)),
+                                   rtol=2e-4, atol=2e-4)
 
     def test_normalize_matches_jax(self):
         pc = np.random.default_rng(1).standard_normal((2, 64, 3)) \
@@ -184,15 +240,6 @@ class TestCheckpoints:
         man = from_checkpoint(latest_checkpoint(str(run_dir)),
                               Config(**CFG_KW), device="cpu")
         np.testing.assert_array_equal(pcs, man.generate(3, seed=1))
-
-
-class TestProfileServe:
-    def test_runs_on_cpu_without_device_time(self):
-        from sp_gan_tpu_torch import profile_serve
-        res = profile_serve.main(["--np", "64", "--batch", "2", "--device",
-                                  "cpu", "--top", "3"])
-        assert res["device"] == "cpu" and res["wall_ms"] > 0
-        assert res["device_busy_ms"] is None and res["top"] == []
 
 
 class TestDevice:
