@@ -1,5 +1,5 @@
-"""Carries generator weights between the JAX package's parameter trees and
-the port's modules.
+"""Carries generator and discriminator weights between the JAX package's
+parameter trees and the port's modules.
 
 The port names its parameters and buffers after the JAX tree paths
 (`edge2.conv_w1.kernel` [in, out], `edge1.bn_w1.mean`, ...), so the carry is
@@ -25,28 +25,36 @@ def _flatten(tree: Mapping, prefix: str, out: dict) -> None:
             out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
 
 
-def generator_state_from_jax(g_params: Mapping, g_stats: Mapping
-                             ) -> "OrderedDict[str, torch.Tensor]":
-    """State dict for `nn.Generator.load_state_dict(..., strict=True)` from
-    the nested numpy dicts of the JAX `g_params` and `g_stats`
-    (`batch_stats`) trees."""
+def state_from_jax(params: Mapping, stats: Mapping
+                   ) -> "OrderedDict[str, torch.Tensor]":
+    """State dict for `load_state_dict(..., strict=True)` of a port module
+    from the nested numpy dicts of a JAX `params` and `batch_stats`
+    tree."""
     out: dict = {}
-    _flatten(g_params, "", out)
-    _flatten(g_stats, "", out)
+    _flatten(params, "", out)
+    _flatten(stats, "", out)
     return OrderedDict(sorted(out.items()))
 
 
-def generator_trees(generator: torch.nn.Module) -> Tuple[dict, dict]:
-    """The inverse carry: nested numpy dicts (g_params, g_stats) in the JAX
-    tree layout from a port `Generator`'s parameters and buffers."""
-    def nest(named) -> dict:
-        tree: dict = {}
-        for name, t in named:
-            *path, leaf = name.split(".")
-            node = tree
-            for p in path:
-                node = node.setdefault(p, {})
-            node[leaf] = t.detach().cpu().numpy().copy()
-        return tree
-    return (nest(generator.named_parameters()),
-            nest(generator.named_buffers()))
+def nest(named) -> dict:
+    """Nested numpy dicts in the JAX tree layout from (dotted name, tensor)
+    pairs."""
+    tree: dict = {}
+    for name, t in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
+    return tree
+
+
+def trees(module: torch.nn.Module) -> Tuple[dict, dict]:
+    """The inverse carry: (params, batch_stats) nested numpy dicts in the
+    JAX tree layout from a port module's parameters and buffers."""
+    return nest(module.named_parameters()), nest(module.named_buffers())
+
+
+# the generator's and the discriminator's carries are the same rename
+generator_state_from_jax = discriminator_state_from_jax = state_from_jax
+generator_trees = discriminator_trees = trees

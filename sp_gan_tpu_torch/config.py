@@ -1,8 +1,9 @@
-"""Typed experiment configuration, the port's own copy of
-`sp_gan_tpu/config.py::Config`.
+"""Typed experiment configuration and the training CLI's flags, the port's
+own copy of `sp_gan_tpu/config.py` (`Config`, `build_argparser`,
+`parse_args`).
 
 Every field and default is the JAX package's, so a `config.json` written by
-either package loads in the other. Fields that steer only the JAX/TPU
+either package loads in the other, and the CLIs take the same flags. Fields that steer only the JAX/TPU
 program (`remat`, `mesh_*`, `data_axis`, `points_axis`, `use_pallas`,
 `fused_*`, `donate_state`, `steps_per_call`, `watchdog_secs`) are accepted
 and ignored by the port; `knn_mode="approx"` is rejected where it would
@@ -11,6 +12,7 @@ change the result (see `nn/generator.py`).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass
@@ -125,9 +127,27 @@ class Config:
         return self.dtype in ("bfloat16", "bfloat16_g", "bfloat16_tail32")
 
     @property
+    def d_bf16(self) -> bool:
+        """Discriminator trunk compute in bf16 (its head stays f32)."""
+        return self.dtype in ("bfloat16", "bfloat16_d", "bfloat16_tail32")
+
+    @property
     def g_tail_f32(self) -> bool:
         """The generator's output MLP stays f32 under bf16."""
         return self.dtype == "bfloat16_tail32"
+
+    @property
+    def bn_groups(self) -> int:
+        """BatchNorm statistic groups: the JAX package's per-shard groups
+        (`bn_stats="per_shard"` over a mesh). The one-card port trains
+        with one group; `make_train_step` refuses more until the
+        data-parallel slice."""
+        if self.bn_stats == "per_shard" and self.data_axis is None:
+            g = 1
+            for d in self.mesh_shape:
+                g *= int(d)
+            return max(1, g)
+        return 1
 
     @property
     def k(self) -> int:
@@ -147,3 +167,46 @@ class Config:
         d["mesh_axes"] = tuple(d.get("mesh_axes", ("data",)))
         known = {f.name for f in dataclasses.fields(Config)}
         return Config(**{k: v for k, v in d.items() if k in known})
+
+
+def _add_bool(p: argparse.ArgumentParser, name: str, default: bool) -> None:
+    p.add_argument(f"--{name}", action=argparse.BooleanOptionalAction,
+                   default=default)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The training CLI's flags, one per `Config` field with the same name,
+    type and default as the JAX package's (`--flag/--no-flag` for
+    booleans). The JAX-only knobs (`steps_per_call`, `donate_state`,
+    `use_pallas`, `remat`, `mesh_*`, `fused_*`, `watchdog_secs`) are
+    accepted and have no effect in the port."""
+    c = Config()
+    p = argparse.ArgumentParser(description="sp_gan_tpu_torch")
+    for f in dataclasses.fields(Config):
+        default = getattr(c, f.name)
+        if f.name in ("mesh_shape", "mesh_axes"):
+            p.add_argument(f"--{f.name}", nargs="+", default=list(default),
+                           type=int if f.name == "mesh_shape" else str)
+        elif isinstance(default, bool):
+            _add_bool(p, f.name, default)
+        elif default is None:
+            p.add_argument(f"--{f.name}", default=None)
+        else:
+            p.add_argument(f"--{f.name}", type=type(default), default=default)
+    return p
+
+
+def config_from_namespace(ns: argparse.Namespace) -> Config:
+    """A `Config` from parsed flags; keys that are not fields are
+    dropped."""
+    known = {f.name for f in dataclasses.fields(Config)}
+    d = {k: v for k, v in vars(ns).items() if k in known}
+    d["mesh_shape"] = tuple(d["mesh_shape"])
+    d["mesh_axes"] = tuple(d["mesh_axes"])
+    if d.get("steps_per_epoch") is not None:
+        d["steps_per_epoch"] = int(d["steps_per_epoch"])
+    return Config(**d)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
+    return config_from_namespace(build_argparser().parse_args(argv))

@@ -1,5 +1,6 @@
-"""Generator and its layers."""
+"""Generator, discriminator and their layers."""
 
+from sp_gan_tpu_torch.nn.discriminator import Discriminator
 from sp_gan_tpu_torch.nn.generator import Generator
 
-__all__ = ["Generator"]
+__all__ = ["Discriminator", "Generator"]

@@ -1,5 +1,5 @@
 """Sphere-guided generator, the port of `sp_gan_tpu/nn/generator.py`
-(eval forward).
+(training and eval forward).
 
 Per-point style from (sphere xyz ++ z) -> two attention EdgeConvs with
 AdaIN -> global max-pool branch -> MLP tail with tanh, channel-last. Module
@@ -72,16 +72,19 @@ class Generator(nn.Module):
 
     def forward(self, x: torch.Tensor, z: torch.Tensor, train: bool = False,
                 edge1_idx: Optional[torch.Tensor] = None,
-                template_batch_const: bool = False) -> torch.Tensor:
+                template_batch_const: bool = False,
+                edge1_ee: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: sphere points [B, N, 3]; z: codes [B, N, nz] -> [B, N, 3] f32.
+        `train` normalizes with batch statistics and updates every
+        BatchNorm's running averages in place.
 
         edge1_idx: precomputed kNN indices [B, N, k] of the template for
-        the first EdgeConv. template_batch_const: every x[b] is the same
+        the first EdgeConv; edge1_ee: its precomputed edge tensor
+        [B, N, k, 6] (the training step's run constant). Both are ignored
+        with use_head. template_batch_const: every x[b] is the same
         template, so the first EdgeConv (which z does not reach) runs at
-        batch 1 and is broadcast; ignored with use_head."""
-        if train:
-            raise NotImplementedError("the generator's training mode is not "
-                                      "ported yet")
+        batch 1, its BatchNorm statistics taken at batch 1, and is
+        broadcast; the broadcast's backward sums over the batch."""
         cfg = self.cfg
         B, N, _ = x.shape
         dtype = torch.bfloat16 if cfg.g_bf16 else torch.float32
@@ -96,13 +99,14 @@ class Generator(nn.Module):
         if cfg.use_head:
             pc = lrelu(self.pc_head1(pc), NEG)
             pc = lrelu(self.pc_head2(pc), NEG)
-            edge1_idx = None   # pc is a learned lift, not the template
+            edge1_idx = edge1_ee = None   # pc is a learned lift
         if template_batch_const and not cfg.use_head:
             i1 = None if edge1_idx is None else edge1_idx[:1]
-            x1 = lrelu(self.edge1(pc[:1], train, i1), NEG2)
+            e1 = None if edge1_ee is None else edge1_ee[:1]
+            x1 = lrelu(self.edge1(pc[:1], train, i1, e1), NEG2)
             x1 = x1.expand(B, N, self.c1_out)
         else:
-            x1 = lrelu(self.edge1(pc, train, edge1_idx), NEG2)
+            x1 = lrelu(self.edge1(pc, train, edge1_idx, edge1_ee), NEG2)
         x1 = self.adain1(x1, style)
 
         x2 = lrelu(self.edge2(x1, train), NEG2)

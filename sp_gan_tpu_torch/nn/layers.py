@@ -1,4 +1,4 @@
-"""Generator layers, the port of `sp_gan_tpu/nn/layers.py` (eval path).
+"""Generator and discriminator layers, the port of `sp_gan_tpu/nn/layers.py`.
 
 Channel-last like the JAX package ([B, N, C]; a pointwise Conv1d is a
 Dense on the last axis). Parameter and buffer names are the JAX tree's
@@ -11,10 +11,14 @@ initializers from a numpy generator:
 * `EqualDense`: kernel N(0, 1), bias 0, kernel scaled by sqrt(2/fan_in) in
   the forward;
 * `AdaptivePointNorm`: style kernel N(0, 1), bias [gamma=1, beta=0];
-* `SPBatchNorm`: scale 1, bias 0, running mean 0, running var 1.
+* `SPBatchNorm`, `MaxPoolBNLReLU`: scale 1, bias 0, running mean 0,
+  running var 1.
 
-BatchNorm runs on its running statistics only (mean and the biased
-variance, eps 1e-5): training mode arrives with the training slice.
+BatchNorm follows the JAX package, not `torch.nn.BatchNorm`: statistics in
+f32 over every axis but the last, `var = E[x^2] - mean^2` (biased), running
+averages `0.9 * old + 0.1 * batch` updated in place in training mode, eps
+1e-5. The JAX package's per-shard statistic groups wait for the
+data-parallel slice (`train.step.make_train_step` refuses them).
 """
 
 from __future__ import annotations
@@ -63,8 +67,14 @@ class TorchDense(nn.Module):
             if self.bias is not None:
                 self.bias.copy_(_uniform(rng, self.bias.shape, fin))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel.to(x.dtype))
+    def forward(self, x: torch.Tensor, f32_sums: bool = False
+                ) -> torch.Tensor:
+        """`f32_sums`: x's dtype for the operands, the f32 sums kept
+        unrounded (see `EdgeBlock`)."""
+        k = self.kernel.to(x.dtype)
+        if f32_sums:
+            x, k = x.float(), k.float()
+        y = torch.matmul(x, k)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -106,10 +116,12 @@ class SplitEdgeDense(nn.Module):
 
     init_weights = TorchDense.init_weights
 
-    def forward(self, central: torch.Tensor,
-                diff: torch.Tensor) -> torch.Tensor:
+    def forward(self, central: torch.Tensor, diff: torch.Tensor,
+                f32_sums: bool = False) -> torch.Tensor:
         C = central.shape[-1]
         kc = self.kernel.to(diff.dtype)
+        if f32_sums:
+            central, diff, kc = central.float(), diff.float(), kc.float()
         v = (torch.matmul(diff, kc[C:])
              + torch.matmul(central, kc[:C])[:, :, None, :])
         return v + self.bias.to(v.dtype)
@@ -125,18 +137,19 @@ def instance_norm_points(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 class SPBatchNorm(nn.Module):
-    """BatchNorm over every axis but the last, f32 statistics, eval mode:
-    `(x - mean) * (rsqrt(var + eps) * scale) + bias` with the running mean
-    and running biased variance, applied in f32 and cast back to x's
-    dtype."""
+    """BatchNorm over every axis but the last:
+    `(x - mean) * (rsqrt(var + eps) * scale) + bias` in f32, cast back to
+    x's dtype. Training mode normalizes with the batch statistics and
+    updates the running ones in place; eval mode uses the running ones."""
 
-    def __init__(self, c: int, epsilon: float = 1e-5):
+    def __init__(self, c: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
         self.epsilon = epsilon
+        self.momentum = momentum
 
     def init_weights(self, rng: np.random.Generator) -> None:
         with torch.no_grad():
@@ -145,12 +158,49 @@ class SPBatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
+    def statistics(self, xf: torch.Tensor, train: bool):
+        """(mean, biased var) of f32 `xf` over every axis but the last in
+        training mode, updating the running averages; the running ones in
+        eval mode."""
+        if not train:
+            return self.mean, self.var
+        axes = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dim=axes)
+        var = (xf * xf).mean(dim=axes) - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "SPBatchNorm training mode is not ported yet")
-        inv = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return ((x.float() - self.mean) * inv + self.bias).to(x.dtype)
+        xf = x.float()
+        mean, var = self.statistics(xf, train)
+        inv = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+class MaxPoolBNLReLU(SPBatchNorm):
+    """`max_n lrelu(bn(h))` over the points of h [B, N, C], computed as
+    `lrelu(bn(max_n h))` where scale >= 0 and `lrelu(bn(min_n h))` where
+    scale < 0 (BN is a per-channel affine and leaky ReLU is increasing), so
+    the [B, N, C] tensor is only reduced (max, min, mean, mean of squares)
+    and never normalized elementwise. Returns [B, C] f32. Parameter and
+    buffer names are `SPBatchNorm`'s. `amax`/`amin` split the gradient
+    evenly among tied extremes, as JAX's max does."""
+
+    def __init__(self, c: int, epsilon: float = 1e-5, momentum: float = 0.9,
+                 negative_slope: float = 0.01):
+        super().__init__(c, epsilon, momentum)
+        self.negative_slope = negative_slope
+
+    def forward(self, h: torch.Tensor, train: bool = False) -> torch.Tensor:
+        hf = h.float()
+        mean, var = self.statistics(hf, train)
+        pooled = torch.where(self.scale >= 0, hf.amax(dim=1),
+                             hf.amin(dim=1))                  # [B, C]
+        inv = torch.rsqrt(var + self.epsilon) * self.scale
+        return lrelu((pooled - mean) * inv + self.bias, self.negative_slope)
 
 
 class AdaptivePointNorm(nn.Module):
@@ -189,7 +239,19 @@ class EdgeBlock(nn.Module):
     conv_w turns the diffs into softmax weights over the k neighbors,
     conv_x into values; their product is contracted over (k, fout).
     `mixed` runs the [B, N, k, *] tensors in bf16 (selection stays f32)
-    and returns f32."""
+    and returns f32. Its three dense layers that feed a BatchNorm take bf16
+    operands and hand the BatchNorm their f32 sums unrounded, as the JAX
+    package's compiled step does (XLA drops the bf16 rounding between a
+    dot and the f32 BatchNorm that reads it). Rounding there would cost up
+    to 8% of a channel's std where its |mean| is 40 std, and left the
+    block's output two to three times farther from float32 than JAX's.
+
+    The neighbors come from x (kNN on its f32 values), from `idx` [B, N, k]
+    or, with `ee` [B, N, k, 2C] (a precomputed `[central, nbr - central]`
+    tensor: the training step's run-constant template edges), from
+    `ee[..., C:]`, cast to bf16 under `mixed` as in the JAX package. The
+    two given forms round differently under `mixed`: `idx` gives
+    `bf16(nbr) - bf16(central)`, `ee` gives `bf16(nbr - central)`."""
 
     def __init__(self, fin: int, fout: int, k: int, mixed: bool = False,
                  negative_slope: float = 0.01):
@@ -213,12 +275,17 @@ class EdgeBlock(nn.Module):
             self.out_bias.copy_(_uniform(rng, self.out_bias.shape, fan_in))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                idx: Optional[torch.Tensor] = None,
+                ee: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, C = x.shape
         if C != self.fin:
             raise ValueError(f"EdgeBlock expects {self.fin} channels, got {C}")
         out_dtype = x.dtype
-        if self.mixed:
+        if ee is not None:
+            diff = ee[..., C:]
+            if self.mixed:
+                diff = diff.to(torch.bfloat16)
+        elif self.mixed:
             if idx is None:
                 diff = edge_diff_features(x, self.k, out_dtype=torch.bfloat16)
             else:
@@ -229,11 +296,16 @@ class EdgeBlock(nn.Module):
         central = x.to(diff.dtype)
         slope = self.negative_slope
 
-        w = lrelu(self.bn_w1(self.conv_w1(diff), train), slope)
-        w = lrelu(self.bn_w2(self.conv_w2(w), train), slope)
+        f32, dt = self.mixed, diff.dtype
+
+        def bn(norm, h):
+            return norm(h, train).to(dt)
+
+        w = lrelu(bn(self.bn_w1, self.conv_w1(diff, f32)), slope)
+        w = lrelu(bn(self.bn_w2, self.conv_w2(w, f32)), slope)
         w = torch.softmax(w, dim=2)                           # over k
 
-        v = lrelu(self.bn_x(self.conv_x(central, diff), train), slope)
+        v = lrelu(bn(self.bn_x, self.conv_x(central, diff, f32)), slope)
         v = v * w
 
         # conv_out: the reference's Conv2d with a [1, k] kernel

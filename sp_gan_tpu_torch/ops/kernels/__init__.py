@@ -4,8 +4,11 @@ version. See `_build.py` for how the CUDA sources are compiled and loaded."""
 from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail, edge_tail_plain
 from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
 from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge, knn_edge_plain
+from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
+                                                  scatter_diff_bwd_plain)
 
-KERNELS = {"knn": knn, "knn_edge": knn_edge, "edge_tail": edge_tail}
+KERNELS = {"knn": knn, "knn_edge": knn_edge, "edge_tail": edge_tail,
+           "scatter_diff_bwd": scatter_diff_bwd}
 
 
 def reset_launch_counts() -> None:
@@ -19,4 +22,5 @@ def launch_counts() -> dict:
 
 __all__ = ["KERNELS", "edge_tail", "edge_tail_plain", "knn", "knn_edge",
            "knn_edge_plain", "knn_plain", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "scatter_diff_bwd",
+           "scatter_diff_bwd_plain"]

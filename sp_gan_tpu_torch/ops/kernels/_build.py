@@ -40,6 +40,8 @@ SIGNATURES = {
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, vbuf, out, B, N, C, F2, F, k,
     # neg, stream
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
+    "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,1 +1,2 @@
-"""Checkpoint reading (training comes in a later slice)."""
+"""Training: state and optimizers, the G+D step, checkpoints and the
+trainer (`python -m sp_gan_tpu_torch.train`)."""
