@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--ckpt PATH] [--step_seeds 3]
+                          [--metric_clouds 64]
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -26,7 +27,19 @@ Phases, in order; any failure raises and the script exits nonzero:
               the card against the same steps on the CPU, seed after seed
               until --step_seeds of them compared G's gradients; one more
               step under torch.profiler.
-6. timings  - median kernel times (CUDA events) beside their plain
+6. metrics  - kernel E (the EMD auction) against its plain version on the
+              card, bit for bit, at [4, 2048, 2048] and [2, 4096, 4096] in
+              the protocol regime (eps 0.002, 10000 iterations, 4 phases)
+              and the training regime (eps 0.005, 50, 1 phase); at N=256
+              its cost within N * eps of scipy's optimum; then the metric
+              protocol, `compute_all_metrics(use_emd=True)`, on
+              --metric_clouds generated clouds (normalized) against as
+              many synthetic reference clouds at N=2048, whose kernel
+              launches must be those its batching implies; the protocol at
+              S=4, N=256 on the card against the CPU; FPD with a seeded
+              DGCNN; one more protocol run at half the clouds under
+              torch.profiler.
+7. timings  - median kernel times (CUDA events) beside their plain
               versions and the card's bound for the same work.
 
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -54,12 +67,16 @@ HBM_BYTES_PER_S = 3.35e12
 # kernel launches per request of the fused eval path: EdgeConv1 selects
 # with kernel A, EdgeConv2 with kernel B, and each runs its tail as kernel C
 PER_REQUEST = {"knn": 1, "knn_edge": 1, "edge_tail": 2,
-               "scatter_diff_bwd": 0}
+               "scatter_diff_bwd": 0, "auction": 0}
 # kernel launches per default training step: EdgeConv2's kNN and diff
 # edges (kernel B) in the D phase and in the G phase, and their backward
 # (kernel D) in the G phase; EdgeConv1 runs on the template's run-constant
 # edges, and sampling (kernels A and C) is not part of the step
-PER_STEP = {"knn": 0, "knn_edge": 2, "edge_tail": 0, "scatter_diff_bwd": 1}
+PER_STEP = {"knn": 0, "knn_edge": 2, "edge_tail": 0, "scatter_diff_bwd": 1,
+            "auction": 0}
+# the metric protocol's two regimes: (eps, iters, eps-scaling phases)
+PROTOCOL = (0.002, 10000, 4)
+TRAIN_REGIME = (0.005, 50, 1)
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 # dense biases that feed a training-mode BatchNorm: their exact gradient is
 # zero, so they are compared on the scale of their layer's kernel gradient
@@ -602,6 +619,191 @@ def train_phase(seed: int, step_seeds: int) -> dict:
             "small_step": small, "profile": prof}
 
 
+def auction_pairs(n: int, pairs: int, seed: int):
+    """d [pairs, n, n] on the card between normalized synthetic shapes."""
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.manipulate import normalize_point_cloud
+    from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
+    pcs = normalize_point_cloud(torch.as_tensor(SyntheticDataset(
+        2 * pairs, n, seed=seed).data, device="cuda"))
+    return pairwise_sqdist(pcs[:pairs], pcs[pairs:])
+
+
+def check_auction(d, regime) -> dict:
+    """Kernel E against its plain version on the card: assignments and
+    block-rounds bit-equal (the two run the same f32 operations in the same
+    order); a pair whose cap was not spent must be a bijection. Returns the
+    rounds, the plain version's wall time and the kernel's assignment."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.auction import (auction, auction_plain,
+                                                      block_width)
+    eps, iters, phases = regime
+    B, N, M = d.shape
+    asg, rounds = auction(d, eps, iters, phases)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    asg_p, rounds_p = auction_plain(d, eps, iters, phases)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    tag = f"auction[{list(d.shape)}, eps {eps}, iters {iters}, {phases} ph]"
+    if not (torch.equal(asg, asg_p) and torch.equal(rounds, rounds_p)):
+        raise AssertionError(
+            f"{tag}: {(asg != asg_p).sum().item()} assignments and rounds "
+            f"{rounds.tolist()} vs {rounds_p.tolist()} differ from the plain "
+            "version")
+    cap = iters * (N // block_width(N, 64))
+    spent = [int(r) >= cap for r in rounds.tolist()]
+    for b in range(B):
+        if not spent[b] and torch.unique(asg[b]).numel() != N:
+            raise AssertionError(f"{tag}: pair {b} converged without a "
+                                 "bijection")
+    log(f"  {tag}: bit-equal to the plain version; block-rounds "
+        f"{rounds.tolist()} (cap {cap}, spent {spent}); plain version "
+        f"{plain_ms:.0f} ms")
+    return {"rounds": rounds.tolist(), "cap": cap, "cap_spent": spent,
+            "plain_ms": plain_ms, "asg": asg}
+
+
+def check_auction_optimum(seed: int) -> dict:
+    """At N=256 (protocol regime) each pair's cost within N * eps of
+    scipy's linear_sum_assignment optimum."""
+    from scipy.optimize import linear_sum_assignment
+    eps = PROTOCOL[0]
+    d = auction_pairs(256, 4, seed)
+    res = check_auction(d, PROTOCOL)
+    dn = d.cpu().double().numpy()
+    gaps = []
+    for b in range(d.shape[0]):
+        r, c = linear_sum_assignment(dn[b])
+        got = dn[b][range(256), res["asg"][b].cpu().numpy()].sum()
+        gaps.append(float(got - dn[b][r, c].sum()))
+    log(f"  auction at N=256: cost minus the optimum {gaps} (limit "
+        f"{256 * eps})")
+    if max(gaps) > 256 * eps + 1e-5:
+        raise AssertionError(f"auction: cost beyond N * eps of the optimum "
+                             f"{gaps}")
+    return {"gaps": gaps, "limit": 256 * eps}
+
+
+def auction_bound(d, rounds) -> tuple:
+    """Kernel E's bound: every block-round scans w rows of M columns (a
+    subtract, two compares and a max per element) and the function reads d
+    once and writes the assignment."""
+    B, N, M = d.shape
+    elements = sum(rounds) * 64 * M
+    return bound(4 * elements, 4 * B * N * M + 4 * B * N)
+
+
+def metrics_phase(man, seed: int, S: int) -> dict:
+    """Kernel E's checks, the metric protocol on the card, its CPU
+    cross-check, FPD and a profile; see the module docstring."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.eval import FPD, compute_all_metrics
+    from sp_gan_tpu_torch.eval.metrics import emd_pairs_per_call
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops.kernels.auction import auction
+    out = {"checks": {}}
+    for n, pairs in ((2048, 4), (4096, 2)):
+        d = auction_pairs(n, pairs, seed + n)
+        for name, regime in (("protocol", PROTOCOL),
+                             ("train", TRAIN_REGIME)):
+            res = check_auction(d, regime)
+            out["checks"][f"{n}/{name}"] = {
+                k: res[k] for k in ("rounds", "cap", "cap_spent",
+                                    "plain_ms")}
+        eps, iters, phases = PROTOCOL
+        ms = cuda_ms(lambda: auction(d, eps, iters, phases), 3)
+        b_ms, b_by = auction_bound(d, out["checks"][f"{n}/protocol"]
+                                   ["rounds"])
+        out[n] = {"shape": list(d.shape), "ms": ms,
+                  "plain_ms": out["checks"][f"{n}/protocol"]["plain_ms"],
+                  "bound_ms": b_ms, "bound_by": b_by}
+        log(f"  kernel E at {list(d.shape)}, protocol regime: {ms:.2f} ms "
+            f"(bound {b_ms:.3f} ms by {b_by})")
+        del d
+    out["optimum"] = check_auction_optimum(seed)
+
+    # the metric protocol: S generated clouds against S reference clouds
+    gen = man.generate(S, seed=seed + 7)
+    ref = SyntheticDataset(S, gen.shape[1], seed=seed + 8).data
+    per = emd_pairs_per_call(S, gen.shape[1], gen.shape[1])
+    expected = 3 * -(-S * S // per)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    m = compute_all_metrics(gen, ref, normalize=True, use_emd=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    solves = 3 * S * S
+    log(f"  compute_all_metrics(S={S}, N={gen.shape[1]}, use_emd): {m}")
+    log(f"  wall {wall:.2f} s, {solves / wall:.1f} EMD solves/s; launches "
+        f"{launches}, kernel E expected {expected} ({per} pairs a call)")
+    if launches != {**{k: 0 for k in launches}, "auction": expected}:
+        raise AssertionError(f"protocol launches {launches}, expected "
+                             f"{expected} of kernel E and none else")
+    for k, v in m.items():
+        if not np.isfinite(v):
+            raise AssertionError(f"protocol: {k} = {v}")
+    for k in ("COV-CD", "1NN-CD", "COV-EMD", "1NN-EMD"):
+        if not 0 <= m[k] <= 1:
+            raise AssertionError(f"protocol: {k} = {m[k]} outside [0, 1]")
+    if not (m["MMD-CD"] > 0 and m["MMD-EMD"] > 0):
+        raise AssertionError("protocol: MMD must be positive")
+
+    # one launch the size the protocol makes (its gen-by-ref pairs), timed
+    # alone, with the bound of the rounds its pairs ran
+    from sp_gan_tpu_torch.manipulate import normalize_point_cloud
+    from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
+    pairs = torch.arange(min(per, S * S), device="cuda")
+    d = pairwise_sqdist(
+        normalize_point_cloud(torch.as_tensor(gen, device="cuda"))[pairs // S],
+        torch.as_tensor(ref, device="cuda")[pairs % S])
+    rounds = auction(d, *PROTOCOL)[1].tolist()
+    ms = cuda_ms(lambda: auction(d, *PROTOCOL), 2)
+    b_ms, b_by = auction_bound(d, rounds)
+    out["launch"] = {"shape": list(d.shape), "ms": ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "rounds_mean": sum(rounds) / len(rounds),
+                     "rounds_max": max(rounds)}
+    log(f"  kernel E at one protocol launch {list(d.shape)}: {ms:.2f} ms, "
+        f"block-rounds mean {sum(rounds) / len(rounds):.0f}, max "
+        f"{max(rounds)}; bound {b_ms:.3f} ms by {b_by} "
+        f"({100 * b_ms / ms:.1f}% of bound)")
+    del d
+
+    # the same protocol at S=4, N=256 on the card and on the CPU
+    small = [SyntheticDataset(4, 256, seed=seed + s).data for s in (9, 10)]
+    card = compute_all_metrics(*small, normalize=True, use_emd=True,
+                               device="cuda")
+    cpu = compute_all_metrics(*small, normalize=True, use_emd=True,
+                              device="cpu")
+    log(f"  protocol at S=4, N=256: card {card}, cpu {cpu}")
+    for k in cpu:
+        if not np.isclose(card[k], cpu[k], rtol=1e-5, atol=0):
+            raise AssertionError(f"protocol: card {k}={card[k]} vs cpu "
+                                 f"{cpu[k]}")
+
+    # FPD with a DGCNN drawn from the seed, on the same clouds
+    t = time.perf_counter()
+    fpd = FPD(seed=seed, device="cuda")(gen, ref)
+    log(f"  FPD (random-feature DGCNN, k=40, 1024 dims): {fpd:.4f} in "
+        f"{time.perf_counter() - t:.2f} s")
+    if not np.isfinite(fpd):
+        raise AssertionError(f"FPD = {fpd}")
+    half = S // 2
+    prof = profile_call(lambda: compute_all_metrics(
+        gen[:half], ref[:half], normalize=True, use_emd=True,
+        device="cuda"), f"compute_all_metrics(S={half}, use_emd)")
+    out.update(metrics=m, wall_s=wall, solves_per_sec=solves / wall,
+               launches=launches, expected_launches=expected,
+               pairs_per_call=per, small=card, fpd=fpd, profile=prof)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -612,6 +814,9 @@ def main() -> None:
     ap.add_argument("--step_seeds", type=int, default=3,
                     help="seeds whose small card step must have G's "
                     "gradients compared with the CPU's")
+    ap.add_argument("--metric_clouds", type=int, default=64,
+                    help="generated and reference clouds of the metric "
+                    "protocol's run")
     args = ap.parse_args()
     ph = Phases()
 
@@ -725,6 +930,15 @@ def main() -> None:
     ph.end()
 
     # ---------------------------------------------------------------- 6
+    ph.start("metrics")
+    met = metrics_phase(man, args.seed, args.metric_clouds)
+    log(json.dumps({"metrics": {k: met[k] for k in (
+        "metrics", "wall_s", "solves_per_sec", "launches",
+        "expected_launches", "pairs_per_call", "checks", "optimum", "launch",
+        "small", "fpd", "profile")}}))
+    ph.end()
+
+    # ---------------------------------------------------------------- 7
     ph.start("timings")
     from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
                                                         edge_tail_plain)
@@ -849,6 +1063,22 @@ def main() -> None:
         bound_by=calls["edge2"]["bound_by"], library_ms=None,
         per="one request: the edge1 and the edge2 call", calls=calls,
         path="serve"))
+    # kernel E at both sizes, protocol regime (measured in phase 6)
+    for n in (2048, 4096):
+        rows.append(dict(
+            name="auction", route="cuda",
+            source="sp_gan_tpu_torch/csrc/auction.cu",
+            replaces=("sp_gan_tpu/ops/pallas/auction.py:510 "
+                      "(auction_assignment_pallas blockgs, "
+                      "_auction_kernel_blockgs :127)" if n == 2048 else
+                      "sp_gan_tpu/ops/pallas/auction.py:448 "
+                      "(auction_assignment_pallas blockgs_hbm, "
+                      "_auction_kernel_blockgs_hbm :240)"),
+            launches=met["launches"]["auction"], max_abs_err=0,
+            max_err=0, library_ms=None, path="metrics",
+            regime="eps 0.002, 10000 iterations, 4 phases",
+            block_rounds=met["checks"][f"{n}/protocol"]["rounds"],
+            **met[n]))
     for r in rows:
         log(f"  {r['name']} ({r['path']}): {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.3f} ms, "

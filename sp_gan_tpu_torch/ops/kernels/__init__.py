@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels, each beside its plain PyTorch
 version. See `_build.py` for how the CUDA sources are compiled and loaded."""
 
+from sp_gan_tpu_torch.ops.kernels.auction import auction, auction_plain
 from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail, edge_tail_plain
 from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
 from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge, knn_edge_plain
@@ -8,7 +9,7 @@ from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
                                                   scatter_diff_bwd_plain)
 
 KERNELS = {"knn": knn, "knn_edge": knn_edge, "edge_tail": edge_tail,
-           "scatter_diff_bwd": scatter_diff_bwd}
+           "scatter_diff_bwd": scatter_diff_bwd, "auction": auction}
 
 
 def reset_launch_counts() -> None:
@@ -20,7 +21,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "edge_tail", "edge_tail_plain", "knn", "knn_edge",
+__all__ = ["KERNELS", "auction", "auction_plain", "edge_tail", "edge_tail_plain", "knn", "knn_edge",
            "knn_edge_plain", "knn_plain", "launch_counts",
            "reset_launch_counts", "scatter_diff_bwd",
            "scatter_diff_bwd_plain"]

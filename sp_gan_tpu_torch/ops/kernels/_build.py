@@ -30,7 +30,8 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
@@ -42,6 +43,8 @@ SIGNATURES = {
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # d, asg, rounds, B, N, M, w, phases, eps (host f32[16]), cap, stream
+    "spgan_auction": (_P,) * 3 + (_I,) * 5 + (_P, _L, _P),
 }
 
 _lock = threading.Lock()

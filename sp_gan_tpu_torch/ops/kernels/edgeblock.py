@@ -40,8 +40,8 @@ def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
         raise ValueError(f"ee must be [B, N, k, 2C], got {tuple(ee.shape)}")
     B, N, kk, C2 = ee.shape
     C, F2, F = C2 // 2, w1.shape[-1], w2.shape[-1]
-    if kk != k or not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} must equal ee's k={kk}, within 1..{MAX_K}")
+    if kk != k or k < 1:
+        raise ValueError(f"k={k} must equal ee's k={kk}, at least 1")
     if F not in WIDTHS or F2 % 4:
         raise ValueError(f"F={F} must be one of {WIDTHS} and F2={F2} a "
                          "multiple of 4")
@@ -84,6 +84,10 @@ def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
     if ee.device.type != "cuda":
         raise ValueError(f"edge_tail runs on cuda or cpu, not {ee.device}")
     B, N, _, C2 = ee.shape
+    if k > MAX_K:
+        raise ValueError(f"kernel C (edge_tail) takes k <= {MAX_K} (--nk <= "
+                         f"{2 * MAX_K}) on CUDA; got k={k} (from --nk "
+                         f"{2 * k})")
     F2, F = w1.shape[-1], w2.shape[-1]
     # scratch for v; freeing it on return is safe, since the caching
     # allocator hands it only to work queued later on this stream

@@ -34,12 +34,22 @@ def _check(x: torch.Tensor, k: int) -> None:
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     B, N, C = x.shape
-    if not 1 <= k <= min(MAX_K, N):
-        raise ValueError(f"k={k} outside 1..min({MAX_K}, N={N})")
-    if not 1 <= C <= MAX_C:
-        raise ValueError(f"C={C} outside 1..{MAX_C}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"B={B} outside 1..65535")
+    if not 1 <= k <= N - 1:
+        raise ValueError(f"k={k} outside 1..N-1={N - 1}")
+    if min(B, C) < 1:
+        raise ValueError(f"x must be non-empty, got shape {tuple(x.shape)}")
+
+
+def check_kernel_limits(name: str, k: int, C: int = 1, B: int = 1) -> None:
+    """The CUDA kernels' limits, checked before a launch: k <= 32 (the
+    generator's --nk <= 64), C <= 128 channels and B <= 65535 clouds. The
+    plain versions have none of them, but a CUDA tensor never falls back
+    to a plain version."""
+    if k > MAX_K or C > MAX_C or B > 65535:
+        raise ValueError(
+            f"{name} takes k <= {MAX_K} (--nk <= {2 * MAX_K}), C <= {MAX_C} "
+            f"channels and B <= 65535 clouds on CUDA; got k={k} (from --nk "
+            f"{2 * k}), C={C}, B={B}")
 
 
 def knn_plain(x: torch.Tensor, k: int):
@@ -59,6 +69,7 @@ def knn(x: torch.Tensor, k: int):
     if x.device.type != "cuda":
         raise ValueError(f"knn runs on cuda or cpu, not {x.device}")
     B, N, C = x.shape
+    check_kernel_limits("kernel A (knn)", k, C, B)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)
     dist = torch.empty((B, N, k), dtype=torch.float32, device=x.device)
     lib = _build.library()

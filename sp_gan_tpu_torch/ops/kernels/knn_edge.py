@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from sp_gan_tpu_torch.ops.kernels import _build
-from sp_gan_tpu_torch.ops.kernels.knn import _check
+from sp_gan_tpu_torch.ops.kernels.knn import _check, check_kernel_limits
 from sp_gan_tpu_torch.ops.pairwise import self_sqdist, smallest_k
 
 SELECT_MODES = ("exact", "packed")
@@ -103,6 +103,7 @@ def knn_edge(x: torch.Tensor, k: int, out_dtype: Optional[torch.dtype] = None,
     if x.device.type != "cuda":
         raise ValueError(f"knn_edge runs on cuda or cpu, not {x.device}")
     B, N, C = x.shape
+    check_kernel_limits("kernel B (knn_edge)", k, C, B)
     ec = C if diff_only else 2 * C
     ee = torch.empty((B, N, k, ec), dtype=cd, device=x.device)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)

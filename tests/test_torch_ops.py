@@ -184,9 +184,9 @@ class TestKnnKernelPlain:
          TypeError),
         (lambda: knn(torch.zeros(1, 3, 8).transpose(1, 2), 2), ValueError),
         (lambda: knn(torch.zeros(8, 3), 2), ValueError),
-        (lambda: knn(torch.zeros(1, 64, 3), 33), ValueError),
+        (lambda: knn(torch.zeros(1, 8, 3), 8), ValueError),      # k > N-1
         (lambda: knn(torch.zeros(1, 8, 3), 9), ValueError),
-        (lambda: knn(torch.zeros(1, 8, 129), 2), ValueError),
+        (lambda: knn(torch.zeros(1, 8, 0), 2), ValueError),      # no channel
         (lambda: knn(torch.zeros(1, 8, 3, device="meta"), 2), ValueError),
     ])
     def test_wrapper_rejects(self, bad, err):

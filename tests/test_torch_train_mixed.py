@@ -92,3 +92,43 @@ class TestMixedEdgeStep:
             step = np.abs(v - start[name])
             assert step.max() <= 1e-4 * (1 + 1e-3) + 1e-6, name
             assert step.max() > 0, name
+
+
+def seed_sweep(seeds):
+    """g_loss of one mixed_edge step over `seeds`, each the harness's start
+    key offset by the seed: per seed, one JSON line with the relative
+    distance of the port's (pinned) and JAX's bf16 g_loss to the JAX
+    float32 witness, and to each other. Seeds whose real-batch pools hold
+    a flip beyond the near-tie bound are reported as skipped.
+
+        JAX_PLATFORMS=cpu PYTHONPATH=.:tests \\
+            python tests/test_torch_train_mixed.py 0 10
+    """
+    import json
+
+    import jax
+
+    import test_torch_train_step as harness
+    key = jax.random.PRNGKey
+    try:
+        for seed in seeds:
+            harness.jax.random.PRNGKey = lambda s, _o=seed: key(s + _o)
+            try:
+                r = run_both(tie_keys=REAL_POOLS, witness="float32",
+                             dtype="mixed_edge")
+            except AssertionError as e:
+                print(json.dumps({"seed": seed, "skipped": str(e)[:200]}))
+                continue
+            w, p, j = (r[k]["g_loss"] for k in ("witness", "pinned", "jax"))
+            print(json.dumps({"seed": seed,
+                              "port_vs_f32": abs(p - w) / abs(w),
+                              "jax_vs_f32": abs(j - w) / abs(w),
+                              "port_vs_jax": abs(p - j) / abs(j)}),
+                  flush=True)
+    finally:
+        harness.jax.random.PRNGKey = key
+
+
+if __name__ == "__main__":
+    import sys
+    seed_sweep(range(int(sys.argv[1]), int(sys.argv[2])))

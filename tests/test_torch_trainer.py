@@ -269,6 +269,7 @@ class TestCli:
         line = capsys.readouterr().out.strip().splitlines()[-1]
         rec = json.loads(line)
         assert set(rec) == {"metric", "value", "unit", "points_per_sec",
-                            "device"}
+                            "cd_evals_per_sec_96x96", "emd_evals_per_sec_b16",
+                            "emd_metric_solves_per_sec", "device"}
         assert rec["unit"] == "steps/s" and rec["device"] == "cpu"
         assert rec["value"] > 0
