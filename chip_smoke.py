@@ -2,7 +2,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--ckpt PATH] [--step_seeds 3]
-                          [--metric_clouds 64]
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -33,12 +32,12 @@ Phases, in order; any failure raises and the script exits nonzero:
               and the training regime (eps 0.005, 50, 1 phase); at N=256
               its cost within N * eps of scipy's optimum; then the metric
               protocol, `compute_all_metrics(use_emd=True)`, on
-              --metric_clouds generated clouds (normalized) against as
-              many synthetic reference clouds at N=2048, whose kernel
-              launches must be those its batching implies; the protocol at
-              S=4, N=256 on the card against the CPU; FPD with a seeded
-              DGCNN; one more protocol run at half the clouds under
-              torch.profiler.
+              METRIC_CLOUDS generated clouds (normalized) against as
+              many synthetic reference clouds at N=2048, and on 2 against
+              2 synthetic clouds at N=4096, whose kernel launches must be
+              those its batching implies; the protocol at S=4, N=256 on
+              the card against the CPU; FPD with a seeded DGCNN; one more
+              protocol run at half the clouds under torch.profiler.
 7. timings  - median kernel times (CUDA events) beside their plain
               versions and the card's bound for the same work.
 
@@ -60,7 +59,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 # published H100 SXM peaks (NVIDIA data sheet) for the bound column
-F32_FLOPS = 67e12          # f32 outside the tensor cores
+F32_FLOPS = 67e12          # f32 outside the tensor cores, an FMA as two
+F32_OPS = F32_FLOPS / 2    # f32 instructions that are not FMAs (sub, max)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -77,6 +77,8 @@ PER_STEP = {"knn": 0, "knn_edge": 2, "edge_tail": 0, "scatter_diff_bwd": 1,
 # the metric protocol's two regimes: (eps, iters, eps-scaling phases)
 PROTOCOL = (0.002, 10000, 4)
 TRAIN_REGIME = (0.005, 50, 1)
+# clouds of each side of the metric protocol's run at N=2048
+METRIC_CLOUDS = 64
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 # dense biases that feed a training-mode BatchNorm: their exact gradient is
 # zero, so they are compared on the scale of their layer's kernel gradient
@@ -247,9 +249,10 @@ def check_edge_tail(args, k):
             "max_abs_out": ref.abs().max().item()}
 
 
-def bound(flops: float, nbytes: float):
-    """(bound ms, what bounds it) from f32 operations and bytes moved."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, rate: float = F32_FLOPS):
+    """(bound ms, what bounds it) from f32 operations at `rate` and bytes
+    moved."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
 
@@ -631,26 +634,35 @@ def auction_pairs(n: int, pairs: int, seed: int):
 
 
 def check_auction(d, regime) -> dict:
-    """Kernel E against its plain version on the card: assignments and
-    block-rounds bit-equal (the two run the same f32 operations in the same
-    order); a pair whose cap was not spent must be a bijection. Returns the
-    rounds, the plain version's wall time and the kernel's assignment."""
+    """Kernel E against its plain version on the card: assignments,
+    block-rounds and bidders bit-equal (the two run the same f32 operations
+    in the same order); a pair whose cap was not spent must be a bijection.
+    Returns the rounds, the bidders, the plain version's wall time, the
+    mismatches, the largest gap of a pair's matched cost and the kernel's
+    assignment."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.auction import (auction, auction_plain,
                                                       block_width)
     eps, iters, phases = regime
     B, N, M = d.shape
-    asg, rounds = auction(d, eps, iters, phases)
+    asg, rounds, bids = auction(d, eps, iters, phases)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    asg_p, rounds_p = auction_plain(d, eps, iters, phases)
+    asg_p, rounds_p, bids_p = auction_plain(d, eps, iters, phases)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
     tag = f"auction[{list(d.shape)}, eps {eps}, iters {iters}, {phases} ph]"
-    if not (torch.equal(asg, asg_p) and torch.equal(rounds, rounds_p)):
+    mismatches = int((asg != asg_p).sum())
+
+    def cost(a):
+        return d.gather(2, a.long()[..., None]).sum((1, 2))
+    cost_err = float((cost(asg) - cost(asg_p)).abs().max())
+    if not (mismatches == 0 and torch.equal(rounds, rounds_p)
+            and torch.equal(bids, bids_p)):
         raise AssertionError(
-            f"{tag}: {(asg != asg_p).sum().item()} assignments and rounds "
-            f"{rounds.tolist()} vs {rounds_p.tolist()} differ from the plain "
+            f"{tag}: {mismatches} assignments (cost gap {cost_err}), rounds "
+            f"{rounds.tolist()} vs {rounds_p.tolist()} and bidders "
+            f"{bids.tolist()} vs {bids_p.tolist()} differ from the plain "
             "version")
     cap = iters * (N // block_width(N, 64))
     spent = [int(r) >= cap for r in rounds.tolist()]
@@ -658,11 +670,13 @@ def check_auction(d, regime) -> dict:
         if not spent[b] and torch.unique(asg[b]).numel() != N:
             raise AssertionError(f"{tag}: pair {b} converged without a "
                                  "bijection")
-    log(f"  {tag}: bit-equal to the plain version; block-rounds "
-        f"{rounds.tolist()} (cap {cap}, spent {spent}); plain version "
+    log(f"  {tag}: bit-equal to the plain version ({mismatches} mismatches, "
+        f"cost gap {cost_err}); block-rounds {rounds.tolist()} (cap {cap}, "
+        f"spent {spent}), bidders {bids.tolist()}; plain version "
         f"{plain_ms:.0f} ms")
-    return {"rounds": rounds.tolist(), "cap": cap, "cap_spent": spent,
-            "plain_ms": plain_ms, "asg": asg}
+    return {"rounds": rounds.tolist(), "bidders": bids.tolist(), "cap": cap,
+            "cap_spent": spent, "plain_ms": plain_ms,
+            "mismatches": mismatches, "max_abs_err": cost_err, "asg": asg}
 
 
 def check_auction_optimum(seed: int) -> dict:
@@ -686,50 +700,27 @@ def check_auction_optimum(seed: int) -> dict:
     return {"gaps": gaps, "limit": 256 * eps}
 
 
-def auction_bound(d, rounds) -> tuple:
-    """Kernel E's bound: every block-round scans w rows of M columns (a
-    subtract, two compares and a max per element) and the function reads d
-    once and writes the assignment."""
+def auction_bound(d, bidders) -> tuple:
+    """Kernel E's bound: each row that bids in a round scans its M columns
+    (a subtract, a compare and a max per element, none of them an FMA), and
+    the function reads d once and writes the assignment, the rounds and the
+    bidders. The forced pass's scans are left out, which only lowers it."""
     B, N, M = d.shape
-    elements = sum(rounds) * 64 * M
-    return bound(4 * elements, 4 * B * N * M + 4 * B * N)
+    elements = sum(bidders) * M
+    return bound(3 * elements, 4 * B * N * M + 4 * B * N + 12 * B, F32_OPS)
 
 
-def metrics_phase(man, seed: int, S: int) -> dict:
-    """Kernel E's checks, the metric protocol on the card, its CPU
-    cross-check, FPD and a profile; see the module docstring."""
+def protocol_run(gen, ref) -> dict:
+    """`compute_all_metrics(use_emd=True)` on the card from launch counts
+    of 0: the metrics must be finite and in range, and kernel E the only
+    kernel launched, as often as the protocol's batching implies."""
     import numpy as np
     import torch
-    from sp_gan_tpu_torch.data import SyntheticDataset
-    from sp_gan_tpu_torch.eval import FPD, compute_all_metrics
+    from sp_gan_tpu_torch.eval import compute_all_metrics
     from sp_gan_tpu_torch.eval.metrics import emd_pairs_per_call
     from sp_gan_tpu_torch.ops import kernels
-    from sp_gan_tpu_torch.ops.kernels.auction import auction
-    out = {"checks": {}}
-    for n, pairs in ((2048, 4), (4096, 2)):
-        d = auction_pairs(n, pairs, seed + n)
-        for name, regime in (("protocol", PROTOCOL),
-                             ("train", TRAIN_REGIME)):
-            res = check_auction(d, regime)
-            out["checks"][f"{n}/{name}"] = {
-                k: res[k] for k in ("rounds", "cap", "cap_spent",
-                                    "plain_ms")}
-        eps, iters, phases = PROTOCOL
-        ms = cuda_ms(lambda: auction(d, eps, iters, phases), 3)
-        b_ms, b_by = auction_bound(d, out["checks"][f"{n}/protocol"]
-                                   ["rounds"])
-        out[n] = {"shape": list(d.shape), "ms": ms,
-                  "plain_ms": out["checks"][f"{n}/protocol"]["plain_ms"],
-                  "bound_ms": b_ms, "bound_by": b_by}
-        log(f"  kernel E at {list(d.shape)}, protocol regime: {ms:.2f} ms "
-            f"(bound {b_ms:.3f} ms by {b_by})")
-        del d
-    out["optimum"] = check_auction_optimum(seed)
-
-    # the metric protocol: S generated clouds against S reference clouds
-    gen = man.generate(S, seed=seed + 7)
-    ref = SyntheticDataset(S, gen.shape[1], seed=seed + 8).data
-    per = emd_pairs_per_call(S, gen.shape[1], gen.shape[1])
+    S, N = gen.shape[0], gen.shape[1]
+    per = emd_pairs_per_call(S, N, N)
     expected = 3 * -(-S * S // per)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -740,7 +731,7 @@ def metrics_phase(man, seed: int, S: int) -> dict:
     wall = time.perf_counter() - t
     launches = kernels.launch_counts()
     solves = 3 * S * S
-    log(f"  compute_all_metrics(S={S}, N={gen.shape[1]}, use_emd): {m}")
+    log(f"  compute_all_metrics(S={S}, N={N}, use_emd): {m}")
     log(f"  wall {wall:.2f} s, {solves / wall:.1f} EMD solves/s; launches "
         f"{launches}, kernel E expected {expected} ({per} pairs a call)")
     if launches != {**{k: 0 for k in launches}, "auction": expected}:
@@ -754,25 +745,75 @@ def metrics_phase(man, seed: int, S: int) -> dict:
             raise AssertionError(f"protocol: {k} = {m[k]} outside [0, 1]")
     if not (m["MMD-CD"] > 0 and m["MMD-EMD"] > 0):
         raise AssertionError("protocol: MMD must be positive")
+    return {"metrics": m, "wall_s": wall, "solves_per_sec": solves / wall,
+            "launches": launches, "expected_launches": expected,
+            "pairs_per_call": per}
+
+
+def metrics_phase(man, seed: int) -> dict:
+    """Kernel E's checks, the metric protocol on the card, its CPU
+    cross-check, FPD and a profile; see the module docstring."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.eval import FPD, compute_all_metrics
+    from sp_gan_tpu_torch.ops.kernels.auction import auction
+    out = {"checks": {}}
+    for n, pairs in ((2048, 4), (4096, 2)):
+        d = auction_pairs(n, pairs, seed + n)
+        for name, regime in (("protocol", PROTOCOL),
+                             ("train", TRAIN_REGIME)):
+            res = check_auction(d, regime)
+            out["checks"][f"{n}/{name}"] = {
+                k: res[k] for k in ("rounds", "bidders", "cap", "cap_spent",
+                                    "plain_ms", "mismatches",
+                                    "max_abs_err")}
+        eps, iters, phases = PROTOCOL
+        ms = cuda_ms(lambda: auction(d, eps, iters, phases), 3)
+        b_ms, b_by = auction_bound(d, out["checks"][f"{n}/protocol"]
+                                   ["bidders"])
+        out[n] = {"shape": list(d.shape), "ms": ms,
+                  "plain_ms": out["checks"][f"{n}/protocol"]["plain_ms"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "max_abs_err": max(out["checks"][f"{n}/{r}"]["max_abs_err"]
+                                     for r in ("protocol", "train")),
+                  "mismatches": sum(out["checks"][f"{n}/{r}"]["mismatches"]
+                                    for r in ("protocol", "train"))}
+        log(f"  kernel E at {list(d.shape)}, protocol regime: {ms:.2f} ms "
+            f"(bound {b_ms:.3f} ms by {b_by})")
+        del d
+    out["optimum"] = check_auction_optimum(seed)
+
+    # the metric protocol: METRIC_CLOUDS generated clouds against as many
+    # reference clouds at N=2048, then 2 against 2 at N=4096
+    S = METRIC_CLOUDS
+    gen = man.generate(S, seed=seed + 7)
+    ref = SyntheticDataset(S, gen.shape[1], seed=seed + 8).data
+    run = protocol_run(gen, ref)
+    big = SyntheticDataset(4, 4096, seed=seed + 11).data
+    out["protocol_4096"] = protocol_run(big[:2], big[2:])
+    per = run["pairs_per_call"]
 
     # one launch the size the protocol makes (its gen-by-ref pairs), timed
-    # alone, with the bound of the rounds its pairs ran
+    # alone, with the bound of the rows its pairs' rounds scanned
     from sp_gan_tpu_torch.manipulate import normalize_point_cloud
     from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
     pairs = torch.arange(min(per, S * S), device="cuda")
     d = pairwise_sqdist(
         normalize_point_cloud(torch.as_tensor(gen, device="cuda"))[pairs // S],
         torch.as_tensor(ref, device="cuda")[pairs % S])
-    rounds = auction(d, *PROTOCOL)[1].tolist()
+    _, rounds, bids = auction(d, *PROTOCOL)
+    rounds, bids = rounds.tolist(), bids.tolist()
     ms = cuda_ms(lambda: auction(d, *PROTOCOL), 2)
-    b_ms, b_by = auction_bound(d, rounds)
+    b_ms, b_by = auction_bound(d, bids)
     out["launch"] = {"shape": list(d.shape), "ms": ms, "bound_ms": b_ms,
                      "bound_by": b_by, "rounds_mean": sum(rounds) / len(rounds),
-                     "rounds_max": max(rounds)}
+                     "rounds_max": max(rounds),
+                     "bidders_per_round": sum(bids) / sum(rounds)}
     log(f"  kernel E at one protocol launch {list(d.shape)}: {ms:.2f} ms, "
         f"block-rounds mean {sum(rounds) / len(rounds):.0f}, max "
-        f"{max(rounds)}; bound {b_ms:.3f} ms by {b_by} "
-        f"({100 * b_ms / ms:.1f}% of bound)")
+        f"{max(rounds)}, {sum(bids) / sum(rounds):.2f} bidders a round; "
+        f"bound {b_ms:.3f} ms by {b_by} ({100 * b_ms / ms:.3g}% of bound)")
     del d
 
     # the same protocol at S=4, N=256 on the card and on the CPU
@@ -798,9 +839,7 @@ def metrics_phase(man, seed: int, S: int) -> dict:
     prof = profile_call(lambda: compute_all_metrics(
         gen[:half], ref[:half], normalize=True, use_emd=True,
         device="cuda"), f"compute_all_metrics(S={half}, use_emd)")
-    out.update(metrics=m, wall_s=wall, solves_per_sec=solves / wall,
-               launches=launches, expected_launches=expected,
-               pairs_per_call=per, small=card, fpd=fpd, profile=prof)
+    out.update(run, small=card, fpd=fpd, profile=prof)
     return out
 
 
@@ -814,9 +853,6 @@ def main() -> None:
     ap.add_argument("--step_seeds", type=int, default=3,
                     help="seeds whose small card step must have G's "
                     "gradients compared with the CPU's")
-    ap.add_argument("--metric_clouds", type=int, default=64,
-                    help="generated and reference clouds of the metric "
-                    "protocol's run")
     args = ap.parse_args()
     ph = Phases()
 
@@ -931,11 +967,11 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 6
     ph.start("metrics")
-    met = metrics_phase(man, args.seed, args.metric_clouds)
+    met = metrics_phase(man, args.seed)
     log(json.dumps({"metrics": {k: met[k] for k in (
         "metrics", "wall_s", "solves_per_sec", "launches",
-        "expected_launches", "pairs_per_call", "checks", "optimum", "launch",
-        "small", "fpd", "profile")}}))
+        "expected_launches", "pairs_per_call", "protocol_4096", "checks",
+        "optimum", "launch", "small", "fpd", "profile")}}))
     ph.end()
 
     # ---------------------------------------------------------------- 7
@@ -1063,7 +1099,10 @@ def main() -> None:
         bound_by=calls["edge2"]["bound_by"], library_ms=None,
         per="one request: the edge1 and the edge2 call", calls=calls,
         path="serve"))
-    # kernel E at both sizes, protocol regime (measured in phase 6)
+    # kernel E at both sizes, protocol regime (measured in phase 6); its
+    # launches are those of the protocol's run at that size
+    launches_e = {2048: met["launches"]["auction"],
+                  4096: met["protocol_4096"]["launches"]["auction"]}
     for n in (2048, 4096):
         rows.append(dict(
             name="auction", route="cuda",
@@ -1074,16 +1113,17 @@ def main() -> None:
                       "sp_gan_tpu/ops/pallas/auction.py:448 "
                       "(auction_assignment_pallas blockgs_hbm, "
                       "_auction_kernel_blockgs_hbm :240)"),
-            launches=met["launches"]["auction"], max_abs_err=0,
-            max_err=0, library_ms=None, path="metrics",
+            launches=launches_e[n], max_err=met[n]["max_abs_err"],
+            library_ms=None, path=f"metrics at N={n}",
             regime="eps 0.002, 10000 iterations, 4 phases",
             block_rounds=met["checks"][f"{n}/protocol"]["rounds"],
+            bidders=met["checks"][f"{n}/protocol"]["bidders"],
             **met[n]))
     for r in rows:
         log(f"  {r['name']} ({r['path']}): {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound); no single "
+            f"{100 * r['bound_ms'] / r['ms']:.3g}% of bound); no single "
             "PyTorch call computes this function, so library_ms is null")
     ph.end()
 

@@ -1,6 +1,7 @@
 // Kernel E: block Gauss-Seidel EMD auction with eps-scaling and a forced
-// final pass. d [B, N, M] f32 squared distances -> assignment [B, N] int32
-// and the block-rounds each pair ran, [B] int32.
+// final pass. d [B, N, M] f32 squared distances -> assignment [B, N] int32,
+// the block-rounds each pair ran, [B] int32, and the rows that bid summed
+// over those rounds (the rows of d the rounds scanned), [B] int64.
 //
 // Replaces the TPU kernels sp_gan_tpu/ops/pallas/auction.py::
 // auction_assignment_pallas in mode "blockgs" (_auction_kernel_blockgs,
@@ -31,8 +32,8 @@
 //      bidder on its item bid more, or as much from a lower row. Winners
 //      hold distinct items, so they apply their evictions, owners, prices
 //      and (integer atomic) count changes without conflict;
-//   4. thread 0 updates the bidding block's count, the unassigned total
-//      and the round counter.
+//   4. thread 0 updates the bidding block's count, the unassigned total,
+//      the round counter and the bidder sum.
 // The forced final pass (owned rows take their item, the rest argmin of
 // d + price) runs in the same kernel, a warp per row.
 //
@@ -43,8 +44,8 @@
 // scheduling of warps or on the number of threads.
 //
 // What bounds it on an H100: the work depends on the data. A round reads
-// the bidding rows of d once (w * M * 4 bytes at most) and does about
-// 4 f32 operations per element read, so by the card's rates it is bound
+// the nu bidding rows of d (nu * M * 4 bytes) and does a subtract, a
+// compare and a max per element read, so by the card's rates it is bound
 // by bytes (3.35 TB/s) over all pairs in flight. In practice one block
 // per pair runs its rounds one after another: a round's latency (a row
 // scan, four barriers) bounds a pair, and the card is filled only when
@@ -81,7 +82,8 @@ __device__ __forceinline__ void top2_merge(float& b, int& i, float& s,
 
 __global__ void __launch_bounds__(kThreads)
     auction_kernel(const float* __restrict__ d, int32_t* __restrict__ asg,
-                   int32_t* __restrict__ rounds, int N, int M, int w,
+                   int32_t* __restrict__ rounds,
+                   long long* __restrict__ bidders, int N, int M, int w,
                    int phases, PhaseEps eps, long long cap) {
   extern __shared__ int32_t smem[];
   float* price = reinterpret_cast<float*>(smem);  // [M]
@@ -92,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int32_t bid_item[kMaxW];
   __shared__ float bid_val[kMaxW];
   __shared__ int s_go, s_j, s_nu, s_cursor, s_tot, s_acc, s_ev;
-  __shared__ long long s_it;
+  __shared__ long long s_it, s_bids;
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int nb = N / w;
@@ -101,6 +103,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int m = t; m < M; m += kThreads) price[m] = 0.f;
   if (t == 0) {
     s_it = 0;
+    s_bids = 0;
     s_cursor = 0;
   }
   for (int p = 0; p < phases; ++p) {
@@ -207,6 +210,7 @@ __global__ void __launch_bounds__(kThreads)
         cnt[j] -= s_acc;
         s_tot += s_ev - s_acc;
         s_it += 1;
+        s_bids += nu;
       }
       __syncthreads();
     }
@@ -241,13 +245,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lane == 0) out[r] = bi;
   }
-  if (t == 0) rounds[blockIdx.x] = (int32_t)s_it;
+  if (t == 0) {
+    rounds[blockIdx.x] = (int32_t)s_it;
+    bidders[blockIdx.x] = s_bids;
+  }
 }
 
 }  // namespace
 
-extern "C" int spgan_auction(const void* d, void* asg, void* rounds, int B,
-                             int N, int M, int w, int phases,
+extern "C" int spgan_auction(const void* d, void* asg, void* rounds,
+                             void* bidders, int B, int N, int M, int w,
+                             int phases,
                              const void* eps_host, long long cap,
                              void* stream) {
   if (B <= 0 || N <= 0 || M <= 0 || w <= 0 || w > kMaxW || N % w ||
@@ -264,6 +272,7 @@ extern "C" int spgan_auction(const void* d, void* asg, void* rounds, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auction_kernel<<<B, kThreads, smem, st>>>(
       static_cast<const float*>(d), static_cast<int32_t*>(asg),
-      static_cast<int32_t*>(rounds), N, M, w, phases, eps, cap);
+      static_cast<int32_t*>(rounds), static_cast<long long*>(bidders), N, M,
+      w, phases, eps, cap);
   return (int)cudaGetLastError();
 }

@@ -43,8 +43,9 @@ SIGNATURES = {
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
-    # d, asg, rounds, B, N, M, w, phases, eps (host f32[16]), cap, stream
-    "spgan_auction": (_P,) * 3 + (_I,) * 5 + (_P, _L, _P),
+    # d, asg, rounds, bidders, B, N, M, w, phases, eps (host f32[16]), cap,
+    # stream
+    "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,9 @@ kernel serves both, reading d from device memory.
 
 d [B, N, M] f32 squared distances -> (assignment [B, N] int32, the item
 of cloud 2 matched to each point of cloud 1; block-rounds [B] int32, the
-rounds each pair ran). The algorithm, per pair:
+rounds each pair ran; bidders [B] int64, the unassigned rows that bid,
+summed over the pair's rounds, i.e. the rows of d its rounds scanned).
+The algorithm, per pair:
 
 - the N rows are cut into NB = N / w blocks (w halved from `block_w`
   until it divides N); prices start at 0, a cursor at block 0;
@@ -29,8 +31,8 @@ rounds each pair ran). The algorithm, per pair:
 - forced final pass: an owned row takes its item, an unowned row
   argmin_m(d[r, m] + price[m]) (lowest index).
 
-`auction_plain` runs this step by step in PyTorch, one pair at a time, and
-the kernel runs the same f32 operations in the same order: the two agree
+`auction_plain` runs this step by step in PyTorch, the pairs side by side,
+and the kernel runs the same f32 operations in the same order: the two agree
 bit for bit, and a difference is a bug. `auction` launches the kernel for
 a CUDA tensor (N * M * 4 <= 1 GB; the JAX package's XLA solver above that
 is not ported) and runs `auction_plain` for a CPU tensor.
@@ -52,6 +54,7 @@ MAX_PHASES = 16
 MAX_BYTES = 1 << 30         # d per pair; the JAX package's blockgs_hbm limit
 SMEM_LIMIT = 232448         # shared memory a block may use on an H100
 SMEM_STATIC = 1024          # the kernel's static shared memory, rounded up
+GRAPH_ROUNDS = 32           # block-rounds per CUDA graph of auction_plain
 
 
 def block_width(n: int, block_w: int) -> int:
@@ -81,76 +84,111 @@ def _check(d: torch.Tensor, phases: int, block_w: int) -> None:
         raise ValueError(f"block_w={block_w} outside 1..{MAX_BLOCK_W}")
 
 
-def _solve_plain(d: torch.Tensor, eps_p: np.ndarray, iters: int,
-                 w: int) -> Tuple[torch.Tensor, int]:
-    """One pair: d [N, M] -> (assignment [N] int32, block-rounds)."""
-    n, m = d.shape
-    dev = d.device
-    nb = n // w
-    cap = iters * nb
-    price = torch.zeros(m, dtype=torch.float32, device=dev)
-    owner = torch.empty(m, dtype=torch.int64, device=dev)
-    item_of = torch.empty(n, dtype=torch.int64, device=dev)
-    rows_w = torch.arange(w, device=dev)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
-    it = cursor = 0
-    for e in eps_p:
-        e32 = torch.tensor(e, dtype=torch.float32, device=dev)
-        owner.fill_(-1)
-        item_of.fill_(-1)
-        cnt = [w] * nb
-        tot = n
-        while tot > 0 and it < cap:
-            j = next((q % nb for q in range(cursor, cursor + nb)
-                      if cnt[q % nb] > 0), cursor)
-            cursor = (j + 1) % nb
-            rows0 = j * w
-            value = -d[rows0:rows0 + w] - price                 # [w, M]
-            best_idx = value.argmax(dim=1)
-            best = value.gather(1, best_idx[:, None])[:, 0]
-            masked = value.clone()
-            masked[rows_w, best_idx] = neg
-            bid = (best - masked.amax(dim=1)) + e32
-            bids_on = ((item_of[rows0:rows0 + w] < 0)[:, None]
-                       & (best_idx[:, None]
-                          == torch.arange(m, device=dev)[None, :]))
-            bid_mat = torch.where(bids_on, bid[:, None], neg)
-            max_bid = bid_mat.amax(dim=0)                       # [M]
-            winner = bid_mat.argmax(dim=0)
-            items = torch.nonzero(max_bid > NEG * 0.5)[:, 0]
-            win_rows = rows0 + winner[items]
-            prev = owner[items]
-            evicted = prev[prev >= 0]
-            item_of[evicted] = -1
-            owner[items] = win_rows
-            item_of[win_rows] = items
-            price[items] = price[items] + max_bid[items]
-            for q in (evicted // w).tolist():
-                cnt[q] += 1
-            cnt[j] -= len(items)
-            tot += len(evicted) - len(items)
-            it += 1
-    forced = (d + price).argmin(dim=1)
-    asg = torch.where(item_of >= 0, item_of, forced)
-    return asg.to(torch.int32), it
+def _graphed(fn, k: int):
+    """Record `k` calls of `fn` (which updates tensors in place) as one
+    CUDA graph, after one call on a side stream to warm up; returns the
+    graph's replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(k):
+            fn()
+    return graph.replay
 
 
 def auction_plain(d: torch.Tensor, eps: float, iters: int, phases: int,
                   theta: float = 8.0, block_w: int = 64
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, one pair at a time:
-    d [B, N, M] f32 -> (assignment [B, N] int32, block-rounds [B] int32),
-    on d's device. See the module docstring."""
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: d [B, N, M] f32 ->
+    (assignment [B, N] int32, block-rounds [B] int32, bidders [B] int64),
+    on d's device. The pairs run side by side, each with its own cursor,
+    block and counts, through the same f32 operations as one pair alone; a
+    round leaves a pair that is done as it was, so the pairs of a phase run
+    until the last is done. On CUDA the rounds are replayed
+    `GRAPH_ROUNDS` at a time from a CUDA graph, which saves the host's
+    launches and changes no operation. See the module docstring."""
     _check(d, phases, block_w)
-    w = block_width(d.shape[1], block_w)
-    eps_p = phase_eps(eps, theta, phases)
-    asg, rounds = [], []
-    for b in range(d.shape[0]):
-        a, r = _solve_plain(d[b], eps_p, iters, w)
-        asg.append(a)
-        rounds.append(r)
-    return (torch.stack(asg),
-            torch.tensor(rounds, dtype=torch.int32, device=d.device))
+    B, n, m = d.shape
+    dev = d.device
+    w = block_width(n, block_w)
+    nb = n // w
+    cap = iters * nb
+    pair = torch.arange(B, device=dev)[:, None]
+    lanes = torch.arange(w, device=dev)
+    blocks = torch.arange(nb, device=dev)
+    # the last column of price, owner, item_of and cnt is a dump slot that
+    # takes the writes of rows and items that did not win
+    price = torch.zeros(B, m + 1, dtype=torch.float32, device=dev)
+    owner = torch.empty(B, m + 1, dtype=torch.int64, device=dev)
+    item_of = torch.empty(B, n + 1, dtype=torch.int64, device=dev)
+    cnt = torch.empty(B, nb + 1, dtype=torch.int64, device=dev)
+    tot = torch.empty(B, dtype=torch.int64, device=dev)
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    bidders = torch.zeros(B, dtype=torch.int64, device=dev)
+    cursor = torch.zeros(B, dtype=torch.int64, device=dev)
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    eps32 = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def block_round():
+        active = (tot > 0) & (it < cap)
+        # the first block at or after the cursor with a count > 0
+        order = (cursor[:, None] + blocks) % nb
+        live = cnt.gather(1, order) > 0
+        j = torch.where(live.any(1), order.gather(
+            1, live.to(torch.int8).argmax(1, keepdim=True))[:, 0], cursor)
+        cursor.copy_(torch.where(active, (j + 1) % nb, cursor))
+        rows = j[:, None] * w + lanes                              # [B, w]
+        value = -d[pair, rows] - price[:, None, :m]                # [B, w, M]
+        best_idx = value.argmax(dim=2, keepdim=True)
+        best = value.gather(2, best_idx)[..., 0]
+        second = value.scatter_(2, best_idx,
+                                neg.expand(B, w, 1)).amax(dim=2)
+        item = best_idx[..., 0]
+        bid = (best - second) + eps32
+        # a bidder wins unless another bids more on its item, or as much
+        # from a lower row
+        bids = (item_of.gather(1, rows) < 0) & active[:, None]
+        beaten = (bids[:, None, :] & (item[:, None, :] == item[..., None])
+                  & ((bid[:, None, :] > bid[..., None])
+                     | ((bid[:, None, :] == bid[..., None])
+                        & (lanes[:, None] > lanes)))).any(2)
+        won = bids & ~beaten
+        prev = owner.gather(1, item)
+        evict = won & (prev >= 0)
+        bidders.add_(torch.where(active, cnt.gather(1, j[:, None])[:, 0], 0))
+        # evicted owners' blocks gain a row, the bidding block loses the
+        # bids accepted
+        cnt.scatter_add_(1, torch.where(evict, prev // w, nb),
+                         evict.to(torch.int64))
+        cnt.scatter_add_(1, j[:, None], -won.sum(1, keepdim=True))
+        tot.add_(evict.sum(1) - won.sum(1))
+        item_of.scatter_(1, torch.where(evict, prev, n), -1)
+        item_of.scatter_(1, torch.where(won, rows, n), item)
+        won_item = torch.where(won, item, m)
+        owner.scatter_(1, won_item, rows)
+        price.scatter_(1, won_item, price.gather(1, item) + bid)
+        it.add_(active.to(torch.int64))
+
+    run = block_round
+    for p, e in enumerate(phase_eps(eps, theta, phases)):
+        eps32.fill_(float(e))
+        owner.fill_(-1)
+        item_of.fill_(-1)
+        cnt.fill_(w)
+        tot.fill_(n)
+        if p == 0 and dev.type == "cuda":
+            run = _graphed(block_round, GRAPH_ROUNDS)
+        while bool(((tot > 0) & (it < cap)).any()):
+            run()
+    asg = item_of[:, :n]
+    forced = torch.stack([(d[b] + price[b, :m]).argmin(dim=1)
+                          for b in range(B)])
+    return (torch.where(asg >= 0, asg, forced).to(torch.int32),
+            it.to(torch.int32), bidders)
 
 
 def smem_bytes(n: int, m: int, w: int) -> int:
@@ -161,9 +199,9 @@ def smem_bytes(n: int, m: int, w: int) -> int:
 
 def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
             theta: float = 8.0, block_w: int = 64
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """d [B, N, M] f32 -> (assignment [B, N] int32, block-rounds [B] int32).
-    Kernel E on CUDA, `auction_plain` on the CPU."""
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """d [B, N, M] f32 -> (assignment [B, N] int32, block-rounds [B] int32,
+    bidders [B] int64). Kernel E on CUDA, `auction_plain` on the CPU."""
     _check(d, phases, block_w)
     if d.device.type == "cpu":
         return auction_plain(d, eps, iters, phases, theta, block_w)
@@ -186,17 +224,19 @@ def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
     d = d.contiguous()
     asg = torch.empty((B, N), dtype=torch.int32, device=d.device)
     rounds = torch.empty((B,), dtype=torch.int32, device=d.device)
+    bidders = torch.empty((B,), dtype=torch.int64, device=d.device)
     eps_p = np.zeros(MAX_PHASES, dtype=np.float32)
     eps_p[:phases] = phase_eps(eps, theta, phases)
     lib = _build.library()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spgan_auction(d.data_ptr(), asg.data_ptr(),
-                                rounds.data_ptr(), B, N, M, w, phases,
+                                rounds.data_ptr(), bidders.data_ptr(), B,
+                                N, M, w, phases,
                                 eps_p.ctypes.data, iters * (N // w), stream)
     _build.check(err, "spgan_auction")
     auction.launches += 1
-    return asg, rounds
+    return asg, rounds, bidders
 
 
 auction.launches = 0

@@ -70,12 +70,14 @@ class TestAuctionPlain:
         d = jax_d(*clouds(5))
         want = jax_auction(d, eps=eps, iters=iters, phases=phases,
                            mode=mode, block_w=16)
-        asg, rounds = auction_plain(torch.from_numpy(d), eps, iters, phases,
-                                    block_w=16)
+        asg, rounds, bidders = auction_plain(torch.from_numpy(d), eps,
+                                             iters, phases, block_w=16)
         np.testing.assert_array_equal(asg.numpy(), want)
         cap = iters * 64 // 16
         spent = rounds.numpy() >= cap
         assert (rounds.numpy() <= cap).all()
+        # a round has 1 to w bidders
+        assert (rounds <= bidders).all() and (bidders <= 16 * rounds).all()
         if iters == 3:
             assert spent.all()       # every row forced in the last phase
         for b in np.flatnonzero(~spent):
@@ -90,8 +92,26 @@ class TestAuctionPlain:
         d = jax_d(*clouds(3, B=1, n=48, m=56))
         want = jax_auction(d, eps=0.005, iters=400, phases=2,
                            mode="blockgs", block_w=64)
-        asg, _ = auction_plain(torch.from_numpy(d), 0.005, 400, 2)
+        asg, _, _ = auction_plain(torch.from_numpy(d), 0.005, 400, 2)
         np.testing.assert_array_equal(asg.numpy(), want)
+
+    @pytest.mark.parametrize("iters, phases", [(800, 3), (3, 3)])
+    def test_pairs_side_by_side_equal_each_pair_alone(self, iters, phases):
+        """The pairs of one call share nothing: each ends as it would
+        alone, with its own rounds and bidders (the cap spent or not)."""
+        d = torch.from_numpy(jax_d(*clouds(9, B=3)))
+        together = auction_plain(d, 0.005, iters, phases, block_w=16)
+        for b in range(3):
+            alone = auction_plain(d[b:b + 1], 0.005, iters, phases,
+                                  block_w=16)
+            for x, y in zip(together, alone):
+                assert torch.equal(x[b:b + 1], y)
+
+    def test_bidders_of_one_round(self):
+        """iters=1, one block: the single round's bidders are all N rows."""
+        d = torch.from_numpy(jax_d(*clouds(4, B=2, n=16)))
+        _, rounds, bidders = auction_plain(d, 0.005, 1, 1, block_w=16)
+        assert rounds.tolist() == [1, 1] and bidders.tolist() == [16, 16]
 
     def test_phase_eps_rounds_once_from_float64(self):
         e = phase_eps(0.002, 8.0, 4)
@@ -102,10 +122,11 @@ class TestAuctionPlain:
     def test_wrapper_runs_the_plain_version_on_cpu(self):
         d = torch.from_numpy(jax_d(*clouds(7)))
         before = KERNELS["auction"].launches
-        a, r = auction(d, 0.005, 100, 2, block_w=16)
-        b, s = auction_plain(d, 0.005, 100, 2, block_w=16)
-        assert torch.equal(a, b) and torch.equal(r, s)
+        a, r, u = auction(d, 0.005, 100, 2, block_w=16)
+        b, s, v = auction_plain(d, 0.005, 100, 2, block_w=16)
+        assert torch.equal(a, b) and torch.equal(r, s) and torch.equal(u, v)
         assert a.dtype == torch.int32 and r.dtype == torch.int32
+        assert u.dtype == torch.int64
         assert KERNELS["auction"].launches == before
 
     @pytest.mark.parametrize("bad, match", [
@@ -120,14 +141,15 @@ class TestAuctionPlain:
 @pytest.mark.cuda
 def test_kernel_e_matches_plain_on_cuda():
     """Kernel E against its plain version on the card: bit-equal
-    assignments and rounds (chip_smoke.py does the same at N=2048/4096)."""
+    assignments, rounds and bidders (chip_smoke.py does the same at
+    N=2048/4096)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     d = torch.from_numpy(jax_d(*clouds(5, B=3, n=256))).cuda()
     for eps, iters, phases in ((0.005, 50, 1), (0.002, 10000, 4)):
-        a, r = auction(d, eps, iters, phases)
-        b, s = auction_plain(d, eps, iters, phases)
-        assert torch.equal(a, b) and torch.equal(r, s)
+        a, r, u = auction(d, eps, iters, phases)
+        b, s, v = auction_plain(d, eps, iters, phases)
+        assert torch.equal(a, b) and torch.equal(r, s) and torch.equal(u, v)
 
 
 class TestEMD:
