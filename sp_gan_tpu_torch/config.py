@@ -6,8 +6,7 @@ Every field and default is the JAX package's, so a `config.json` written by
 either package loads in the other, and the CLIs take the same flags. Fields that steer only the JAX/TPU
 program (`remat`, `mesh_*`, `data_axis`, `points_axis`, `use_pallas`,
 `fused_*`, `donate_state`, `steps_per_call`, `watchdog_secs`) are accepted
-and ignored by the port; `knn_mode="approx"` is rejected where it would
-change the result (see `nn/generator.py`).
+and ignored by the port.
 """
 
 from __future__ import annotations
@@ -105,7 +104,7 @@ class Config:
     fpd_weights: Optional[str] = None
     fpd_stats: Optional[str] = None
     track_best: bool = True
-    knn_mode: str = "exact"            # "approx" is not ported yet
+    knn_mode: str = "exact"            # approx: EdgeConv2 kNN in an index band
     knn_window: int = 512
 
     def __post_init__(self):

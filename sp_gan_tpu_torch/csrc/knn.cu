@@ -30,7 +30,8 @@ __global__ void __launch_bounds__(spgan::kQueries)
   const bool valid = qi < N;
   const float* xb = x + (size_t)b * N * C;
   spgan::TopK<KM, false> top;
-  spgan::select_knn<CM, KM, false>(xb, N, C, qi, valid, 0, top, sk, skn);
+  spgan::select_knn<CM, KM, false>(xb, N, C, qi, valid, 0, top, sk, skn, 0,
+                                   N);
   if (!valid) return;
   const size_t o = ((size_t)b * N + qi) * k;
 #pragma unroll

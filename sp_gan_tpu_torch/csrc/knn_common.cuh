@@ -1,9 +1,10 @@
-// Shared pieces of the two kNN kernels (knn.cu, knn_edge.cu): the f32
-// distance fold and the running top-k kept in registers.
+// Shared pieces of the kNN kernels (knn.cu: A, knn_edge.cu: B,
+// knn_edge_window.cu: F, knn_blocked.cu: G): the f32 distance fold, the
+// running top-k kept in registers and the edge-row writer.
 //
 // Layout: one thread owns one query point; a block holds kQueries queries
-// of one cloud and walks all N keys of that cloud in tiles of kTileKeys
-// rows staged in shared memory. Every thread of a warp reads the same key
+// of one cloud and walks its keys (all N, a range of them, or a circular
+// band) in tiles of kTileKeys rows staged in shared memory. Every thread of a warp reads the same key
 // row at the same time, so the shared-memory reads are broadcasts.
 //
 // Arithmetic: the distance is (|q|^2 - 2 q.k) + |k|^2 with the dot products
@@ -17,6 +18,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace spgan {
@@ -78,67 +80,181 @@ struct TopK {
   }
 };
 
-// Fills `top` with the K nearest keys of query `qi` (self excluded) in the
-// cloud `xb` [N, C]. All threads of the block must call it (it
-// synchronizes); `valid` is false for the padding threads past N.
-// `low_mask` is the packed mode's index mask, (1 << ceil(log2 N)) - 1.
-// `sk` holds kTileKeys * CM floats and `skn` kTileKeys floats of shared
-// memory.
-template <int CM, int K, bool PACKED>
-__device__ __forceinline__ void select_knn(const float* __restrict__ xb, int N,
-                                           int C, int qi, bool valid,
-                                           int low_mask, TopK<K, PACKED>& top,
-                                           float* sk, float* skn) {
-  float q[CM];
+// Key-row maps for `stage_keys`: the rows of a tile as they are, or taken
+// circularly from `base` (base + r mod N, for base + r in (-N, 2N)).
+struct RowsAsIs {
+  __device__ __forceinline__ int operator()(int r) const { return r; }
+};
+
+struct RowsCircular {
+  int base, n;
+  __device__ __forceinline__ int operator()(int r) const {
+    const int g = base + r;
+    return g < 0 ? g + n : (g >= n ? g - n : g);
+  }
+};
+
+// The query row `qi` of `xb` [N, C], zero-padded to CM channels (all zero
+// for a padding thread), and its squared norm in the fold order below.
+template <int CM>
+__device__ __forceinline__ float load_query(const float* __restrict__ xb,
+                                            int C, int qi, bool valid,
+                                            float (&q)[CM]) {
 #pragma unroll
   for (int c = 0; c < CM; ++c)
     q[c] = (valid && c < C) ? xb[(size_t)qi * C + c] : 0.f;
   float qn = 0.f;
 #pragma unroll
   for (int c = 0; c < CM; ++c) qn = __fadd_rn(qn, __fmul_rn(q[c], q[c]));
-  top.init();
+  return qn;
+}
 
-  for (int tile0 = 0; tile0 < N; tile0 += kTileKeys) {
-    const int nt = min(kTileKeys, N - tile0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < kTileKeys * CM; e += blockDim.x) {
-      const int t = e / CM, c = e % CM;
-      sk[e] = (t < nt && c < C) ? xb[(size_t)(tile0 + t) * C + c] : 0.f;
-    }
-    __syncthreads();
-    if (threadIdx.x < nt) {
-      const float* kr = sk + threadIdx.x * CM;
-      float s = 0.f;
+// Stages the key rows row_of(r0 + t), t < nt <= kTileKeys, of `xb` in the
+// shared tile `sk` [kTileKeys, CM] and their squared norms in `skn`. Every
+// thread of the block must call it (it synchronizes before and after).
+template <int CM, typename RowOf>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ xb,
+                                           int C, int r0, int nt,
+                                           const RowOf& row_of, float* sk,
+                                           float* skn) {
+  __syncthreads();  // the previous tile is consumed
+  for (int e = threadIdx.x; e < kTileKeys * CM; e += blockDim.x) {
+    const int t = e / CM, c = e % CM;
+    sk[e] = (t < nt && c < C) ? xb[(size_t)row_of(r0 + t) * C + c] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < nt) {
+    const float* kr = sk + threadIdx.x * CM;
+    float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < CM; ++c) s = __fadd_rn(s, __fmul_rn(kr[c], kr[c]));
-      skn[threadIdx.x] = s;
-    }
-    __syncthreads();
+    for (int c = 0; c < CM; ++c) s = __fadd_rn(s, __fmul_rn(kr[c], kr[c]));
+    skn[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// (|q|^2 - 2 q.k) + |k|^2 for the staged key row `kr` of norm `kn`.
+template <int CM>
+__device__ __forceinline__ float key_dist(const float (&q)[CM], float qn,
+                                          const float* kr, float kn) {
+  const float4* k4 = reinterpret_cast<const float4*>(kr);
+  float acc = 0.f;
+#pragma unroll
+  for (int c4 = 0; c4 < CM / 4; ++c4) {
+    const float4 kv = k4[c4];
+    acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 0], kv.x));
+    acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 1], kv.y));
+    acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 2], kv.z));
+    acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 3], kv.w));
+  }
+  return __fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, acc)), kn);
+}
+
+// The packed selection key: the bits of max(d, 0) with the low mantissa
+// bits replaced by the column `j`, so one int compare orders by quantized
+// distance, then column.
+__device__ __forceinline__ int pack_key(float d, int low_mask, int j) {
+  const float dp = d < 0.f ? 0.f : d;  // keeps NaN
+  return (__float_as_int(dp) & ~low_mask) | j;
+}
+
+// Fills `top` with the K nearest of the keys [key0, key1) of query `qi`
+// (self at +inf) in the cloud `xb` [N, C]. All threads of the block must
+// call it (it synchronizes); `valid` is false for the padding threads past
+// N. `low_mask` is the packed mode's index mask, (1 << ceil(log2 N)) - 1.
+// `sk` holds kTileKeys * CM floats and `skn` kTileKeys floats of shared
+// memory.
+template <int CM, int K, bool PACKED>
+__device__ __forceinline__ void select_knn(const float* __restrict__ xb, int N,
+                                           int C, int qi, bool valid,
+                                           int low_mask, TopK<K, PACKED>& top,
+                                           float* sk, float* skn, int key0,
+                                           int key1) {
+  float q[CM];
+  const float qn = load_query<CM>(xb, C, qi, valid, q);
+  top.init();
+  for (int tile0 = key0; tile0 < key1; tile0 += kTileKeys) {
+    const int nt = min(kTileKeys, key1 - tile0);
+    stage_keys<CM>(xb, C, tile0, nt, RowsAsIs{}, sk, skn);
     if (!valid) continue;
     for (int t = 0; t < nt; ++t) {
-      const float4* kr = reinterpret_cast<const float4*>(sk + t * CM);
-      float acc = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < CM / 4; ++c4) {
-        const float4 kv = kr[c4];
-        acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 0], kv.x));
-        acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 1], kv.y));
-        acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 2], kv.z));
-        acc = __fadd_rn(acc, __fmul_rn(q[4 * c4 + 3], kv.w));
-      }
       const int j = tile0 + t;
-      float d = __fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, acc)), skn[t]);
+      float d = key_dist<CM>(q, qn, sk + t * CM, skn[t]);
       if (j == qi) d = __int_as_float(0x7f800000);  // self -> +inf
-      int key;
-      if (PACKED) {
-        // bits of max(d, 0) with the low mantissa bits replaced by the
-        // column: one int compare orders by quantized distance, then index
-        const float dp = d < 0.f ? 0.f : d;
-        key = (__float_as_int(dp) & ~low_mask) | j;
-      } else {
-        key = orderable(d);
+      top.push(PACKED ? pack_key(d, low_mask, j) : orderable(d), j);
+    }
+  }
+}
+
+// The banded selection of the block's queries q0 .. q0 + nq - 1 (one per
+// thread): the keys are the circular slice of rows q0 - W .. q0 + nq + W - 1
+// (mod N), and thread t's candidates are its band, slice positions
+// t .. t + 2W, that is the offsets -W .. W around its query, itself (offset
+// 0) at +inf. The column a candidate carries, for ties and in the packed
+// key, is its band position o = offset + W. All threads of the block must
+// call it.
+template <int CM, int K, bool PACKED>
+__device__ __forceinline__ void select_band(const float* __restrict__ xb,
+                                            int N, int C, int q0, int nq,
+                                            int W, int low_mask,
+                                            TopK<K, PACKED>& top, float* sk,
+                                            float* skn) {
+  const int t = threadIdx.x;
+  const bool valid = t < nq;
+  float q[CM];
+  const float qn = load_query<CM>(xb, C, q0 + t, valid, q);
+  top.init();
+  const int rows = nq + 2 * W;
+  const RowsCircular row_of{q0 - W, N};
+  for (int tile0 = 0; tile0 < rows; tile0 += kTileKeys) {
+    const int nt = min(kTileKeys, rows - tile0);
+    stage_keys<CM>(xb, C, tile0, nt, row_of, sk, skn);
+    if (!valid) continue;
+    const int lo = max(0, t - tile0), hi = min(nt, t + 2 * W + 1 - tile0);
+    for (int s = lo; s < hi; ++s) {
+      const int o = tile0 + s - t;
+      float d = key_dist<CM>(q, qn, sk + s * CM, skn[s]);
+      if (o == W) d = __int_as_float(0x7f800000);  // self -> +inf
+      top.push(PACKED ? pack_key(d, low_mask, o) : orderable(d), o);
+    }
+  }
+}
+
+// Writes the edge rows of the block's queries q0 .. q0 + nq - 1 of cloud
+// `b`: ee [B, N, k, C] `nbr - central` (diff_only) or [B, N, k, 2C]
+// `[central, nbr - central]`, f32 or bf16, the neighbor of query slot
+// `qloc`, neighbor `t` at snbr[qloc * k + t] (shared memory). With bf16
+// output the diff is bf16(f32(bf16(nbr)) - f32(bf16(central))), the rounding
+// of the JAX kernels and of the XLA path. The block's rows are one
+// contiguous range of ee, written by consecutive threads.
+__device__ __forceinline__ void write_edges(const float* __restrict__ xb,
+                                            void* __restrict__ ee,
+                                            const int* snbr, int b, int N,
+                                            int C, int k, int q0, int nq,
+                                            bool diff_only, bool out_bf16) {
+  const int ec = diff_only ? C : 2 * C;
+  const int total = nq * k * ec;  // at most 128 * 32 * 256
+  const size_t base = ((size_t)b * N + q0) * k * ec;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int c = e % ec;
+    const int row = e / ec;  // = local query * k + neighbor slot
+    const int qloc = row / k;
+    const bool is_central = !diff_only && c < C;
+    const int ch = is_central ? c : c - (ec - C);
+    const float cen = xb[(size_t)(q0 + qloc) * C + ch];
+    if (out_bf16) {
+      __nv_bfloat16 v = __float2bfloat16_rn(cen);
+      if (!is_central) {
+        const float nbr = xb[(size_t)snbr[row] * C + ch];
+        v = __float2bfloat16_rn(
+            __fsub_rn(__bfloat162float(__float2bfloat16_rn(nbr)),
+                      __bfloat162float(v)));
       }
-      top.push(key, j);
+      static_cast<__nv_bfloat16*>(ee)[base + e] = v;
+    } else {
+      float v = cen;
+      if (!is_central) v = __fsub_rn(xb[(size_t)snbr[row] * C + ch], cen);
+      static_cast<float*>(ee)[base + e] = v;
     }
   }
 }

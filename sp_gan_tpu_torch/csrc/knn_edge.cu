@@ -23,8 +23,6 @@
 // issues a separate multiply and add per channel (no FMA, to stay
 // bit-identical with its PyTorch twin) and one query per thread; more
 // queries per thread and key-tile prefetch are the next steps.
-#include <cuda_bf16.h>
-
 #include "knn_common.cuh"
 
 namespace {
@@ -43,7 +41,7 @@ __global__ void __launch_bounds__(spgan::kQueries)
   const float* xb = x + (size_t)b * N * C;
   spgan::TopK<KM, PACKED> top;
   spgan::select_knn<CM, KM, PACKED>(xb, N, C, qi, valid, low_mask, top, sbuf,
-                                    skn);
+                                    skn, 0, N);
 
   // the block's neighbor lists go to shared memory (reusing the key tile)
   // so that the edge rows can be written by consecutive threads
@@ -62,34 +60,8 @@ __global__ void __launch_bounds__(spgan::kQueries)
     }
   }
   __syncthreads();
-
-  // ee rows of this block's queries are one contiguous range of ee
-  const int nq = min(spgan::kQueries, N - q0);
-  const int ec = diff_only ? C : 2 * C;
-  const int total = nq * k * ec;  // at most 128 * 32 * 256
-  const size_t base = ((size_t)b * N + q0) * k * ec;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int c = e % ec;
-    const int row = e / ec;  // = local query * k + neighbor slot
-    const int qloc = row / k;
-    const bool is_central = !diff_only && c < C;
-    const int ch = is_central ? c : c - (ec - C);
-    const float cen = xb[(size_t)(q0 + qloc) * C + ch];
-    if (out_bf16) {
-      __nv_bfloat16 v = __float2bfloat16_rn(cen);
-      if (!is_central) {
-        const float nbr = xb[(size_t)snbr[row] * C + ch];
-        v = __float2bfloat16_rn(
-            __fsub_rn(__bfloat162float(__float2bfloat16_rn(nbr)),
-                      __bfloat162float(v)));
-      }
-      static_cast<__nv_bfloat16*>(ee)[base + e] = v;
-    } else {
-      float v = cen;
-      if (!is_central) v = __fsub_rn(xb[(size_t)snbr[row] * C + ch], cen);
-      static_cast<float*>(ee)[base + e] = v;
-    }
-  }
+  spgan::write_edges(xb, ee, snbr, b, N, C, k, q0,
+                     min(spgan::kQueries, N - q0), diff_only, out_bf16);
 }
 
 struct KnnEdgeLaunch {

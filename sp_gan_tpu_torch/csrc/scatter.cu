@@ -1,4 +1,21 @@
-// Kernel D: backward of the diff-only edge op (kernel B with diff_only).
+// Kernels D and H: deterministic scatter-adds by target through a CSR
+// inversion of the index lists, with no float atomics.
+//
+// Kernel H (spgan_scatter_add): g [B, S, F] in f32 or bf16 and idx [B, S]
+// int32 -> out[b, p, :] = sum_{s: idx[b, s] = p} g[b, s, :], [B, n, F] f32.
+// Replaces the TPU kernel sp_gan_tpu/ops/pallas/scatter.py::
+// scatter_add_pallas (_scatter_kernel), the backward of the neighbor gather
+// once its one-hot would pass 1 GiB (sp_gan_tpu/ops/edge.py:64-72): the
+// transpose of gather_neighbors on the unfused large-N path. It runs the
+// four passes below with n targets and S sources per cloud and no central
+// term. What bounds it on an H100: at P3's shape (g [2, 163840, 64] bf16,
+// N=16384, k=10) the function moves 41.9 MB of g, 1.3 MB of idx and
+// 8.4 MB of out (51.6 MB, 15 us at 3.35 TB/s) for 21 MFLOP of adds, so
+// bytes bound it; passes 1-3 read idx three times and pass 4 reads each
+// source row once.
+//
+// Kernel D (spgan_scatter_diff_bwd): backward of the diff-only edge op
+// (kernel B or F with diff_only).
 // d_diff [B, N, k, C] in f32 or bf16 and idx [B, N, k] int32 ->
 //   d_x[b, p, :] = sum_{(q, j): idx[b, q, j] = p} d_diff[b, q, j, :]
 //                  - sum_j d_diff[b, p, j, :]
@@ -36,7 +53,8 @@
 // it is bound by bytes. Pass 4 reads each source row once (a row of 64
 // bf16 is 128 contiguous bytes), but passes 1-3 each read idx again, and
 // ranking a segment of in-degree d reads it d times from L1 (hubs of a kNN
-// graph reach d in the hundreds).
+// graph reach d in the hundreds). Kernel D is kernel H on the sources
+// s = q * k + j (n = N, S = N k) plus the central term.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -57,12 +75,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 
 __global__ void __launch_bounds__(kThreads)
     count_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ deg,
-                 int N, int64_t per_cloud, int64_t total) {
+                 int n, int64_t per_cloud, int64_t total) {
   const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= total) return;
   const int64_t b = e / per_cloud;
   const int p = idx[e];
-  if ((unsigned)p < (unsigned)N) atomicAdd(&deg[b * N + p], 1);
+  if ((unsigned)p < (unsigned)n) atomicAdd(&deg[b * n + p], 1);
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -108,33 +126,36 @@ __global__ void __launch_bounds__(kScanThreads)
 
 __global__ void __launch_bounds__(kThreads)
     fill_kernel(const int32_t* __restrict__ idx, int32_t* __restrict__ cursor,
-                int32_t* __restrict__ src, int N, int64_t per_cloud,
+                int32_t* __restrict__ src, int n, int64_t per_cloud,
                 int64_t total) {
   const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= total) return;
   const int64_t b = e / per_cloud;
   const int p = idx[e];
-  if ((unsigned)p >= (unsigned)N) return;
-  const int32_t slot = atomicAdd(&cursor[b * N + p], 1);
+  if ((unsigned)p >= (unsigned)n) return;
+  const int32_t slot = atomicAdd(&cursor[b * n + p], 1);
   src[b * per_cloud + slot] = (int32_t)(e - b * per_cloud);
 }
 
+// One warp per target row p of cloud b: its segment of sources in
+// ascending order, summed in f32, then (kernel D, central_k > 0) the
+// central sum of row p's own central_k sources, subtracted last.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    sum_kernel(const T* __restrict__ dd, const int32_t* __restrict__ start,
+    sum_kernel(const T* __restrict__ g, const int32_t* __restrict__ start,
                const int32_t* __restrict__ src, int32_t* __restrict__ sorted,
-               float* __restrict__ dx, int B, int N, int k, int C) {
+               float* __restrict__ out, int B, int n, int64_t per_cloud,
+               int C, int central_k) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= (int64_t)B * N) return;
-  const int64_t b = row / N;
-  const int p = (int)(row - b * N);
-  const int64_t per_cloud = (int64_t)N * k;
-  const int32_t* s = start + b * (N + 1);
+  if (row >= (int64_t)B * n) return;
+  const int64_t b = row / n;
+  const int p = (int)(row - b * n);
+  const int32_t* s = start + b * (n + 1);
   const int lo = s[p], hi = s[p + 1];
   const int32_t* seg = src + b * per_cloud;
   int32_t* srt = sorted + b * per_cloud;
-  const T* ddb = dd + b * per_cloud * C;
+  const T* gb = g + b * per_cloud * C;
 
   // the segment's sources are distinct: each one's rank is its slot
   for (int i = lo + lane; i < hi; i += 32) {
@@ -150,25 +171,74 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < kChannelsPerLane; ++t) acc[t] = 0.0f;
 #pragma unroll 4
   for (int r = lo; r < hi; ++r) {
-    const T* g = ddb + (int64_t)srt[r] * C;
+    const T* gr = gb + (int64_t)srt[r] * C;
 #pragma unroll
     for (int t = 0; t < kChannelsPerLane; ++t) {
       const int c = lane + 32 * t;
-      if (c < C) acc[t] = __fadd_rn(acc[t], to_f32(g[c]));
+      if (c < C) acc[t] = __fadd_rn(acc[t], to_f32(gr[c]));
     }
   }
+  float* o = out + row * C;
+  if (central_k == 0) {
+#pragma unroll
+    for (int t = 0; t < kChannelsPerLane; ++t) {
+      const int c = lane + 32 * t;
+      if (c < C) o[c] = acc[t];
+    }
+    return;
+  }
   // the central term, j ascending, subtracted last
-  const T* own = ddb + (int64_t)p * k * C;
-  float* out = dx + row * C;
+  const T* own = gb + (int64_t)p * central_k * C;
 #pragma unroll
   for (int t = 0; t < kChannelsPerLane; ++t) {
     const int c = lane + 32 * t;
     if (c < C) {
       float cs = 0.0f;
-      for (int j = 0; j < k; ++j) cs = __fadd_rn(cs, to_f32(own[j * C + c]));
-      out[c] = __fsub_rn(acc[t], cs);
+      for (int j = 0; j < central_k; ++j)
+        cs = __fadd_rn(cs, to_f32(own[j * C + c]));
+      o[c] = __fsub_rn(acc[t], cs);
     }
   }
+}
+
+// The four passes on the caller's stream: n targets and per_cloud sources
+// a cloud, g [B, per_cloud, C], idx [B, per_cloud], out [B, n, C];
+// `scratch` holds B * (3 n + 1 + 2 per_cloud) int32 and needs no
+// initialising. Returns the first nonzero cudaError_t.
+int csr_scatter(const void* g, const void* idx, void* out, void* scratch,
+                int B, int n, int64_t per_cloud, int C, bool g_bf16,
+                int central_k, cudaStream_t st) {
+  const int64_t total = per_cloud * B;
+  int32_t* deg = static_cast<int32_t*>(scratch);
+  int32_t* start = deg + (int64_t)B * n;
+  int32_t* cursor = start + (int64_t)B * (n + 1);
+  int32_t* src = cursor + (int64_t)B * n;
+  int32_t* sorted = src + total;
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  cudaError_t err =
+      cudaMemsetAsync(deg, 0, sizeof(int32_t) * (size_t)B * n, st);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned edge_blocks = (unsigned)((total + kThreads - 1) / kThreads);
+  count_kernel<<<edge_blocks, kThreads, 0, st>>>(ix, deg, n, per_cloud,
+                                                  total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  scan_kernel<<<B, kScanThreads, 0, st>>>(deg, start, cursor, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  fill_kernel<<<edge_blocks, kThreads, 0, st>>>(ix, cursor, src, n,
+                                                 per_cloud, total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int64_t rows = (int64_t)B * n;
+  const unsigned row_blocks =
+      (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
+  if (g_bf16)
+    sum_kernel<__nv_bfloat16><<<row_blocks, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(g), start, src, sorted,
+        static_cast<float*>(out), B, n, per_cloud, C, central_k);
+  else
+    sum_kernel<float><<<row_blocks, kThreads, 0, st>>>(
+        static_cast<const float*>(g), start, src, sorted,
+        static_cast<float*>(out), B, n, per_cloud, C, central_k);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -176,8 +246,8 @@ __global__ void __launch_bounds__(kThreads)
 // d_diff [B, N, k, C] f32 or bf16 (dd_bf16) and idx [B, N, k] int32,
 // contiguous on the device; d_x [B, N, C] f32. `scratch` holds
 // B * (3 N + 1 + 2 N k) int32 (in-degrees, segment starts, fill cursors,
-// sources as filled, sources sorted); nothing in it needs initialising. Entries of idx outside
-// [0, N) are ignored. Launches on `stream` and returns the first nonzero
+// sources as filled, sources sorted); nothing in it needs initialising.
+// Entries of idx outside [0, N) are ignored. Launches on `stream` and returns the first nonzero
 // cudaError_t (0 on success). Takes C <= 128.
 extern "C" int spgan_scatter_diff_bwd(const void* d_diff, const void* idx,
                                       void* d_x, void* scratch, int B, int N,
@@ -186,36 +256,22 @@ extern "C" int spgan_scatter_diff_bwd(const void* d_diff, const void* idx,
   if (B <= 0 || N <= 0 || k <= 0 || C <= 0 || C > kMaxC ||
       (int64_t)N * k >= INT_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t per_cloud = (int64_t)N * k, total = per_cloud * B;
-  int32_t* deg = static_cast<int32_t*>(scratch);
-  int32_t* start = deg + (int64_t)B * N;
-  int32_t* cursor = start + (int64_t)B * (N + 1);
-  int32_t* src = cursor + (int64_t)B * N;
-  int32_t* sorted = src + total;
-  const int32_t* ix = static_cast<const int32_t*>(idx);
-  cudaError_t err =
-      cudaMemsetAsync(deg, 0, sizeof(int32_t) * (size_t)B * N, st);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned edge_blocks = (unsigned)((total + kThreads - 1) / kThreads);
-  count_kernel<<<edge_blocks, kThreads, 0, st>>>(ix, deg, N, per_cloud,
-                                                  total);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_kernel<<<B, kScanThreads, 0, st>>>(deg, start, cursor, N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  fill_kernel<<<edge_blocks, kThreads, 0, st>>>(ix, cursor, src, N,
-                                                 per_cloud, total);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int64_t rows = (int64_t)B * N;
-  const unsigned row_blocks =
-      (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  if (dd_bf16)
-    sum_kernel<__nv_bfloat16><<<row_blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(d_diff), start, src, sorted,
-        static_cast<float*>(d_x), B, N, k, C);
-  else
-    sum_kernel<float><<<row_blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(d_diff), start, src, sorted,
-        static_cast<float*>(d_x), B, N, k, C);
-  return (int)cudaGetLastError();
+  return csr_scatter(d_diff, idx, d_x, scratch, B, N, (int64_t)N * k, C,
+                     dd_bf16 != 0, k, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel H. g [B, S, F] f32 or bf16 (g_bf16) and idx [B, S] int32,
+// contiguous on the device; out [B, n, F] f32. `scratch` holds
+// B * (3 n + 1 + 2 S) int32 (in-degrees, segment starts, fill cursors,
+// sources as filled, sources sorted); nothing in it needs initialising.
+// Entries of idx outside [0, n) are ignored; a target with no source gets
+// zeros. Launches on `stream` and returns the first nonzero cudaError_t
+// (0 on success). Takes F <= 128.
+extern "C" int spgan_scatter_add(const void* g, const void* idx, void* out,
+                                 void* scratch, int B, int S, int n, int F,
+                                 int g_bf16, void* stream) {
+  if (B <= 0 || S <= 0 || n <= 0 || F <= 0 || F > kMaxC)
+    return (int)cudaErrorInvalidValue;
+  return csr_scatter(g, idx, out, scratch, B, n, S, F, g_bf16 != 0, 0,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,9 @@
 (training and eval forward).
 
 Per-point style from (sphere xyz ++ z) -> two attention EdgeConvs with
-AdaIN -> global max-pool branch -> MLP tail with tanh, channel-last. Module
+AdaIN -> global max-pool branch -> MLP tail with tanh, channel-last. With
+`knn_mode="approx"` the second EdgeConv selects its neighbors in a circular
+index band of half-width `knn_window` (`ops/edge.py`). Module
 names are the JAX tree's (`head1`, `edge1`, `adain1`, `edge2`, `global_bn1`,
 `tail3`, ...), so a JAX checkpoint loads through
 `compat.generator_state_from_jax` with `strict=True`.
@@ -32,9 +34,6 @@ class Generator(nn.Module):
 
     def __init__(self, cfg: Config, seed: Optional[int] = 0):
         super().__init__()
-        if cfg.knn_mode != "exact":
-            raise NotImplementedError(
-                f"knn_mode={cfg.knn_mode!r} is not ported yet")
         self.cfg = cfg
         Dense = make_dense(cfg.eql)
         dim = 128
@@ -109,7 +108,10 @@ class Generator(nn.Module):
             x1 = lrelu(self.edge1(pc, train, edge1_idx, edge1_ee), NEG2)
         x1 = self.adain1(x1, style)
 
-        x2 = lrelu(self.edge2(x1, train), NEG2)
+        # --knn_mode approx: EdgeConv2 selects in the template's spiral index
+        # band |i - j| <= knn_window, in training and in eval alike
+        win2 = cfg.knn_window if cfg.knn_mode == "approx" else None
+        x2 = lrelu(self.edge2(x1, train, window=win2), NEG2)
         x2 = self.adain2(x2, style)
 
         g = x2.amax(dim=1)                                        # [B, dim]

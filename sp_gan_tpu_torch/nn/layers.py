@@ -251,7 +251,10 @@ class EdgeBlock(nn.Module):
     tensor: the training step's run-constant template edges), from
     `ee[..., C:]`, cast to bf16 under `mixed` as in the JAX package. The
     two given forms round differently under `mixed`: `idx` gives
-    `bf16(nbr) - bf16(central)`, `ee` gives `bf16(nbr - central)`."""
+    `bf16(nbr) - bf16(central)`, `ee` gives `bf16(nbr - central)`.
+    `window` (with neither given) restricts the kNN to the circular index
+    band |i - j| <= window, the `--knn_mode approx` selection
+    (`ops/edge.py`)."""
 
     def __init__(self, fin: int, fout: int, k: int, mixed: bool = False,
                  negative_slope: float = 0.01):
@@ -276,7 +279,8 @@ class EdgeBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 idx: Optional[torch.Tensor] = None,
-                ee: Optional[torch.Tensor] = None) -> torch.Tensor:
+                ee: Optional[torch.Tensor] = None,
+                window: Optional[int] = None) -> torch.Tensor:
         B, N, C = x.shape
         if C != self.fin:
             raise ValueError(f"EdgeBlock expects {self.fin} channels, got {C}")
@@ -287,12 +291,14 @@ class EdgeBlock(nn.Module):
                 diff = diff.to(torch.bfloat16)
         elif self.mixed:
             if idx is None:
-                diff = edge_diff_features(x, self.k, out_dtype=torch.bfloat16)
+                diff = edge_diff_features(x, self.k, out_dtype=torch.bfloat16,
+                                          window=window)
             else:
                 diff = edge_diff_features(x.to(torch.bfloat16), self.k,
                                           idx=idx)
         else:
-            diff = edge_diff_features(x, self.k, idx=idx)     # [B, N, k, C]
+            diff = edge_diff_features(x, self.k, idx=idx,
+                                      window=window)          # [B, N, k, C]
         central = x.to(diff.dtype)
         slope = self.negative_slope
 

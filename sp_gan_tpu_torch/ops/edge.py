@@ -5,12 +5,18 @@ Channel-last like the JAX package: x [B, N, C] -> [B, N, k, C] diffs
 `nbr - central`, or [B, N, k, 2C] `[central, nbr - central]`.
 
 With idx=None, an eligible input runs the fused kNN + gather kernel (kernel
-B, `ops/kernels/knn_edge.py`); any other input selects with kernel A
-(`ops/dispatch.knn`) and gathers in PyTorch. Gradients: the diff-only fused
-op is a `torch.autograd.Function` whose backward is kernel D
-(`ops/kernels/scatter.py`), the counterpart of the JAX `_knn_edge_diff`
-VJP; the gather's backward is an `index_add_` by target (the JAX
-`scatter_rows`). The concat-form fused op (serving only) carries no
+B, `ops/kernels/knn_edge.py`); any other input selects with kernel A, or
+kernel G above 8192 points (`ops/dispatch.knn`), and gathers in PyTorch.
+`window` (`--knn_mode approx`) restricts the selection to a circular index
+band: an eligible input runs the banded fused kernel F
+(`ops/kernels/knn_edge_window.py`), any other input the plain band
+selection `ops/approx_knn.knn_indices_window` and the gather, as the JAX
+package runs it in XLA. Gradients: the diff-only fused ops are
+`torch.autograd.Function`s whose backward is kernel D
+(`ops/kernels/scatter.py`), the counterparts of the JAX `_knn_edge_diff`
+and `_knn_edge_diff_window` VJPs; the gather's backward is `scatter_rows`
+(kernel H where the JAX package calls its Pallas scatter, else
+`index_add_`). The concat-form fused op (serving only) carries no
 gradient. Eligibility is the JAX rule of
 `_use_fused_knn_edge` (N % 8 == 0, N <= 8192, N*C*4 <= 8 MiB, C >= 16)
 minus its TPU condition, plus the port's own limits: the CUDA kernels take
@@ -27,9 +33,12 @@ from typing import Optional
 
 import torch
 
+from sp_gan_tpu_torch.ops.approx_knn import knn_indices_window
 from sp_gan_tpu_torch.ops.dispatch import knn as knn_dispatch
 from sp_gan_tpu_torch.ops.kernels.knn import MAX_C, MAX_K
 from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
+from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (jax_tile,
+                                                          knn_edge_window)
 from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
                                                   scatter_rows)
 
@@ -80,6 +89,16 @@ def _fused(x, k, out_dtype, diff_only):
                         select_mode=knn_select_mode())
 
 
+def normalize_window(n: int, k: int, window: int) -> Optional[int]:
+    """The band the JAX `edge_diff_features` uses at n points, or None for
+    the exact path: `window` clamped to (n - tq) // 2, the fused kernel's
+    slices at its tile tq = 256 (halved until it divides n), and to
+    (n - 1) // 2, which keeps a circular band free of duplicates; a band
+    narrower than k means exact selection."""
+    W = min(int(window), (n - jax_tile(n)) // 2, (n - 1) // 2)
+    return W if W >= k else None
+
+
 class EdgeDiff(torch.autograd.Function):
     """The diff-only fused op under autograd: forward kernel B
     (`diff_only=True`, selection from SPGAN_KNN_SELECT), backward kernel D
@@ -109,18 +128,55 @@ def edge_diff_fused(x: torch.Tensor, k: int,
     return EdgeDiff.apply(x, k, out_dtype)
 
 
+class EdgeDiffWindow(torch.autograd.Function):
+    """`EdgeDiff` on the band: forward kernel F (`diff_only=True`, the JAX
+    tile tq=256, selection from SPGAN_KNN_SELECT), backward kernel D on
+    its global indices, as the JAX `_knn_edge_diff_window` reuses
+    `_knn_edge_diff`'s backward."""
+
+    @staticmethod
+    def forward(ctx, x, k, window, out_dtype):
+        with torch.no_grad():
+            diff, idx = knn_edge_window(
+                x.detach().float().contiguous(), k, window,
+                out_dtype=out_dtype or x.dtype, diff_only=True,
+                select_mode=knn_select_mode())
+        ctx.save_for_backward(idx)
+        ctx.dtype = x.dtype
+        ctx.mark_non_differentiable(idx)
+        return diff, idx
+
+    @staticmethod
+    def backward(ctx, d_diff, d_idx):
+        return EdgeDiff.backward(ctx, d_diff, d_idx) + (None,)
+
+
+def edge_diff_window(x: torch.Tensor, k: int, window: int,
+                     out_dtype: Optional[torch.dtype] = None):
+    """(diff [B, N, k, C], idx [B, N, k] int32 global) from kernel F on
+    the band of half-width `window`, differentiable in x through kernel D
+    (`EdgeDiffWindow`)."""
+    return EdgeDiffWindow.apply(x, k, window, out_dtype)
+
+
 def edge_diff_features(x: torch.Tensor, k: int,
                        idx: Optional[torch.Tensor] = None,
                        out_dtype: Optional[torch.dtype] = None,
                        window: Optional[int] = None) -> torch.Tensor:
     """[B, N, C] -> `nbr - central` [B, N, k, C] in `out_dtype` (default
     x's), neighbors self-excluded and ascending, selected on f32 distances.
-    `window` (the JAX package's `--knn_mode approx` band) is not ported."""
+    `window` (with idx=None) restricts the selection to the circular index
+    band |i - j| <= window (`--knn_mode approx`), normalized once by
+    `normalize_window` so that kernel F and the plain band see the same
+    band."""
     if window is not None:
-        raise NotImplementedError("banded kNN (knn_mode=approx) is not "
-                                  "ported yet")
+        window = normalize_window(x.shape[1], k, window)
     if idx is None and use_fused_knn_edge(x, k):
+        if window is not None:
+            return edge_diff_window(x, k, window, out_dtype)[0]
         return edge_diff_fused(x, k, out_dtype)[0]
+    if idx is None and window is not None:
+        idx = knn_indices_window(x, k, window)
     if idx is None:
         idx = knn_dispatch(x, k)
     if out_dtype is not None:

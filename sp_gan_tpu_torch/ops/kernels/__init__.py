@@ -4,12 +4,21 @@ version. See `_build.py` for how the CUDA sources are compiled and loaded."""
 from sp_gan_tpu_torch.ops.kernels.auction import auction, auction_plain
 from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail, edge_tail_plain
 from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
+from sp_gan_tpu_torch.ops.kernels.knn_blocked import (knn_blocked,
+                                                      knn_blocked_plain)
 from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge, knn_edge_plain
-from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
+from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (
+    knn_edge_window, knn_edge_window_plain)
+from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_add,
+                                                  scatter_add_plain,
+                                                  scatter_diff_bwd,
                                                   scatter_diff_bwd_plain)
 
+# kernels A to H by wrapper name
 KERNELS = {"knn": knn, "knn_edge": knn_edge, "edge_tail": edge_tail,
-           "scatter_diff_bwd": scatter_diff_bwd, "auction": auction}
+           "scatter_diff_bwd": scatter_diff_bwd, "auction": auction,
+           "knn_edge_window": knn_edge_window, "knn_blocked": knn_blocked,
+           "scatter_add": scatter_add}
 
 
 def reset_launch_counts() -> None:
@@ -21,7 +30,9 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "auction", "auction_plain", "edge_tail", "edge_tail_plain", "knn", "knn_edge",
-           "knn_edge_plain", "knn_plain", "launch_counts",
-           "reset_launch_counts", "scatter_diff_bwd",
-           "scatter_diff_bwd_plain"]
+__all__ = ["KERNELS", "auction", "auction_plain", "edge_tail",
+           "edge_tail_plain", "knn", "knn_blocked", "knn_blocked_plain",
+           "knn_edge", "knn_edge_plain", "knn_edge_window",
+           "knn_edge_window_plain", "knn_plain", "launch_counts",
+           "reset_launch_counts", "scatter_add", "scatter_add_plain",
+           "scatter_diff_bwd", "scatter_diff_bwd_plain"]

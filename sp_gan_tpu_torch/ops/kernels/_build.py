@@ -32,17 +32,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
-# C signatures of csrc/*.cu; every function returns its cudaError_t
+# C signatures of csrc/*.cu; every function returns its cudaError_t (or,
+# for spgan_knn_blocked_chunks, a count)
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
     "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, ee, idx, B, N, C, k, diff_only, packed, out_bf16, stream
     "spgan_knn_edge": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, ee, idx, B, N, C, k, W, low_mask, diff_only, packed, out_bf16,
+    # stream
+    "spgan_knn_edge_window": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    # N -> key chunks of the partial pass
+    "spgan_knn_blocked_chunks": (_I,),
+    # x, part_key, part_idx, idx, dist, B, N, C, k, stream
+    "spgan_knn_blocked": (_P,) * 5 + (_I,) * 4 + (_P,),
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, vbuf, out, B, N, C, F2, F, k,
     # neg, stream
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # g, idx, out, scratch, B, S, n, F, g_bf16, stream
+    "spgan_scatter_add": (_P,) * 4 + (_I,) * 5 + (_P,),
     # d, asg, rounds, bidders, B, N, M, w, phases, eps (host f32[16]), cap,
     # stream
     "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P),

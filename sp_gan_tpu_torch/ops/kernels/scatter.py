@@ -1,6 +1,20 @@
-"""Kernel D: the backward of the diff-only edge op, `csrc/scatter.cu`.
+"""Kernels D and H: deterministic scatter-adds, `csrc/scatter.cu`.
 
-Replaces `sp_gan_tpu/ops/pallas/scatter.py::scatter_diff_bwd_pallas`
+Kernel H replaces `sp_gan_tpu/ops/pallas/scatter.py::scatter_add_pallas`
+(`_scatter_kernel`): g [B, S, F] (f32 or bf16) and idx [B, S] int32 give
+out[b, p] = sum_{s: idx[b, s] = p} g[b, s], [B, n, F] f32. It is the
+backward of the neighbor gather (`scatter_rows`) where the JAX package
+calls the Pallas kernel: on CUDA once the gather's one-hot would pass
+1 GiB (`one_hot_bytes`, the rule of `sp_gan_tpu/ops/edge.py:66`); below
+that JAX contracts an XLA one-hot and the port keeps `index_add_`. Kernel
+H runs kernel D's CSR passes without the central term: the sums run in
+ascending source order, no float atomics, bit-identical across launches.
+`scatter_add` launches it for CUDA tensors and runs `scatter_add_plain`
+(`index_add_`, ascending source order on the CPU) for CPU tensors;
+`scatter_add.launches` counts kernel launches.
+
+Kernel D, the backward of the diff-only edge op, replaces
+`sp_gan_tpu/ops/pallas/scatter.py::scatter_diff_bwd_pallas`
 (`_diff_bwd_kernel`). For `diff = nbr - central` edge features, d_diff
 [B, N, k, C] (f32 or bf16) and the neighbor indices idx [B, N, k] int32
 give
@@ -51,29 +65,110 @@ def _check(d_diff: torch.Tensor, idx: torch.Tensor) -> None:
                          f"{tuple(d_diff.shape)}")
 
 
+# one-hot bytes above which the JAX package's gather backward leaves the
+# XLA one-hot contraction for the Pallas scatter (sp_gan_tpu/ops/edge.py:66)
+ONE_HOT_LIMIT = 1 << 30
+
+
+def one_hot_bytes(B: int, S: int, n: int, dtype: torch.dtype) -> int:
+    """Bytes of the [B, S, n] one-hot that the JAX package would contract
+    for a scatter-add of B * S rows of `dtype` into n targets."""
+    return B * S * n * torch.empty((), dtype=dtype).element_size()
+
+
+def _check_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> None:
+    if g.dim() != 3:
+        raise ValueError(f"g must be [B, S, F], got {tuple(g.shape)}")
+    B, S, F = g.shape
+    if tuple(idx.shape) != (B, S):
+        raise ValueError(f"idx must be {(B, S)}, got {tuple(idx.shape)}")
+    if g.dtype not in GRAD_DTYPES:
+        raise TypeError(f"g must be one of {GRAD_DTYPES}, got {g.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("g and idx must be contiguous")
+    if idx.device != g.device:
+        raise ValueError(f"idx is on {idx.device}, g on {g.device}")
+    if min(B, S, F, n) < 1:
+        raise ValueError(f"need B, S, F, n >= 1, got {tuple(g.shape)}, "
+                         f"n={n}")
+
+
+def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Kernel H's function in plain PyTorch: one `index_add_` into
+    [B * n, F] f32. On the CPU it adds in ascending source order, the
+    kernel's; on CUDA in no fixed order."""
+    B, _, F = g.shape
+    target = idx.long() + n * torch.arange(B, device=idx.device)[:, None]
+    out = torch.zeros(B * n, F, dtype=torch.float32, device=g.device)
+    out.index_add_(0, target.reshape(-1), g.reshape(-1, F).float())
+    return out.reshape(B, n, F)
+
+
+def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(g [B, S, F] f32/bf16, idx [B, S] int32) -> out [B, n, F] f32, see
+    the module docstring. Kernel H on CUDA (F <= 128), `scatter_add_plain`
+    on the CPU."""
+    _check_add(g, idx, n)
+    if g.device.type == "cpu":
+        return scatter_add_plain(g, idx, n)
+    if g.device.type != "cuda":
+        raise ValueError(f"scatter_add runs on cuda or cpu, not {g.device}")
+    B, S, F = g.shape
+    if F > MAX_C:
+        raise ValueError(f"kernel H (scatter_add) takes F <= {MAX_C} "
+                         f"channels on CUDA, got {F}")
+    out = torch.empty((B, n, F), dtype=torch.float32, device=g.device)
+    # in-degrees, segment starts, fill cursors, sources as filled and
+    # sorted; freeing it on return is safe, since the caching allocator
+    # hands it only to work queued later on this stream
+    scratch = torch.empty(B * (3 * n + 1 + 2 * S), dtype=torch.int32,
+                          device=g.device)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.spgan_scatter_add(
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            B, S, n, F, int(g.dtype == torch.bfloat16), stream)
+    _build.check(err, "spgan_scatter_add")
+    scatter_add.launches += 1
+    return out
+
+
+scatter_add.launches = 0
+
+
 def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """The neighbor gather's transpose: g [B, N, k, C], idx [B, N, k] ->
     out [B, n, C] f32, out[b, p] the sum of the g[b, q, j] with
-    idx[b, q, j] == p. On the CPU `index_add_` adds them in ascending
-    (q, j) order; on CUDA in no fixed order."""
-    B, _, _, C = g.shape
-    target = idx.long() + n * torch.arange(B, device=idx.device)[:, None, None]
-    out = torch.zeros(B * n, C, dtype=torch.float32, device=g.device)
-    out.index_add_(0, target.reshape(-1), g.reshape(-1, C).float())
-    return out.reshape(B, n, C)
+    idx[b, q, j] == p. Kernel H on CUDA where the JAX package calls its
+    Pallas scatter (a one-hot of more than 1 GiB), else `index_add_`
+    (`scatter_add_plain`): on the CPU in ascending (q, j) order, on CUDA in
+    no fixed order."""
+    B, N, k, C = g.shape
+    g2, idx2 = g.reshape(B, N * k, C), idx.reshape(B, N * k)
+    if (g.device.type == "cuda"
+            and one_hot_bytes(B, N * k, n, g.dtype) > ONE_HOT_LIMIT):
+        return scatter_add(g2.contiguous(), idx2.to(torch.int32).contiguous(),
+                           n)
+    return scatter_add_plain(g2, idx2, n)
 
 
 def scatter_diff_bwd_plain(d_diff: torch.Tensor,
                            idx: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the neighbor rows added by
-    target (`scatter_rows`), then the central sum over j in ascending
+    target (`scatter_add_plain`), then the central sum over j in ascending
     order, subtracted last. On the CPU the sums run in the kernel's
     order."""
     g = d_diff.float()
+    B, N, k, C = g.shape
     central = g[:, :, 0]
-    for j in range(1, g.shape[2]):
+    for j in range(1, k):
         central = central + g[:, :, j]
-    return scatter_rows(g, idx, g.shape[1]) - central
+    return (scatter_add_plain(g.reshape(B, N * k, C), idx.reshape(B, N * k),
+                              N) - central)
 
 
 def scatter_diff_bwd(d_diff: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,11 @@ Adam step (parameters and optimizer state unchanged). The sphere
 template's kNN graph and f32 edge tensor are run constants, computed once
 here; EdgeConv1 runs on them at batch 1 (`edge1_b1`). On the card the step
 runs kernel B twice (EdgeConv2 in each phase) and kernel D once (its
-backward in the G phase); nothing else of it is a kernel of the port.
+backward in the G phase); nothing else of it is a kernel of the port. With
+`knn_mode="approx"` EdgeConv2 selects in an index band: kernel F takes
+kernel B's place up to 8192 points; above that the band is plain PyTorch
+(`ops/approx_knn.py`) and its gather's backward is kernel H, once in the G
+phase.
 
 The step takes z_d and z_g explicitly when given (a parity test hands it
 the JAX step's codes); otherwise it draws them from the state's
@@ -164,9 +168,11 @@ def make_sample_fn(cfg: Config, sphere, use_ema: bool = False
     and the state has them. Configurations that `supports_fused` accepts
     take the fused eval path (kernel C for both EdgeBlock tails, kernel B
     for EdgeConv2's kNN), with EdgeConv1 on the template's kNN graph; the
-    others run `Generator.forward`."""
+    others run `Generator.forward`, and so does `knn_mode="approx"`: the
+    JAX sampler runs `G.apply`, whose EdgeConv2 selects in the band, and
+    the fused path has no band."""
     sphere_np = np.asarray(sphere, np.float32)
-    fused = supports_fused(cfg)
+    fused = supports_fused(cfg) and cfg.knn_mode == "exact"
     # eval-mode BatchNorm is per element, so EdgeConv1 at batch 1 is exact
     edge1_b1 = cfg.edge1_b1 and not cfg.use_head
     cache = {}

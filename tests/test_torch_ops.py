@@ -341,8 +341,13 @@ class TestEdgeOps:
             edge.knn_select_mode()
 
     def test_window_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            edge.edge_diff_features(torch.zeros(1, 64, 16), 4, window=8)
+        """The band (`--knn_mode approx`) is ported since; at N=64 the
+        window normalizes to W=0 < k, which means exact selection, as in
+        the JAX package (tests/test_torch_approx_knn.py holds the band)."""
+        x = torch.from_numpy(_x((1, 64, 16), seed=5))
+        assert edge.normalize_window(64, 4, 8) is None
+        assert torch.equal(edge.edge_diff_features(x, 4, window=8),
+                           edge.edge_diff_features(x, 4))
 
 
 # ---------------------------------------------------------------- build

@@ -25,6 +25,7 @@ gradients and parameters, and the statistics. The D phase (d_loss, D's
 gradients and parameters) is compared on the free run.
 """
 
+import functools
 import re
 
 import jax
@@ -40,6 +41,7 @@ from sp_gan_tpu.data.h5 import SyntheticDataset as JaxSynthetic
 from sp_gan_tpu.data.noise import sample_z as jsample_z
 from sp_gan_tpu.nn import generator as jgenerator
 from sp_gan_tpu.nn import layers as jlayers
+from sp_gan_tpu.ops import approx_knn as japprox
 from sp_gan_tpu.ops import dispatch as jdispatch
 from sp_gan_tpu.ops.pairwise import knn_indices as jknn_indices
 from sp_gan_tpu.train.state import create_train_state as jcreate
@@ -116,9 +118,11 @@ class Replay:
     layers and generator modules (`max`/`min`, everything else passes
     through to `jax.numpy`)."""
 
-    def __init__(self):
+    def __init__(self, own_knn=None):
         self.table, self.inputs = {}, {}
         self.n_knn = self.n_pool = 0
+        # the JAX step's own selection, for the near-tie checks
+        self.own_knn = own_knn or jknn_indices
 
     def load(self, knn_picks, pools):
         """Entries from a port run: kNN picks in call order, and pools as
@@ -165,7 +169,8 @@ class Replay:
         for key in keys:
             x, mine = self.inputs[key], self.table[key]
             if key[0] == "knn":
-                own = np.asarray(jknn_indices(jnp.asarray(x), mine.shape[-1]))
+                own = np.asarray(self.own_knn(jnp.asarray(x),
+                                              mine.shape[-1]))
                 assert knn_near_tie(mine, own, x, rel), key
             else:
                 assert pool_near_tie(x, mine, key[2], rel), key
@@ -181,12 +186,15 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
     D.load_state_dict(state_from_jax(jstate.d_params, jstate.d_stats))
     state = create_train_state(cfg, device="cpu", G=G, D=D)
     picks, grads, pools = [], [], []
-    fused = tedge.edge_diff_fused
 
-    def recording_fused(x, k, out_dtype=None):
-        diff, idx = fused(x, k, out_dtype)
-        picks.append(idx.numpy().copy())
-        return diff, idx
+    def recording(fused):
+        """EdgeConv2's fused op (kernel B's, or kernel F's on the band of
+        knn_mode approx), recording its picks."""
+        def run(x, *args):
+            diff, idx = fused(x, *args)
+            picks.append(idx.numpy().copy())
+            return diff, idx
+        return run
 
     apply = tstep._apply
 
@@ -207,7 +215,10 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
     D.bn_fc2.register_forward_pre_hook(lambda m, a: pools.append(
         ("d", arg(a[0], torch.argmax), arg(a[0], torch.argmin))))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tedge, "edge_diff_fused", recording_fused)
+        mp.setattr(tedge, "edge_diff_fused",
+                   recording(tedge.edge_diff_fused))
+        mp.setattr(tedge, "edge_diff_window",
+                   recording(tedge.edge_diff_window))
         mp.setattr(tstep, "_apply", recording_apply)
         step = tstep.make_train_step(cfg, sphere)
         state, m = step(state, torch.from_numpy(real), torch.from_numpy(z_d),
@@ -234,7 +245,7 @@ REAL_POOLS = [("pool", 1, 1), ("pool", 1, 2)]
 
 
 def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
-             **kw):
+             jax_one_ulp=False, **kw):
     """One step of each package from the same start: a dict of numpy
     results of the free port run, the pinned port run and the JAX step.
     `near_tie` bounds how far the JAX step's own choices may lie from the
@@ -256,9 +267,14 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
 
     With `witness` (a dtype), also the JAX step in that dtype from the same
     start, replaying the choices of run B ("witness"): how far the JAX
-    package's own arithmetic moves when its dtype changes."""
-    jcfg = JaxConfig(**CFG_KW, donate_state=False, **kw)
-    cfg = Config(**CFG_KW, **kw)
+    package's own arithmetic moves when its dtype changes.
+
+    With `jax_one_ulp`, also the JAX step of run B with the real batch
+    moved by one ulp up and down, replaying the same choices
+    ("jax_one_ulp": [results]): how far rounding alone moves the JAX
+    step."""
+    jcfg = JaxConfig(**{**CFG_KW, **kw}, donate_state=False)
+    cfg = Config(**{**CFG_KW, **kw})
     jgrads = {"d": [], "g": []}
     jstate, jG, jD, _, _ = jcreate(jcfg, jax.random.PRNGKey(0))
     g_tx, d_tx = recording_tx(jgrads["g"], LR), recording_tx(jgrads["d"], LR)
@@ -272,16 +288,24 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
                 for kk in (k_zd, k_zg))
 
     if witness:
-        wcfg = JaxConfig(**CFG_KW, donate_state=False,
-                         **{**kw, "dtype": witness})
+        wcfg = JaxConfig(**{**CFG_KW, **kw, "dtype": witness},
+                         donate_state=False)
         _, wG, wD, _, _ = jcreate(wcfg, jax.random.PRNGKey(0))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SPGAN_KNN_SELECT", "exact")
         free_run = port_step(cfg, jstate, sphere, real, z_d, z_g)
         free, picks, pools = free_run
-        replay = Replay()
+        own = None
+        if cfg.knn_mode == "approx":
+            # EdgeConv2's band: the JAX step selects with the XLA window
+            # selection at the band edge_diff_features normalizes to
+            W = tedge.normalize_window(cfg.np, cfg.k, cfg.knn_window)
+            own = functools.partial(japprox.knn_indices_window, window=W)
+        replay = Replay(own)
         mp.setattr(jdispatch, "knn", replay.knn)
+        mp.setattr(japprox, "knn_indices_window",
+                   lambda x, k, window=None, block=None: replay.knn(x, k))
         mp.setattr(jlayers, "jnp", replay)
         mp.setattr(jgenerator, "jnp", replay)
         jstep = jmake_step(jcfg, jG, jD, g_tx, d_tx, jnp.asarray(sphere))
@@ -309,6 +333,12 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
             replay.assert_near_ties(tie_keys or sorted(replay.table),
                                     near_tie)
         out = {"free": free, "pinned": pinned_run[0], "jax": theirs}
+        if jax_one_ulp:
+            exact, out["jax_one_ulp"] = real, []
+            for eps in (2.0 ** -23, -2.0 ** -23):
+                real = (exact * (1 + eps)).astype(np.float32)
+                out["jax_one_ulp"].append(jax_run())
+            real = exact
         if witness:
             jgrads = {"d": [], "g": []}
             g_tx = recording_tx(jgrads["g"], LR)
