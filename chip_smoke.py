@@ -28,6 +28,17 @@ Phases, in order; any failure raises and the script exits nonzero:
               the card against the same steps on the CPU, seed after seed
               until --step_seeds of them compared G's gradients; one more
               step under torch.profiler.
+5b. fused_train - kernels I-L (the fused train-mode EdgeBlock's statistics
+              sweep and backward sweeps) and kernel C's bf16 mode against
+              their plain versions at the default step's EdgeConv2 (bf16
+              edges [24, 2048, 10, 128]) and at a small f32 shape, I-L
+              bit-identical over two launches; kernel B's concat bf16 form;
+              the fused block under autograd against a plain autograd
+              oracle; 3 + 10 --fused_train steps (per step B twice, I
+              twice, C twice, J, K, L and D once) and 3 + 10
+              --fused_dphase steps (B twice, I, C and D once), each
+              profiled once; small fused steps on the card against the
+              CPU.
 6. metrics  - kernel E (the EMD auction) against its plain version on the
               card, bit for bit, at [4, 2048, 2048] and [2, 4096, 4096] in
               the protocol regime (eps 0.002, 10000 iterations, 4 phases)
@@ -55,7 +66,8 @@ Phases, in order; any failure raises and the script exits nonzero:
               kernel H, once a step.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
-              PyTorch call computes the same function, that call's time.
+              PyTorch call computes the same function, that call's time;
+              I-L and C's bf16 mode at the --fused_train step's shape.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Needs no file outside the sources.
@@ -80,9 +92,11 @@ F32_OPS = F32_FLOPS / 2    # f32 instructions that are not FMAs (sub, max)
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the port's kernels A to H by wrapper name (sp_gan_tpu_torch.ops.kernels)
+# the port's kernels A to L by wrapper name (sp_gan_tpu_torch.ops.kernels)
 KERNEL_NAMES = ("knn", "knn_edge", "edge_tail", "scatter_diff_bwd", "auction",
-                "knn_edge_window", "knn_blocked", "scatter_add")
+                "knn_edge_window", "knn_blocked", "scatter_add",
+                "edge_train_stats2", "edge_train_bwd1", "edge_train_bwd2",
+                "edge_train_bwd3")
 
 
 def per(**launches) -> dict:
@@ -115,6 +129,24 @@ PER_REQUEST_16K = per(knn_blocked=2, edge_tail=2)
 TRAIN_16K = dict(np=16384, bs=2, knn_mode="approx")
 PER_STEP_16K = per(scatter_add=1)
 STEPS_16K = 3
+# per --fused_train step: EdgeConv2's concat edges (kernel B) and the fused
+# forward (kernel I, then kernel C in bf16 mode) in each phase; the three
+# backward sweeps (J, K, L) and the concat edges' backward (kernel D) in
+# the G phase
+PER_STEP_FUSED = per(knn_edge=2, edge_train_stats2=2, edge_tail=2,
+                     edge_train_bwd1=1, edge_train_bwd2=1, edge_train_bwd3=1,
+                     scatter_diff_bwd=1)
+# per --fused_dphase step: the fused forward in the D phase (kernel B's
+# concat edges, I, C); the default G phase (kernel B's diff edges, D)
+PER_STEP_DPHASE = per(knn_edge=2, edge_train_stats2=1, edge_tail=1,
+                      scatter_diff_bwd=1)
+# EdgeConv2's conv biases feed train-mode BatchNorms: the fused backward
+# gives them exactly zero gradient, so Adam leaves them in place
+FUSED_STILL = ("edge2.conv_w1.bias", "edge2.conv_w2.bias",
+               "edge2.conv_x.bias")
+# published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
+# bound of the bf16-mode matmuls
+BF16_FLOPS = 989e12
 # the small approx steps compared card against CPU: N=384 bands at W=48
 SMALL_APPROX = dict(np=384, knn_mode="approx", knn_window=48)
 # the metric protocol's two regimes: (eps, iters, eps-scaling phases)
@@ -395,6 +427,214 @@ def check_edge_op(x, k, gen) -> dict:
     return {"max_abs_err": worst}
 
 
+def hold(tag, out, ref, l2_tol, again=None) -> dict:
+    """A kernel's outputs against its plain version's: finite, each within
+    `l2_tol` in relative L2 and at most 1e-4 of its elements farther than
+    1e-2 of the tensor's max-abs (a leaky ReLU input within rounding of 0
+    takes the other slope in one of the two, which moves that element's
+    gradient by its size); with `again` (a second launch's outputs),
+    bit-identical to it."""
+    import torch
+    worst = {"rel_l2": 0.0, "max_abs_err": 0.0, "rel_max": 0.0, "far": 0.0}
+    for i, (a, r) in enumerate(zip(out, ref)):
+        if again is not None and not torch.equal(a, again[i]):
+            raise AssertionError(f"{tag}[{i}]: two launches differ")
+        a, r = a.float(), r.float()
+        err = (a - r).abs()
+        scale = r.abs().max().item()
+        res = {"rel_l2": (err.norm() / r.norm().clamp_min(1e-30)).item(),
+               "max_abs_err": err.max().item(),
+               "rel_max": err.max().item() / max(scale, 1e-30),
+               "far": (err > 1e-2 * scale).float().mean().item()}
+        if not (bool(torch.isfinite(a).all()) and res["rel_l2"] <= l2_tol
+                and res["far"] <= 1e-4):
+            raise AssertionError(f"{tag}[{i}]: {res} (limit {l2_tol})")
+        for key in worst:
+            worst[key] = max(worst[key], res[key])
+    log(f"  {tag}: {worst}" + ("; bit-identical over two launches"
+                               if again is not None else ""))
+    return worst
+
+
+def train_kernel_inputs(block, x, k, cd, gen) -> dict:
+    """The arguments kernels I-L and C take at EdgeConv2 of the fused
+    forward: the concat edges of x from kernel B in `cd`, the block's
+    weights, the affines of the edges' batch statistics and a random d_out
+    (J), then J's sums and d_u (K, L) and K's s1 (L) from the plain
+    versions."""
+    import torch
+    from sp_gan_tpu_torch.ops import edgeblock_train as ebt
+    from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
+    with torch.no_grad():
+        ee = knn_edge(x, k, cd, False, "packed")[0]
+        p = {n: t.detach().float() for n, t in
+             ebt.block_params(block).items()}
+        stats = ebt.edge_block_train_stats(p, ee, k)
+        a1, a2, ax, gb2x, gb1 = ebt._fold_all(p, stats, 1e-5)
+        w1, w2, wx, wout = ebt._weights(p)
+        B, N, _ = x.shape
+        d_out = torch.randn(B, N, w2.shape[1], generator=gen,
+                            device=x.device)
+        sums, _, _, d_u = kt.edge_train_bwd1_plain(
+            ee, d_out, w1, a1, w2, a2, wx, ax, gb2x, wout, k)
+        s1 = kt.edge_train_bwd2_plain(ee, d_u, w1, a1, w2, a2, wx, ax, gb2x,
+                                      sums, gb1, k)[0]
+    return dict(ee=ee, w1=w1, a1=a1, w2=w2, a2=a2, wx=wx, ax=ax, gb2x=gb2x,
+                gb1=gb1, wout=wout, bout=p["out_bias"][None].contiguous(),
+                d_out=d_out, sums=sums, d_u=d_u, s1=s1, k=k)
+
+
+def train_kernel_calls(a: dict) -> dict:
+    """{kernel: (wrapper, plain version, arguments)} of I-L and C."""
+    from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
+                                                        edge_tail_plain)
+    chain = (a["w1"], a["a1"], a["w2"], a["a2"], a["wx"], a["ax"])
+    return {
+        "edge_train_stats2": (kt.edge_train_stats2,
+                              kt.edge_train_stats2_plain,
+                              (a["ee"], a["w1"], a["a1"], a["w2"], a["k"])),
+        "edge_tail": (edge_tail, edge_tail_plain,
+                      (a["ee"], *chain, a["wout"], a["bout"], a["k"])),
+        "edge_train_bwd1": (kt.edge_train_bwd1, kt.edge_train_bwd1_plain,
+                            (a["ee"], a["d_out"], *chain, a["gb2x"],
+                             a["wout"], a["k"])),
+        "edge_train_bwd2": (kt.edge_train_bwd2, kt.edge_train_bwd2_plain,
+                            (a["ee"], a["d_u"], *chain, a["gb2x"], a["sums"],
+                             a["gb1"], a["k"])),
+        "edge_train_bwd3": (kt.edge_train_bwd3, kt.edge_train_bwd3_plain,
+                            (a["ee"], a["d_u"], *chain, a["gb2x"], a["sums"],
+                             a["gb1"], a["s1"], a["k"])),
+    }
+
+
+def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
+    """I-L and kernel C against their plain versions on the same inputs
+    (TF32 off); I-L bit-identical over two launches (fixed-order sums, no
+    float atomics). See `hold`."""
+    import torch
+    res = {}
+    for name, (fn, plain, args) in train_kernel_calls(a).items():
+        out, again = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        as_list = lambda t: [t] if torch.is_tensor(t) else list(t)
+        res[name] = hold(f"{name}[{label}]", as_list(out), as_list(ref),
+                         l2_tol, None if name == "edge_tail"
+                         else as_list(again))
+    return res
+
+
+def torch_edge_block_oracle(block, ee, k, neg=0.01, eps=1e-5):
+    """Plain autograd train-mode EdgeBlock on the edge tensor, two-pass
+    variance: the oracle of tests/test_edgeblock_train_fused.py
+    (`xla_block_from_ee`), in torch."""
+    import torch
+    C2 = ee.shape[-1]
+
+    def bn(h, norm):
+        mean = h.mean(dim=(0, 1, 2))
+        var = ((h - mean) ** 2).mean(dim=(0, 1, 2))
+        return (h - mean) * torch.rsqrt(var + eps) * norm.scale + norm.bias
+
+    lrelu = lambda v: torch.where(v >= 0, v, neg * v)
+    h1 = ee[..., C2 // 2:] @ block.conv_w1.kernel + block.conv_w1.bias
+    y1 = lrelu(bn(h1, block.bn_w1))
+    h2 = y1 @ block.conv_w2.kernel + block.conv_w2.bias
+    w = torch.softmax(lrelu(bn(h2, block.bn_w2)), dim=2)
+    hx = ee @ block.conv_x.kernel + block.conv_x.bias
+    u = lrelu(bn(hx, block.bn_x)) * w
+    return torch.einsum("bnkc,kco->bno", u, block.out_kernel) \
+        + block.out_bias
+
+
+def check_fused_block_autograd(block, x, k, gen) -> dict:
+    """`FusedEdgeBlock` (kernels I, C forward; J, K, L backward) under
+    autograd on f32 concat edges of x against the plain autograd oracle on
+    the card (TF32 off): the output within 1e-3 of its max-abs and every
+    parameter gradient within 2e-3 of its max-abs (the CPU test's bound;
+    two-pass), the conv biases' gradients exactly zero, d_ee held as
+    `hold` holds a kernel at 1e-5 relative L2. Measured at [4, 2048] on
+    the H100: the output 2.1e-6, the gradients up to 1.2e-6, d_ee 3.3e-7
+    (so the bounds are 1e-4 and 1e-5)."""
+    import torch
+    from sp_gan_tpu_torch.ops import edgeblock_train as ebt
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
+    ee = knn_edge(x, k, torch.float32, False, "packed")[0]
+    params = [p for _, p in block.named_parameters()]
+    names = [n for n, _ in block.named_parameters()]
+    ct = torch.randn(*x.shape[:2], block.fout, generator=gen,
+                     device=x.device)
+    e1 = ee.clone().requires_grad_()
+    out, _ = ebt.fused_edge_block(ebt.block_params(block), e1, k)
+    grads = torch.autograd.grad((out * ct).sum(), params + [e1])
+    e2 = ee.clone().requires_grad_()
+    ref = torch_edge_block_oracle(block, e2, k)
+    ref_grads = torch.autograd.grad((ref * ct).sum(), params + [e2])
+    torch.cuda.synchronize()
+    res = {"out": ((out - ref).abs().max() / ref.abs().max()).item()}
+    if not res["out"] <= 1e-4:
+        raise AssertionError(f"fused block: out error {res['out']}")
+    for name, g, r in zip(names, grads, ref_grads):
+        if name.startswith("conv") and name.endswith("bias"):
+            if bool(g.any()):
+                raise AssertionError(f"fused block: {name} gradient not 0")
+            continue
+        res[name] = ((g - r).abs().max() / r.abs().max()).item()
+        if not res[name] <= 1e-4:
+            raise AssertionError(f"fused block: {name} error {res[name]}")
+    res["d_ee"] = hold("fused block d_ee", [grads[-1]], [ref_grads[-1]],
+                       1e-5)
+    log(f"  fused block autograd vs oracle [{list(ee.shape)}, f32]: {res}")
+    return res
+
+
+def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
+    """Kernels I-L and C's bf16 mode against their plain versions at the
+    default training shape (bf16 edges: relative L2 within 5e-3; measured
+    on the H100 3e-7 for I, 2.5e-5 for C, 1.4e-4 to 4.2e-4 for J-L, where
+    the two sum orders straddle a bf16 rounding point and an operand moves
+    by a bf16 ulp) and at a small f32 shape (1e-5; measured at most
+    6.4e-7), kernel B's concat bf16 form, the fused block under autograd
+    against a plain oracle, then 3 + 10 --fused_train and --fused_dphase
+    steps at Config() defaults with their launch counts and one profiled
+    step each, and small fused steps on the card against the CPU.
+    Returns the readings and the default-shape inputs (for the timings)."""
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.nn.generator import Generator
+    cfg = Config(seed=seed)
+    G = Generator(cfg, seed=seed).cuda()
+    k = cfg.k
+    x = torch.randn(cfg.bs, cfg.np, 64, generator=gen, device="cuda")
+    res = {"concat_bf16": check_knn_edge(x, k,
+                                         [("packed", torch.bfloat16, False)])}
+    full = train_kernel_inputs(G.edge2, x, k, torch.bfloat16, gen)
+    res["full"] = check_train_kernels(full, 5e-3, f"{cfg.bs}x{cfg.np} bf16")
+    small = train_kernel_inputs(G.edge2, x[:2, :256].contiguous(), k,
+                                torch.float32, gen)
+    res["small"] = check_train_kernels(small, 1e-5, "2x256 f32")
+    res["autograd"] = check_fused_block_autograd(
+        G.edge2, x[:4].contiguous(), k, gen)
+    del small
+    tr, res["fused_train"] = timed_training(
+        Config(seed=seed, fused_train=True), TIMED_STEPS, WARMUP_STEPS,
+        PER_STEP_FUSED, "--fused_train step", FUSED_STILL)
+    res["fused_train"]["profile"] = profile_call(
+        lambda: tr.time_steps(1), "--fused_train step")
+    del tr
+    tr, res["fused_dphase"] = timed_training(
+        Config(seed=seed, fused_dphase=True), TIMED_STEPS, WARMUP_STEPS,
+        PER_STEP_DPHASE, "--fused_dphase step")
+    res["fused_dphase"]["profile"] = profile_call(
+        lambda: tr.time_steps(1), "--fused_dphase step")
+    del tr
+    res["small_step"] = check_small_steps(seed, step_seeds,
+                                          dict(fused_train=True))
+    return res, full
+
+
 def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
     """One training step of copies of G0 and D0 on `device`, recording
     EdgeConv2's inputs and selections, the max pools' inputs, both
@@ -408,15 +648,19 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
     from sp_gan_tpu_torch.ops import edge as edge_mod
     from sp_gan_tpu_torch.train import step as step_mod
     from sp_gan_tpu_torch.train.state import create_train_state
+    from sp_gan_tpu_torch.nn import fused_train as ft_mod
     G, D = copy.deepcopy(G0), copy.deepcopy(D0)
     state = create_train_state(cfg, device=device, G=G, D=D)
     rec = {"knn": [], "pools": [], "grads": [], "fakes": []}
     fused, window = edge_mod.edge_diff_fused, edge_mod.edge_diff_window
+    concat, adain = edge_mod.edge_concat_fused, ft_mod._adain
+    gft = step_mod.generator_forward_train
     apply = step_mod._apply
 
     def recording(op):
-        """EdgeConv2's fused op (kernel B's, or kernel F's on the band of
-        knn_mode approx), recording its input and selection."""
+        """EdgeConv2's fused op (kernel B's diff or, on the fused train
+        path, concat form, or kernel F's on the band of knn_mode approx),
+        recording its input and selection."""
         def run(x, *args):
             diff, idx = op(x, *args)
             rec["knn"].append((x.detach().cpu(), idx.cpu()))
@@ -439,6 +683,19 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
         if pinned is not None and len(rec["fakes"]) == 1:
             return pinned["fakes"][0].to(out.device)      # the D phase's
 
+    def recording_gft(*a, **kw):
+        """The fused train-mode forward, with `fakes` as its hook."""
+        out = gft(*a, **kw)
+        res = fakes(None, None, out)
+        return out if res is None else res
+
+    def recording_adain(p, x, style):
+        """The fused forward's AdaIN: G's pool input after adain2."""
+        out = adain(p, x, style)
+        if p is G.adain2:
+            rec["pools"].append(out.detach().float().cpu())
+        return out
+
     G.register_forward_hook(fakes)
     G.adain2.register_forward_hook(
         lambda m, a, out: rec["pools"].append(out.detach().float().cpu()))
@@ -446,6 +703,9 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
         lambda m, a: rec["pools"].append(a[0].detach().float().cpu()))
     edge_mod.edge_diff_fused = recording(fused)
     edge_mod.edge_diff_window = recording(window)
+    edge_mod.edge_concat_fused = recording(concat)
+    ft_mod._adain = recording_adain
+    step_mod.generator_forward_train = recording_gft
     step_mod._apply = recording_apply
     try:
         step = step_mod.make_train_step(cfg, sphere)
@@ -454,6 +714,8 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
                         torch.as_tensor(z_g, device=device))
     finally:
         edge_mod.edge_diff_fused, edge_mod.edge_diff_window = fused, window
+        edge_mod.edge_concat_fused, ft_mod._adain = concat, adain
+        step_mod.generator_forward_train = gft
         step_mod._apply = apply
     rec["loss"] = {k: float(m[k]) for k in ("d_loss", "g_loss")}
     rec["g_params"] = [p.detach().cpu() for p in G.parameters()]
@@ -647,13 +909,14 @@ def check_small_steps(seed: int, need: int, cfg_kw=None) -> list:
 
 
 def timed_training(cfg, steps: int, warmup: int, expected: dict,
-                   label: str):
+                   label: str, still=()):
     """`warmup`, then `steps` training steps of `cfg` on the card through
     `Trainer.time_steps` (the trainer's batches: a device-resident gather
     and a per-cloud point shuffle each step), weights from cfg.seed, from
     launch counts of 0: each kernel must have launched `expected` times a
-    step, the losses must be finite and every weight tensor must move.
-    Returns the trainer and the timings."""
+    step, the losses must be finite and every weight tensor must move but
+    the generator's named in `still`, which must not (their gradient is
+    exactly zero). Returns the trainer and the timings."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.ops import kernels
@@ -676,10 +939,14 @@ def timed_training(cfg, steps: int, warmup: int, expected: dict,
     if not np.isfinite(losses).all():
         raise AssertionError(f"{label}: non-finite losses {losses}")
     now = list(tr.state.G.parameters()) + list(tr.state.D.parameters())
-    moved = sum(not torch.equal(a, b) for a, b in zip(start, now))
-    if moved != len(now):
-        raise AssertionError(f"{label}: only {moved} of {len(now)} weight "
-                             "tensors moved")
+    names = ([n for n, _ in tr.state.G.named_parameters()]
+             + [None] * len(list(tr.state.D.parameters())))
+    wrong = [n or "D" for n, a, b in zip(names, start, now)
+             if torch.equal(a, b) != (n in still)]
+    if wrong:
+        raise AssertionError(f"{label}: weight tensors that moved where "
+                             f"they should not, or stayed where they "
+                             f"should move: {wrong}")
     return tr, {"ms_per_step": run["ms_per_step"],
                 "steps_per_sec": run["steps_per_sec"],
                 "points_per_sec": run["points_per_sec"],
@@ -1212,6 +1479,14 @@ def main() -> None:
         "launches_per_step", "small_step", "profile")}}))
     ph.end()
 
+    # --------------------------------------------------------------- 5b
+    ph.start("fused_train")
+    fused, fused_in = fused_train_phase(args.seed, args.step_seeds, gen)
+    log(json.dumps({"fused_train": {k: fused[k] for k in (
+        "concat_bf16", "full", "small", "autograd", "fused_train",
+        "fused_dphase", "small_step")}}))
+    ph.end()
+
     # ---------------------------------------------------------------- 6
     ph.start("metrics")
     met = metrics_phase(man, args.seed)
@@ -1472,6 +1747,64 @@ def main() -> None:
                            20),
         library="torch.index_add (f32 rows, atomics)",
         shape=[Bh, Sh, Fh], n=n_h, path="N=16384 approx training"))
+    # kernels I-L and C's bf16 mode at the default --fused_train step's
+    # EdgeConv2: ee [24, 2048, 10, 128] bf16, F2 = 64, F = 128; the matmul
+    # work at the bf16 tensor-core peak, each input read and each output
+    # written once (the JAX function's: d_u is J's own scratch output)
+    ee_f = fused_in["ee"]
+    Bt, Nt, kt_, c2 = ee_f.shape
+    f2, f = fused_in["w1"].shape[1], fused_in["w2"].shape[1]
+    rows_f = Bt * Nt * kt_
+    c1 = c2 // 2
+    # multiply-adds per edge row: the chain (w1, w2, wx); conv_out (C);
+    # d_u = d_out @ wout[j]^T and d_wout (J); d_u, d_y1 and d_w2 (K); d_u,
+    # d_y1, d_diff, d_w1, d_full and d_wx (L)
+    chain = c1 * f2 + f2 * f + c2 * f
+    macs = {"edge_train_stats2": c1 * f2 + f2 * f,
+            "edge_tail": chain + f * f,
+            "edge_train_bwd1": chain + 2 * f * f,
+            "edge_train_bwd2": chain + f * f + 2 * f2 * f,
+            "edge_train_bwd3": chain + f * f + f2 * f + 2 * c1 * f2
+            + 2 * c2 * f}
+    ee_bytes, dout_bytes = ee_f.numel() * 2, Bt * Nt * f * 4
+    moved = {"edge_train_stats2": ee_bytes // 2,
+             "edge_tail": ee_bytes + dout_bytes,
+             "edge_train_bwd1": ee_bytes + dout_bytes,
+             "edge_train_bwd2": ee_bytes + dout_bytes,
+             "edge_train_bwd3": 2 * ee_bytes + dout_bytes}
+    replaces = {
+        "edge_train_stats2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:152 "
+                             "(_stats2_pallas, _stats2_kernel :111)",
+        "edge_tail": "sp_gan_tpu/ops/pallas/edgeblock.py:102 "
+                     "(edge_tail_pallas bf16 mode, _edge_tail_kernel :28)",
+        "edge_train_bwd1": "sp_gan_tpu/ops/pallas/edgeblock_train.py:450 "
+                           "(edge_block_train_backward pass 1, "
+                           "_bwd_pass1_kernel :242)",
+        "edge_train_bwd2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:461 "
+                           "(edge_block_train_backward pass 2, "
+                           "_bwd_pass2_kernel :288)",
+        "edge_train_bwd3": "sp_gan_tpu/ops/pallas/edgeblock_train.py:471 "
+                           "(edge_block_train_backward pass 3, "
+                           "_bwd_pass3_kernel :328)"}
+    source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train.cu" for n in macs}
+    source["edge_tail"] = "sp_gan_tpu_torch/csrc/edgeblock.cu"
+    ft_launches = fused["fused_train"]["launches"]
+    for name, (fn, plain, fargs) in train_kernel_calls(fused_in).items():
+        f_bound, f_by = bound(2 * macs[name] * rows_f, moved[name],
+                              BF16_FLOPS)
+        rows.append(dict(
+            name=name, route="cuda", source=source[name],
+            replaces=replaces[name], mode="bf16 edges",
+            launches=ft_launches[name],
+            launches_per_step=fused["fused_train"]["launches_per_step"][
+                name],
+            max_abs_err=fused["full"][name]["max_abs_err"],
+            max_err=fused["full"][name]["max_abs_err"],
+            rel_l2=fused["full"][name]["rel_l2"],
+            ms=cuda_ms(lambda: fn(*fargs), 10),
+            plain_ms=cuda_ms(lambda: plain(*fargs), 3),
+            bound_ms=f_bound, bound_by=f_by, library_ms=None,
+            shape=list(ee_f.shape), path="--fused_train step"))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"]
                is not None else "no single PyTorch call computes this "

@@ -5,6 +5,8 @@ counterpart of the JAX package's `bench.py`.
     python -m sp_gan_tpu_torch.bench [--steps 20] [--warmup 3]
     python -m sp_gan_tpu_torch.bench --np 8192 --bs 4 --knn_mode approx \
         --knn_window 512        # the N=8192 campaign's step
+    python -m sp_gan_tpu_torch.bench --fused_train   # the fused EdgeBlock
+                                # in both phases (--fused_dphase: D's only)
 
 Times `Trainer.time_steps` on the trainer's synthetic data, with weights
 drawn from `--seed`; then, as the JAX package's bench does, the metric
@@ -69,6 +71,10 @@ def main(argv=None) -> None:
     p.add_argument("--nk", type=int, default=20)
     p.add_argument("--knn_mode", default="exact", choices=("exact", "approx"))
     p.add_argument("--knn_window", type=int, default=512)
+    p.add_argument("--fused_train", action="store_true",
+                   help="fused train-mode EdgeBlock in both phases")
+    p.add_argument("--fused_dphase", action="store_true",
+                   help="fused train-mode EdgeBlock in the D phase")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
@@ -80,7 +86,8 @@ def main(argv=None) -> None:
     from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
 
     cfg = Config(np=args.np, bs=args.bs, nk=args.nk, seed=args.seed,
-                 knn_mode=args.knn_mode, knn_window=args.knn_window)
+                 knn_mode=args.knn_mode, knn_window=args.knn_window,
+                 fused_train=args.fused_train, fused_dphase=args.fused_dphase)
     tr = Trainer(cfg, dataset=synthetic_dataset(cfg), device=args.device,
                  logs=False)
     r = tr.time_steps(args.steps, args.warmup)
@@ -88,8 +95,10 @@ def main(argv=None) -> None:
     rates = metric_rates(tr.data, dev, args.seed)
     print(json.dumps({
         "metric": f"G+D train steps/sec (bs={cfg.bs}, {cfg.np} pts"
-                  + (f", approx kNN W={cfg.knn_window})"
-                     if cfg.knn_mode == "approx" else ")"),
+                  + (f", approx kNN W={cfg.knn_window}"
+                     if cfg.knn_mode == "approx" else "")
+                  + (", fused_train" if cfg.fused_train else "")
+                  + (", fused_dphase" if cfg.fused_dphase else "") + ")",
         "value": round(r["steps_per_sec"], 3),
         "unit": "steps/s",
         "points_per_sec": round(r["points_per_sec"]),

@@ -3,10 +3,12 @@ own copy of `sp_gan_tpu/config.py` (`Config`, `build_argparser`,
 `parse_args`).
 
 Every field and default is the JAX package's, so a `config.json` written by
-either package loads in the other, and the CLIs take the same flags. Fields that steer only the JAX/TPU
-program (`remat`, `mesh_*`, `data_axis`, `points_axis`, `use_pallas`,
-`fused_*`, `donate_state`, `steps_per_call`, `watchdog_secs`) are accepted
-and ignored by the port.
+either package loads in the other, and the CLIs take the same flags.
+`fused_train` and `fused_dphase` select the fused train-mode generator
+forward, as in the JAX package (`train/step.py`). Fields that steer only
+the JAX/TPU program (`remat`, `mesh_*`, `data_axis`, `points_axis`,
+`use_pallas`, `fused_eval`, `donate_state`, `steps_per_call`,
+`watchdog_secs`) are accepted and ignored by the port.
 """
 
 from __future__ import annotations
@@ -86,8 +88,8 @@ class Config:
     data_axis: Optional[str] = None    # JAX only
     points_axis: Optional[str] = None  # JAX only
     use_pallas: bool = True            # JAX only
-    fused_train: bool = False          # JAX only
-    fused_dphase: bool = False         # JAX only
+    fused_train: bool = False          # fused train-mode EdgeBlock
+    fused_dphase: bool = False         # ... in the D phase's forward only
     fused_eval: bool = False           # JAX only
     edge1_b1: bool = True              # EdgeConv1 at batch 1, broadcast
     bn_stats: str = "global"
@@ -177,7 +179,7 @@ def build_argparser() -> argparse.ArgumentParser:
     """The training CLI's flags, one per `Config` field with the same name,
     type and default as the JAX package's (`--flag/--no-flag` for
     booleans). The JAX-only knobs (`steps_per_call`, `donate_state`,
-    `use_pallas`, `remat`, `mesh_*`, `fused_*`, `watchdog_secs`) are
+    `use_pallas`, `remat`, `mesh_*`, `fused_eval`, `watchdog_secs`) are
     accepted and have no effect in the port."""
     c = Config()
     p = argparse.ArgumentParser(description="sp_gan_tpu_torch")

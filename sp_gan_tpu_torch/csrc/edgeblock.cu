@@ -1,5 +1,8 @@
-// Kernel C: the eval-mode EdgeBlock tail with BatchNorm folded into
-// per-channel affines, ee [B, N, k, 2C] f32 -> out [B, N, F] f32.
+// Kernel C: the EdgeBlock tail with BatchNorm folded into per-channel
+// affines, ee [B, N, k, 2C] f32 or bf16 -> out [B, N, F] f32. The serving
+// path folds eval BatchNorm into f32 edges; the fused training forward
+// (--fused_train, --fused_dphase) folds the batch statistics and hands it
+// bf16 edges under mixed_edge (bf16 mode, at the entry point below).
 //
 // Replaces the TPU kernel sp_gan_tpu/ops/pallas/edgeblock.py::
 // edge_tail_pallas (_edge_tail_kernel). Per point, with diff = ee[..., C:],
@@ -30,9 +33,11 @@
 // price of letting the contraction take 128-point tiles, so that each wout
 // value fetched from L2 serves 128 points rather than the few whose edge
 // rows fit beside the weights in shared memory. Arithmetic is plain f32
-// FMA, no tensor cores, no TF32.
+// FMA, no tensor cores, no TF32; bf16 mode rounds the operands to bf16
+// first and keeps the rounded v in the f32 scratch.
 #include <cmath>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +47,11 @@ constexpr int kMaxPoints = 32;  // points per tile of edge_rows_kernel
 
 __device__ __forceinline__ float lrelu(float v, float neg) {
   return v >= 0.f ? v : neg * v;
+}
+
+// x rounded to bf16 (nearest even) when rb, else x unchanged
+__device__ __forceinline__ float rnd(float x, int rb) {
+  return rb ? __bfloat162float(__float2bfloat16_rn(x)) : x;
 }
 
 // acc[i][j] += dot(a[j * lda + 0 .. K), column c0 + i * cs of W[0 .. K))
@@ -76,11 +86,13 @@ __device__ __forceinline__ void rows_dot(const float* a, int lda,
 }
 
 struct Rows {
-  const float *ee, *w1, *a1, *w2, *a2, *wx, *ax;
+  const void* ee;          // f32, or bf16 with rb
+  const float *w1, *a1, *w2, *a2, *wx, *ax;
   float* v;
   long long M;             // points, B * N
   int C, Cp, F2, F, k, P;  // Cp: C rounded up to a multiple of 4
   float neg;
+  int rb;                  // bf16 mode: matmul operands rounded to bf16
 };
 
 // Shared memory, in floats, each part a multiple of 4:
@@ -117,15 +129,16 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
   float* H1 = DIF + P * k * Cp;
   const int tid = threadIdx.x;
 
+  const int rb = r.rb;
   for (int i = tid; i < Cp * F2; i += kThreads) {
     const int row = i / F2, c = i - row * F2;
-    W1[i] = row < C ? r.w1[row * F2 + c] : 0.f;
+    W1[i] = row < C ? rnd(r.w1[row * F2 + c], rb) : 0.f;
   }
-  for (int i = tid; i < F2 * F; i += kThreads) W2[i] = r.w2[i];
+  for (int i = tid; i < F2 * F; i += kThreads) W2[i] = rnd(r.w2[i], rb);
   for (int i = tid; i < Cp * F; i += kThreads) {
     const int row = i / F, c = i - row * F;
-    WX0[i] = row < C ? r.wx[row * F + c] : 0.f;
-    WX1[i] = row < C ? r.wx[(C + row) * F + c] : 0.f;
+    WX0[i] = row < C ? rnd(r.wx[row * F + c], rb) : 0.f;
+    WX1[i] = row < C ? rnd(r.wx[(C + row) * F + c], rb) : 0.f;
   }
   for (int i = tid; i < 2 * F2; i += kThreads) A1[i] = r.a1[i];
   for (int i = tid; i < 2 * F; i += kThreads) {
@@ -141,10 +154,13 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
     const int np = r.M - p0 < P ? (int)(r.M - p0) : P;
 
     // the tile's edge rows, split into the central and the diff halves
-    const float* src = r.ee + p0 * k * C2;
+    const long long base = p0 * k * C2;
+    const float* src = static_cast<const float*>(r.ee) + base;
+    const __nv_bfloat16* srcb =
+        static_cast<const __nv_bfloat16*>(r.ee) + base;
     for (int i = tid; i < np * k * C2; i += kThreads) {
       const int row = i / C2, c = i - row * C2;
-      const float val = src[i];
+      const float val = rb ? __bfloat162float(srcb[i]) : src[i];
       if (c < C)
         CEN[row * Cp + c] = val;
       else
@@ -169,7 +185,8 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
 #pragma unroll
         for (int j = 0; j < KM; ++j)
           if (j < k)
-            H1[(pp * k + j) * F2 + c] = lrelu(acc[i][j] * s + sh, r.neg);
+            H1[(pp * k + j) * F2 + c] =
+                rnd(lrelu(acc[i][j] * s + sh, r.neg), rb);
       }
     }
     __syncthreads();
@@ -212,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
         for (int j = 0; j < KM; ++j)
           if (j < k)
             dst[j * F + c] =
-                lrelu(v[i][j] * sx + shx, r.neg) * (h[i][j] / sum);
+                rnd(lrelu(v[i][j] * sx + shx, r.neg) * (h[i][j] / sum), rb);
       }
     }
     __syncthreads();
@@ -308,16 +325,24 @@ cudaError_t launch_rows(const Rows& r, size_t smem, cudaStream_t stream) {
 
 // ee [B, N, k, 2C]; w1 [C, F2]; a1 [2, F2]; w2 [F2, F]; a2, ax [2, F];
 // wx [2C, F]; wout [k, F, F]; bout [F]; vbuf [B, N, k, F] scratch; out
-// [B, N, F]. All f32, contiguous, on the device. Launches both kernels on
-// `stream` and returns the first nonzero cudaError_t (0 on success). Takes
-// F in {64, 128}, F2 a multiple of 4, 1 <= k <= 32, and C small enough
-// that the weights and one point's rows fit in shared memory.
+// [B, N, F]. All f32 except ee, which is bf16 when `bf16` is set; all
+// contiguous, on the device. Launches both kernels on `stream` and returns
+// the first nonzero cudaError_t (0 on success). Takes F in {64, 128}, F2 a
+// multiple of 4, 1 <= k <= 32, and C small enough that the weights and
+// one point's rows fit in shared memory.
+//
+// bf16 mode, the JAX kernel's `cd = bfloat16`: the operands of the chain's
+// matmuls (the edge rows, w1, w2, wx, the activations before @ w2) and v
+// before @ wout are rounded to bf16; wout stays f32, as the JAX kernel's
+// mixed bf16 x f32 dot promotes it. Each product of two bf16 values is
+// exact in f32, so only the order of the f32 sums differs from the plain
+// version. The affines, leaky ReLU and softmax stay f32.
 extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
                                const void* w2, const void* a2, const void* wx,
                                const void* ax, const void* wout,
                                const void* bout, void* vbuf, void* out, int B,
                                int N, int C, int F2, int F, int k, float neg,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || k <= 0 || k > 32 || F2 <= 0 ||
       F2 % 4 != 0 || (F != 64 && F != 128))
     return (int)cudaErrorInvalidValue;
@@ -334,11 +359,11 @@ extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
   while (P > 1 && wbytes + P * pbytes > (size_t)limit) P /= 2;
   if (wbytes + P * pbytes > (size_t)limit) return (int)cudaErrorInvalidValue;
 
-  const Rows r{static_cast<const float*>(ee), static_cast<const float*>(w1),
+  const Rows r{ee, static_cast<const float*>(w1),
                static_cast<const float*>(a1), static_cast<const float*>(w2),
                static_cast<const float*>(a2), static_cast<const float*>(wx),
                static_cast<const float*>(ax), static_cast<float*>(vbuf),
-               (long long)B * N, C, Cp, F2, F, k, P, neg};
+               (long long)B * N, C, Cp, F2, F, k, P, neg, bf16 ? 1 : 0};
   const size_t smem = wbytes + P * pbytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k > 16)

@@ -11,13 +11,14 @@ kernel G above 8192 points (`ops/dispatch.knn`), and gathers in PyTorch.
 band: an eligible input runs the banded fused kernel F
 (`ops/kernels/knn_edge_window.py`), any other input the plain band
 selection `ops/approx_knn.knn_indices_window` and the gather, as the JAX
-package runs it in XLA. Gradients: the diff-only fused ops are
+package runs it in XLA. Gradients: the fused ops are
 `torch.autograd.Function`s whose backward is kernel D
-(`ops/kernels/scatter.py`), the counterparts of the JAX `_knn_edge_diff`
-and `_knn_edge_diff_window` VJPs; the gather's backward is `scatter_rows`
-(kernel H where the JAX package calls its Pallas scatter, else
-`index_add_`). The concat-form fused op (serving only) carries no
-gradient. Eligibility is the JAX rule of
+(`ops/kernels/scatter.py`): the diff-only ones are the counterparts of the
+JAX `_knn_edge_diff` and `_knn_edge_diff_window` VJPs, the concat form
+(`EdgeConcat`, which the fused training forward differentiates) of the
+default branch of `_knn_edge`'s VJP; the gather's backward is
+`scatter_rows` (kernel H where the JAX package calls its Pallas scatter,
+else `index_add_`). Eligibility is the JAX rule of
 `_use_fused_knn_edge` (N % 8 == 0, N <= 8192, N*C*4 <= 8 MiB, C >= 16)
 minus its TPU condition, plus the port's own limits: the CUDA kernels take
 C <= 128 and k <= 32, and kernel B no N limit beyond those. Selection order
@@ -87,6 +88,43 @@ def _fused(x, k, out_dtype, diff_only):
         return knn_edge(x.detach().float().contiguous(), k,
                         out_dtype=out_dtype or x.dtype, diff_only=diff_only,
                         select_mode=knn_select_mode())
+
+
+class EdgeConcat(torch.autograd.Function):
+    """The concat-form fused op under autograd: forward kernel B
+    (`[central, nbr - central]`, selection from SPGAN_KNN_SELECT), backward
+    the default branch of the JAX `_knn_edge` VJP: the central half
+    collects sum_k(d[..., :C] - d[..., C:]) at its own row and the
+    neighbor half scatters through the indices. The scatter is kernel D on
+    the neighbor half (which subtracts that half's own sum over k in f32,
+    added back here). As in JAX, the central sum, the scatter and their
+    sum are each in the edges' type before the cast to x's. kNN selection
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, k, out_dtype):
+        ee, idx = _fused(x, k, out_dtype, diff_only=False)
+        ctx.save_for_backward(idx)
+        ctx.dtype = x.dtype
+        ctx.mark_non_differentiable(idx)
+        return ee, idx
+
+    @staticmethod
+    def backward(ctx, d_ee, d_idx):
+        (idx,) = ctx.saved_tensors
+        C = d_ee.shape[-1] // 2
+        d_nbr = d_ee[..., C:]
+        d_central = (d_ee[..., :C] - d_nbr).sum(dim=2)
+        scattered = (scatter_diff_bwd(d_nbr.contiguous(), idx)
+                     + d_nbr.float().sum(dim=2)).to(d_ee.dtype)
+        return (d_central + scattered).to(ctx.dtype), None, None
+
+
+def edge_concat_fused(x: torch.Tensor, k: int,
+                      out_dtype: Optional[torch.dtype] = None):
+    """(ee [B, N, k, 2C], idx [B, N, k] int32) from kernel B, differentiable
+    in x through kernel D (`EdgeConcat`)."""
+    return EdgeConcat.apply(x, k, out_dtype)
 
 
 def normalize_window(n: int, k: int, window: int) -> Optional[int]:
@@ -189,10 +227,11 @@ def edge_features(x: torch.Tensor, k: int,
                   return_idx: bool = False,
                   out_dtype: Optional[torch.dtype] = None):
     """[B, N, C] -> `[central, nbr - central]` [B, N, k, 2C] (and idx with
-    `return_idx`), the reference's `get_edge_features`. The fused form
-    (idx=None) is the serving path's and carries no gradient."""
+    `return_idx`), the reference's `get_edge_features`, in `out_dtype`
+    (default x's). With idx=None an eligible input takes the fused op
+    (`edge_concat_fused`), differentiable in x."""
     if idx is None and use_fused_knn_edge(x, k):
-        ee, idx = _fused(x, k, out_dtype, diff_only=False)
+        ee, idx = edge_concat_fused(x, k, out_dtype)
         return (ee, idx) if return_idx else ee
     if idx is None:
         idx = knn_dispatch(x, k)

@@ -3,6 +3,10 @@ version. See `_build.py` for how the CUDA sources are compiled and loaded."""
 
 from sp_gan_tpu_torch.ops.kernels.auction import auction, auction_plain
 from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail, edge_tail_plain
+from sp_gan_tpu_torch.ops.kernels.edgeblock_train import (
+    edge_train_bwd1, edge_train_bwd1_plain, edge_train_bwd2,
+    edge_train_bwd2_plain, edge_train_bwd3, edge_train_bwd3_plain,
+    edge_train_stats2, edge_train_stats2_plain)
 from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
 from sp_gan_tpu_torch.ops.kernels.knn_blocked import (knn_blocked,
                                                       knn_blocked_plain)
@@ -14,11 +18,14 @@ from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_add,
                                                   scatter_diff_bwd,
                                                   scatter_diff_bwd_plain)
 
-# kernels A to H by wrapper name
+# kernels A to L by wrapper name
 KERNELS = {"knn": knn, "knn_edge": knn_edge, "edge_tail": edge_tail,
            "scatter_diff_bwd": scatter_diff_bwd, "auction": auction,
            "knn_edge_window": knn_edge_window, "knn_blocked": knn_blocked,
-           "scatter_add": scatter_add}
+           "scatter_add": scatter_add, "edge_train_stats2": edge_train_stats2,
+           "edge_train_bwd1": edge_train_bwd1,
+           "edge_train_bwd2": edge_train_bwd2,
+           "edge_train_bwd3": edge_train_bwd3}
 
 
 def reset_launch_counts() -> None:
@@ -31,7 +38,10 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "auction", "auction_plain", "edge_tail",
-           "edge_tail_plain", "knn", "knn_blocked", "knn_blocked_plain",
+           "edge_tail_plain", "edge_train_bwd1", "edge_train_bwd1_plain",
+           "edge_train_bwd2", "edge_train_bwd2_plain", "edge_train_bwd3",
+           "edge_train_bwd3_plain", "edge_train_stats2",
+           "edge_train_stats2_plain", "knn", "knn_blocked", "knn_blocked_plain",
            "knn_edge", "knn_edge_plain", "knn_edge_window",
            "knn_edge_window_plain", "knn_plain", "launch_counts",
            "reset_launch_counts", "scatter_add", "scatter_add_plain",

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t (or,
-# for spgan_knn_blocked_chunks, a count)
+# for spgan_knn_blocked_chunks, a count, and for spgan_ebt_scratch a count
+# of floats as a long long, RESTYPES)
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
     "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -47,8 +48,21 @@ SIGNATURES = {
     # x, part_key, part_idx, idx, dist, B, N, C, k, stream
     "spgan_knn_blocked": (_P,) * 5 + (_I,) * 4 + (_P,),
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, vbuf, out, B, N, C, F2, F, k,
-    # neg, stream
-    "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # neg, bf16, stream
+    "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P),
+    # pass, B, N, C, F2, F, k -> floats of scratch (long long)
+    "spgan_ebt_scratch": (_I,) * 7,
+    # ee, w1, a1, w2, out, scratch, B, N, C, F2, F, k, neg, bf16, stream
+    "spgan_ebt_stats2": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
+    # ee, d_out, w1, a1, w2, a2, wx, ax, gb2x, wout, sums, d_wout, d_bout,
+    # d_u, scratch, B, N, C, F2, F, k, neg, bf16, stream
+    "spgan_ebt_bwd1": (_P,) * 15 + (_I,) * 6 + (_F, _I, _P),
+    # ee, d_u, w1, a1, w2, a2, wx, ax, gb2x, s2, gb1, s1, d_w2, scratch,
+    # B, N, C, F2, F, k, neg, bf16, stream
+    "spgan_ebt_bwd2": (_P,) * 14 + (_I,) * 6 + (_F, _I, _P),
+    # ee, d_u, w1, a1, w2, a2, wx, ax, gb2x, s2, gb1, s1, d_ee, d_w1, d_wx,
+    # scratch, B, N, C, F2, F, k, neg, bf16, stream
+    "spgan_ebt_bwd3": (_P,) * 16 + (_I,) * 6 + (_F, _I, _P),
     # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # g, idx, out, scratch, B, S, n, F, g_bf16, stream
@@ -57,6 +71,8 @@ SIGNATURES = {
     # stream
     "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P),
 }
+
+RESTYPES = {"spgan_ebt_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -126,7 +142,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 

@@ -1,5 +1,5 @@
-"""Kernel C: the eval-mode EdgeBlock tail with BatchNorm folded into
-affines, `csrc/edgeblock.cu`.
+"""Kernel C: the EdgeBlock tail with BatchNorm folded into affines,
+`csrc/edgeblock.cu`.
 
 Replaces `sp_gan_tpu/ops/pallas/edgeblock.py::edge_tail_pallas`
 (`_edge_tail_kernel`). ee [B, N, k, 2C] -> out [B, N, F], with
@@ -11,9 +11,14 @@ diff = ee[..., C:] and leaky ReLU of slope `neg`:
 
 w1 [C, F2], w2 [F2, F], wx [2C, F], wout [k, F, F]; a1 [2, F2], a2 and
 ax [2, F] hold a scale row and a shift row (conv bias and eval BatchNorm
-folded, `nn.fused_eval.fold_bn`); bout [1, F]. Everything is f32: the
-serving path (`edge_block_eval`) hands the JAX kernel f32 edges too, and
-the JAX kernel's bf16 mode is not ported.
+folded, `nn.fused_eval.fold_bn`, or batch statistics folded,
+`ops.edgeblock_train`); bout [1, F]. The weights, affines and output are
+f32. ee is f32 on the serving path (`edge_block_eval`, which hands the JAX
+kernel f32 edges too) or bf16, the JAX kernel's bf16 mode, which the fused
+training forward runs under mixed_edge: the matmul operands (the edge rows,
+w1, w2, wx, the activations before @ w2 and v before @ wout) are rounded
+to bf16 and the products summed in f32; wout stays f32, as the JAX
+kernel's bf16 x f32 dot promotes it.
 
 On an H100 at EdgeConv2's serving shape (ee [64, 2048, 10, 128], F = 128)
 the function is bound by f32 operations: 118 GFLOP against 0.67 GB of
@@ -32,6 +37,7 @@ from sp_gan_tpu_torch.ops.kernels import _build
 
 WIDTHS = (64, 128)      # output widths F the CUDA kernel is built for
 MAX_K = 32
+EE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
@@ -52,8 +58,9 @@ def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want_dt = EE_DTYPES if name == "ee" else (torch.float32,)
+        if t.dtype not in want_dt:
+            raise TypeError(f"{name} must be one of {want_dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != ee.device:
@@ -63,20 +70,30 @@ def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
 def edge_tail_plain(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
                     k: int, neg: float = 0.01) -> torch.Tensor:
     """The kernel's function in plain PyTorch (f32 matmuls; on a GPU the
-    caller turns TF32 off for a true f32 reference)."""
+    caller turns TF32 off for a true f32 reference). A bf16 ee rounds the
+    matmul operands to bf16 (`x.to(bf16).float()`); a product of two bf16
+    values is exact in f32, so only the order of the sums differs from the
+    kernel."""
     B, N, _, C2 = ee.shape
     F = w2.shape[-1]
+    cd = ee.dtype
+
+    def r(t):
+        return t.to(cd).float()
+
+    ee = ee.float()
     diff = ee[..., C2 // 2:]
-    h = torch.nn.functional.leaky_relu(diff @ w1 * a1[0] + a1[1], neg)
-    h = torch.nn.functional.leaky_relu(h @ w2 * a2[0] + a2[1], neg)
+    h = torch.nn.functional.leaky_relu(diff @ r(w1) * a1[0] + a1[1], neg)
+    h = torch.nn.functional.leaky_relu(r(h) @ r(w2) * a2[0] + a2[1], neg)
     att = torch.softmax(h, dim=2)
-    v = torch.nn.functional.leaky_relu(ee @ wx * ax[0] + ax[1], neg) * att
-    return v.reshape(B, N, k * F) @ wout.reshape(k * F, F) + bout[0]
+    v = torch.nn.functional.leaky_relu(ee @ r(wx) * ax[0] + ax[1], neg) * att
+    return r(v).reshape(B, N, k * F) @ wout.reshape(k * F, F) + bout[0]
 
 
 def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
               neg: float = 0.01) -> torch.Tensor:
-    """[B, N, k, 2C] f32 -> [B, N, F] f32, see the module docstring.
+    """[B, N, k, 2C] f32 or bf16 -> [B, N, F] f32, see the module
+    docstring.
     Kernel C on CUDA, `edge_tail_plain` on the CPU."""
     _check(ee, w1, a1, w2, a2, wx, ax, wout, bout, k)
     if ee.device.type == "cpu":
@@ -100,7 +117,7 @@ def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
             ee.data_ptr(), w1.data_ptr(), a1.data_ptr(), w2.data_ptr(),
             a2.data_ptr(), wx.data_ptr(), ax.data_ptr(), wout.data_ptr(),
             bout.data_ptr(), vbuf.data_ptr(), out.data_ptr(), B, N, C2 // 2,
-            F2, F, k, float(neg), stream)
+            F2, F, k, float(neg), int(ee.dtype == torch.bfloat16), stream)
     _build.check(err, "spgan_edge_tail")
     edge_tail.launches += 1
     return out

@@ -18,13 +18,24 @@ One step, as in the reference loop and the JAX step:
 With `cfg.nan_guard` a phase whose gradients are not all finite skips its
 Adam step (parameters and optimizer state unchanged). The sphere
 template's kNN graph and f32 edge tensor are run constants, computed once
-here; EdgeConv1 runs on them at batch 1 (`edge1_b1`). On the card the step
-runs kernel B twice (EdgeConv2 in each phase) and kernel D once (its
-backward in the G phase); nothing else of it is a kernel of the port. With
-`knn_mode="approx"` EdgeConv2 selects in an index band: kernel F takes
-kernel B's place up to 8192 points; above that the band is plain PyTorch
-(`ops/approx_knn.py`) and its gather's backward is kernel H, once in the G
-phase.
+here; EdgeConv1 runs on them at batch 1 (`edge1_b1`). On the card the
+default step runs kernel B twice (EdgeConv2's diff edges in each phase)
+and kernel D once (their backward in the G phase); nothing else of it is a
+kernel of the port. With `knn_mode="approx"` EdgeConv2 selects in an index
+band: kernel F takes kernel B's place up to 8192 points; above that the
+band is plain PyTorch (`ops/approx_knn.py`) and its gather's backward is
+kernel H, once in the G phase.
+
+`fused_train` (both phases) and `fused_dphase` (the D phase's forward,
+which needs no gradient) run the generator's fused train-mode forward
+(`nn.fused_train.generator_forward_train`) where `supports_fused` accepts
+the configuration, as the JAX step selects it; elsewhere the flags do
+nothing. EdgeConv1 then runs at the full batch on the template's edges,
+and EdgeConv2 per fused phase takes kernel B once (concat form), kernel I
+and kernel C once each, and in the G phase kernels J, K and L and kernel D
+(the concat edges' backward) once each. The JAX fused forward ignores
+`knn_mode` (EdgeConv2 selects exactly even under approx); the port refuses
+that combination.
 
 The step takes z_d and z_g explicitly when given (a parity test hands it
 the JAX step's codes); otherwise it draws them from the state's
@@ -44,6 +55,7 @@ from sp_gan_tpu_torch.data.noise import sample_z
 from sp_gan_tpu_torch.losses.gan import dis_loss, gen_loss
 from sp_gan_tpu_torch.nn.fused_eval import (generator_forward_eval,
                                             supports_fused)
+from sp_gan_tpu_torch.nn.fused_train import generator_forward_train
 from sp_gan_tpu_torch.ops.edge import edge_features
 from sp_gan_tpu_torch.ops.pairwise import knn_indices
 from sp_gan_tpu_torch.train.state import (TrainState, ema_update, lr_at,
@@ -91,6 +103,14 @@ def make_train_step(cfg: Config, sphere
         raise NotImplementedError("per-shard BatchNorm statistics "
                                   "(bn_stats=per_shard over a mesh) wait "
                                   "for the data-parallel slice")
+    use_fused_g = cfg.fused_train and supports_fused(cfg)
+    # the D-phase forward needs no gradient, so the fused forward (whose
+    # backward sweeps are the costly part) serves it under either flag
+    use_fused_dphase = cfg.fused_dphase and supports_fused(cfg)
+    if (use_fused_g or use_fused_dphase) and cfg.knn_mode == "approx":
+        raise ValueError("--fused_train/--fused_dphase select EdgeConv2's "
+                         "neighbors exactly; the JAX fused forward ignores "
+                         "--knn_mode approx, and the port refuses the pair")
     sphere_np = np.asarray(sphere, np.float32)
     edge1_b1 = cfg.edge1_b1 and not cfg.use_head
     cache = {}
@@ -101,8 +121,13 @@ def make_train_step(cfg: Config, sphere
             cache[dev] = (sph, *template_edges(sph, cfg.k))
         return cache[dev]
 
-    def g_forward(G, x, z):
+    def g_forward(G, x, z, grad_needed=True):
         _, idx, ee = constants(x.device)
+        if use_fused_g or (use_fused_dphase and not grad_needed):
+            B = x.shape[0]
+            return generator_forward_train(
+                G, x, z, edge1_idx=idx.expand(B, -1, -1),
+                edge1_ee=ee.expand(B, -1, -1, -1))
         if not edge1_b1:
             B = x.shape[0]
             idx = idx.expand(B, -1, -1)
@@ -125,7 +150,7 @@ def make_train_step(cfg: Config, sphere
         if z_d is None:
             z_d = sample_z(gen, B, N, cfg.nz, cfg.nv, cfg.n_rand)
         with torch.no_grad():
-            fake = g_forward(G, x, z_d.to(dev))
+            fake = g_forward(G, x, z_d.to(dev), grad_needed=False)
         d_params = list(D.parameters())
         logit_real = D(real, train=True)
         logit_fake = D(fake, train=True)

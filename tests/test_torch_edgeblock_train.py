@@ -1,0 +1,325 @@
+"""The port's fused train-mode EdgeBlock (`ops/edgeblock_train.py`, kernels
+I-L and kernel C's bf16 mode through their plain versions on the CPU)
+against the JAX package's `sp_gan_tpu/ops/pallas/edgeblock_train.py` run
+in Pallas interpret mode, on the same edge tensor and weights (drawn with
+numpy, carried over with `compat.trees`).
+
+In float32 the two compute the same function in the same steps: the
+statistics and the forward must agree within 2e-4 and every gradient
+within 1e-3 of each tensor's max-abs. With bf16 edges both round every
+matmul operand to bf16, at the same places but after sums taken in other
+orders, so a one-ulp difference before a rounding point becomes a bf16
+ulp after it; there the yardstick is the JAX package's own bf16 error:
+the port's distance (relative L2) from the JAX float32 result must not
+exceed JAX's bf16 distance from it by more than a factor of 1.1, plus
+1e-6 for f32 sums in another order (d_out_bias is a sum of d_out alone,
+which no bf16 rounding reaches: JAX's bf16 and f32 values are equal).
+Measured on these inputs: the port's distance is JAX's within 0.1% for
+every statistic, the output, every gradient and d_ee (1e-4 to 5e-2).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from sp_gan_tpu.ops import edge_features as j_edge_features
+from sp_gan_tpu.ops.pairwise import knn_indices as j_knn
+from sp_gan_tpu.ops.pallas import edgeblock_train as jebt
+from sp_gan_tpu.ops.pallas.edgeblock import edge_tail_pallas
+from sp_gan_tpu_torch.compat import trees
+from sp_gan_tpu_torch.nn import layers
+from sp_gan_tpu_torch.ops import edgeblock_train as tebt
+from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kebt
+from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail, edge_tail_plain
+
+torch.set_num_threads(2)   # six test workers share the host's cores
+
+B, N, C, F, K = 2, 64, 8, 64, 4
+BF16_FACTOR = 1.1
+
+
+def rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def block(seed: int) -> layers.EdgeBlock:
+    """A port EdgeBlock with every parameter drawn from `seed`, the
+    BatchNorm gammas and betas away from 1 and 0."""
+    rng = np.random.default_rng(seed)
+    blk = layers.EdgeBlock(C, F, K)
+    for m in blk.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(rng)
+    with torch.no_grad():
+        for bn in (blk.bn_w1, blk.bn_w2, blk.bn_x):
+            n = bn.scale.shape[0]
+            bn.scale.copy_(torch.from_numpy(
+                (1 + 0.3 * rng.standard_normal(n)).astype(np.float32)))
+            bn.bias.copy_(torch.from_numpy(
+                (0.3 * rng.standard_normal(n)).astype(np.float32)))
+    return blk
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(7)
+    x = jnp.asarray(rng.standard_normal((B, N, C)).astype(np.float32))
+    ee = np.array(j_edge_features(x, K, idx=j_knn(x, K)))
+    cot = rng.standard_normal((B, N, F)).astype(np.float32)
+    blk = block(3)
+    params, _ = trees(blk)
+    return blk, params, ee, cot
+
+
+def jax_run(params, ee, cot, bf16: bool):
+    """(stats, out, d_params, d_ee) of the JAX package in interpret mode."""
+    e = jnp.asarray(ee)
+    if bf16:
+        e = e.astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        stats = jax.jit(lambda p, e: jebt.edge_block_train_stats(p, e, K))(
+            params, e)
+        out, _ = jax.jit(lambda p, e: jebt.edge_block_train_forward(
+            p, e, K))(params, e)
+        d_params, d_ee = jebt.edge_block_train_backward(
+            params, e, stats, jnp.asarray(cot), K)
+    flat = {f"{a}.{b}": np.asarray(v, np.float32)
+            for a, d in d_params.items() if isinstance(d, dict)
+            for b, v in d.items()}
+    flat.update({n: np.asarray(d_params[n], np.float32)
+                 for n in ("out_kernel", "out_bias")})
+    return ({bn: tuple(np.asarray(t) for t in stats[bn]) for bn in stats},
+            np.asarray(out), flat, np.asarray(d_ee.astype(jnp.float32)))
+
+
+def port_run(blk, ee, cot, bf16: bool):
+    e = torch.from_numpy(ee)
+    if bf16:
+        e = e.to(torch.bfloat16)
+    p = tebt.block_params(blk)
+    stats = tebt.edge_block_train_stats(p, e, K)
+    out, _ = tebt.edge_block_train_forward(p, e, K)
+    d_params, d_ee = tebt.edge_block_train_backward(
+        p, e, stats, torch.from_numpy(cot), K)
+    assert d_ee.dtype == e.dtype
+    return ({bn: tuple(t.numpy() for t in stats[bn]) for bn in stats},
+            out.numpy(), {n: g.numpy() for n, g in d_params.items()},
+            d_ee.float().numpy())
+
+
+@pytest.fixture(scope="module")
+def runs(setup):
+    blk, params, ee, cot = setup
+    return {(who, bf16): run(*args, bf16)
+            for bf16 in (False, True)
+            for who, run, args in (("jax", jax_run, (params, ee, cot)),
+                                   ("port", port_run, (blk, ee, cot)))}
+
+
+def _close(ours, theirs, tol, what):
+    scale = max(float(np.abs(theirs).max()), 1e-30)
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=tol * scale,
+                               err_msg=what)
+
+
+class TestFloat32:
+    def test_stats(self, runs):
+        """The three BNs' batch mean and var within 2e-4 of max-abs."""
+        ours, theirs = runs["port", False][0], runs["jax", False][0]
+        for bn in ("bn_w1", "bn_w2", "bn_x"):
+            for i, what in enumerate(("mean", "var")):
+                _close(ours[bn][i], theirs[bn][i], 2e-4, f"{bn} {what}")
+
+    def test_forward(self, runs):
+        _close(runs["port", False][1], runs["jax", False][1], 2e-4, "out")
+
+    def test_backward(self, runs):
+        """Every parameter gradient and d_ee within 1e-3 of max-abs; the
+        conv biases that feed a train-mode BN are exactly zero in both."""
+        ours, theirs = runs["port", False], runs["jax", False]
+        assert set(ours[2]) == set(theirs[2]) == set(tebt.PARAM_NAMES)
+        for name in tebt.PARAM_NAMES:
+            if name.startswith("conv") and name.endswith("bias"):
+                assert not ours[2][name].any() and not theirs[2][name].any()
+                continue
+            _close(ours[2][name], theirs[2][name], 1e-3, name)
+        _close(ours[3], theirs[3], 1e-3, "d_ee")
+
+
+class TestBfloat16:
+    def _check(self, ours, theirs, exact, what):
+        assert rel(ours, exact) <= BF16_FACTOR * rel(theirs, exact) + 1e-6, \
+            what
+
+    def test_stats_and_forward(self, runs):
+        """bf16 edges: the port's statistics and output lie no farther
+        from JAX's float32 result than 1.1 times JAX's bf16 ones do."""
+        ours, theirs = runs["port", True], runs["jax", True]
+        exact = runs["jax", False]
+        for bn in ("bn_w1", "bn_w2", "bn_x"):
+            for i in range(2):
+                self._check(ours[0][bn][i], theirs[0][bn][i], exact[0][bn][i],
+                            bn)
+        self._check(ours[1], theirs[1], exact[1], "out")
+
+    def test_backward(self, runs):
+        ours, theirs = runs["port", True], runs["jax", True]
+        exact = runs["jax", False]
+        for name in tebt.PARAM_NAMES:
+            if name.startswith("conv") and name.endswith("bias"):
+                assert not ours[2][name].any()
+                continue
+            self._check(ours[2][name], theirs[2][name], exact[2][name], name)
+        self._check(ours[3], theirs[3], exact[3], "d_ee")
+
+
+def test_edge_tail_bf16_matches_jax():
+    """Kernel C's bf16 mode (its plain version) against the JAX kernel's
+    in interpret mode: the same roundings (operands, the activations
+    before @ w2 and v before @ wout, wout itself left f32), sums in
+    another order: within 1e-5 of the output's max-abs."""
+    rng = np.random.default_rng(1)
+    a = lambda *s: rng.standard_normal(s).astype(np.float32)
+    F2 = F // 2
+    ee = a(B, N, K, 2 * C)
+    args = [a(C, F2) * 0.3, a(2, F2), a(F2, F) * 0.3, a(2, F),
+            a(2 * C, F) * 0.3, a(2, F), a(K, F, F) * 0.3, a(1, F)]
+    with pltpu.force_tpu_interpret_mode():
+        theirs = np.asarray(jax.jit(lambda e, *w: edge_tail_pallas(
+            e, *w, k=K))(jnp.asarray(ee).astype(jnp.bfloat16), *args))
+    ours = edge_tail(torch.from_numpy(ee).to(torch.bfloat16),
+                     *map(torch.from_numpy, args), k=K).numpy()
+    _close(ours, theirs, 1e-5, "edge_tail bf16")
+    # the f32 mode is unchanged: bf16 and f32 differ by bf16 rounding
+    f32 = edge_tail_plain(torch.from_numpy(ee),
+                          *map(torch.from_numpy, args), k=K).numpy()
+    assert 1e-4 < rel(ours, f32) < 1e-1
+
+
+def torch_oracle(blk: layers.EdgeBlock, ee: torch.Tensor, k: int,
+                 neg: float = 0.01, eps: float = 1e-5) -> torch.Tensor:
+    """Plain autograd train-mode EdgeBlock on the edge tensor, two-pass
+    variance (the oracle `xla_block_from_ee` of
+    tests/test_edgeblock_train_fused.py, in torch)."""
+    C2 = ee.shape[-1]
+
+    def bn(h, norm):
+        mean = h.mean(dim=(0, 1, 2))
+        var = ((h - mean) ** 2).mean(dim=(0, 1, 2))
+        return (h - mean) * torch.rsqrt(var + eps) * norm.scale + norm.bias
+
+    lrelu = lambda v: torch.where(v >= 0, v, neg * v)
+    diff = ee[..., C2 // 2:]
+    h1 = diff @ blk.conv_w1.kernel + blk.conv_w1.bias
+    y1 = lrelu(bn(h1, blk.bn_w1))
+    h2 = y1 @ blk.conv_w2.kernel + blk.conv_w2.bias
+    w = torch.softmax(lrelu(bn(h2, blk.bn_w2)), dim=2)
+    hx = ee @ blk.conv_x.kernel + blk.conv_x.bias
+    u = lrelu(bn(hx, blk.bn_x)) * w
+    return torch.einsum("bnkc,kco->bno", u, blk.out_kernel) + blk.out_bias
+
+
+def test_fused_edge_block_autograd(setup):
+    """`FusedEdgeBlock` under autograd against the plain autograd oracle,
+    float32: the output within 2e-4 and every gradient (into the
+    EdgeBlock's own parameters, and d_ee) within 2e-3 of max-abs, the
+    oracle's tolerance in tests/test_edgeblock_train_fused.py (the fused
+    block's variances are E[h^2] - E[h]^2, the oracle's two-pass). The
+    conv biases' gradients are exactly zero; the statistics carry none."""
+    blk, _, ee, cot = setup
+    ct = torch.from_numpy(cot)
+    params = [p for _, p in blk.named_parameters()]
+    e1 = torch.from_numpy(ee).requires_grad_()
+    out, stats = tebt.fused_edge_block(tebt.block_params(blk), e1, K)
+    assert all(not t.requires_grad for pair in stats.values() for t in pair)
+    grads = torch.autograd.grad((out * ct).sum(), params + [e1])
+    e2 = torch.from_numpy(ee).requires_grad_()
+    ref = torch_oracle(blk, e2, K)
+    ref_grads = torch.autograd.grad((ref * ct).sum(), params + [e2])
+    _close(out.detach().numpy(), ref.detach().numpy(), 2e-4, "out")
+    names = [n for n, _ in blk.named_parameters()] + ["d_ee"]
+    for name, g, r in zip(names, grads, ref_grads):
+        if name.startswith("conv") and name.endswith("bias"):
+            assert not g.any(), name
+            assert float(r.abs().max()) < 1e-4, name
+            continue
+        _close(g.numpy(), r.numpy(), 2e-3, name)
+    # the gradients land in the EdgeBlock's own parameters
+    out, _ = tebt.fused_edge_block(tebt.block_params(blk),
+                                   torch.from_numpy(ee), K)
+    (out * ct).sum().backward()
+    assert torch.equal(blk.conv_w1.kernel.grad, grads[names.index(
+        "conv_w1.kernel")])
+    blk.zero_grad(set_to_none=True)
+
+
+def test_no_grad_keeps_nothing(setup):
+    """Under no_grad (the D phase) the forward leaves no graph behind."""
+    blk, _, ee, _ = setup
+    with torch.no_grad():
+        out, _ = tebt.fused_edge_block(tebt.block_params(blk),
+                                       torch.from_numpy(ee), K)
+    assert out.grad_fn is None and not out.requires_grad
+
+
+def test_wrapper_refuses_bad_inputs(setup):
+    blk, _, ee, _ = setup
+    p = {n: t.detach() for n, t in tebt.block_params(blk).items()}
+    e = torch.from_numpy(ee)
+    a1 = torch.zeros(2, F // 2)
+    with pytest.raises(ValueError, match="k=3"):
+        kebt.edge_train_stats2(e, p["conv_w1.kernel"], a1,
+                               p["conv_w2.kernel"], 3)
+    with pytest.raises(TypeError, match="ee must be"):
+        kebt.edge_train_stats2(e.half(), p["conv_w1.kernel"], a1,
+                               p["conv_w2.kernel"], K)
+    with pytest.raises(ValueError, match="a1 must be"):
+        kebt.edge_train_stats2(e, p["conv_w1.kernel"], a1[:, :2],
+                               p["conv_w2.kernel"], K)
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    def test_kernels_match_plain_versions(self):
+        """I-L and kernel C's bf16 mode against their plain versions on
+        the card, f32 within 1e-4 of each output's max-abs (sum order),
+        and bit-identical over two launches."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        g = torch.Generator(device="cuda").manual_seed(0)
+        r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+        Cc, F2, Fc, k = 64, 64, 128, 10
+        ee = r(2, 128, k, 2 * Cc)
+        w1, w2, wx = r(Cc, F2) / 8, r(F2, Fc) / 8, r(2 * Cc, Fc) / 11
+        aff = lambda n: torch.stack([1 + 0.1 * r(n), 0.1 * r(n)])
+        a1, a2, ax, gb1 = aff(F2), aff(Fc), aff(Fc), aff(F2)
+        gb2x = torch.cat([aff(Fc), aff(Fc)])
+        wout, d_out = r(k, Fc, Fc) / 36, r(2, 128, Fc)
+        j = kebt.edge_train_bwd1(ee, d_out, w1, a1, w2, a2, wx, ax, gb2x,
+                                 wout, k)
+        calls = {
+            "stats2": (kebt.edge_train_stats2, kebt.edge_train_stats2_plain,
+                       (ee, w1, a1, w2, k)),
+            "bwd1": (kebt.edge_train_bwd1, kebt.edge_train_bwd1_plain,
+                     (ee, d_out, w1, a1, w2, a2, wx, ax, gb2x, wout, k)),
+            "bwd2": (kebt.edge_train_bwd2, kebt.edge_train_bwd2_plain,
+                     (ee, j[3], w1, a1, w2, a2, wx, ax, gb2x, j[0], gb1, k)),
+        }
+        s1 = kebt.edge_train_bwd2(*calls["bwd2"][2])[0]
+        calls["bwd3"] = (kebt.edge_train_bwd3, kebt.edge_train_bwd3_plain,
+                         (ee, j[3], w1, a1, w2, a2, wx, ax, gb2x, j[0], gb1,
+                          s1, k))
+        for name, (fn, plain, args) in calls.items():
+            a, b = fn(*args), fn(*args)
+            ref = plain(*args)
+            a, b, ref = ([t] if torch.is_tensor(t) else list(t)
+                         for t in (a, b, ref))
+            for x, y, z in zip(a, b, ref):
+                assert torch.equal(x, y), name
+                torch.testing.assert_close(
+                    x, z, rtol=0, atol=1e-4 * float(z.abs().max()))

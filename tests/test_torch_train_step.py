@@ -49,6 +49,7 @@ from sp_gan_tpu.train.step import make_train_step as jmake_step
 from sp_gan_tpu_torch.compat import state_from_jax, trees
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.nn import Discriminator, Generator
+from sp_gan_tpu_torch.nn import fused_train as tfused
 from sp_gan_tpu_torch.nn.layers import MaxPoolBNLReLU
 from sp_gan_tpu_torch.ops import edge as tedge
 from sp_gan_tpu_torch.train import step as tstep
@@ -188,8 +189,9 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
     picks, grads, pools = [], [], []
 
     def recording(fused):
-        """EdgeConv2's fused op (kernel B's, or kernel F's on the band of
-        knn_mode approx), recording its picks."""
+        """EdgeConv2's fused op (kernel B's diff or, under fused_train and
+        fused_dphase, concat form, or kernel F's on the band of knn_mode
+        approx), recording its picks."""
         def run(x, *args):
             diff, idx = fused(x, *args)
             picks.append(idx.numpy().copy())
@@ -211,6 +213,15 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
 
     G.adain2.register_forward_hook(lambda m, a, out: pools.append(
         ("g", arg(out, torch.argmax))))
+    adain = tfused._adain
+
+    def recording_adain(p, x, style):
+        """The fused forward's AdaIN, recording G's pool after adain2."""
+        out = adain(p, x, style)
+        if p is G.adain2:
+            pools.append(("g", arg(out, torch.argmax)))
+        return out
+
     assert isinstance(D.bn_fc2, MaxPoolBNLReLU)
     D.bn_fc2.register_forward_pre_hook(lambda m, a: pools.append(
         ("d", arg(a[0], torch.argmax), arg(a[0], torch.argmin))))
@@ -219,6 +230,9 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
                    recording(tedge.edge_diff_fused))
         mp.setattr(tedge, "edge_diff_window",
                    recording(tedge.edge_diff_window))
+        mp.setattr(tedge, "edge_concat_fused",
+                   recording(tedge.edge_concat_fused))
+        mp.setattr(tfused, "_adain", recording_adain)
         mp.setattr(tstep, "_apply", recording_apply)
         step = tstep.make_train_step(cfg, sphere)
         state, m = step(state, torch.from_numpy(real), torch.from_numpy(z_d),
