@@ -13,6 +13,18 @@ Phases, in order; any failure raises and the script exits nonzero:
               autograd graph; kernel F at the N=8192 campaign's shape,
               kernel G at N=16384 against kernel A and its plain version,
               kernel H at the N=16384 approx step's shape.
+3b. last_kernels - kernel M (the concat edges' backward under
+              SPGAN_EDGE_BWD=pallas) at d_ee [24, 2048, 10, 128] bf16 and
+              f32 against its plain version on the CPU (1e-6 relative L2;
+              bit-identical over two launches); chamfer_directed at
+              [64, 2048, 3] (kernel N once, kernel H twice in the
+              backward) with kernel N bit-equal to its plain version and
+              the gradients bit-equal to the plain backward on the CPU,
+              and at [24, 2048, 3] the dense route with no launch; kernel
+              O through auction(mode="jacobi"|"packed") at [4, 2048, 2048]
+              in the metric regime, bit-equal to its plain version
+              (assignments, rounds, bidders) and within N * eps of kernel
+              E's cost.
 4. serve    - the full-width generator (Config() defaults; weights drawn
               from --seed, or read from --ckpt) serves two requests of 64
               shapes through Manipulator.generate, which takes the fused
@@ -39,6 +51,12 @@ Phases, in order; any failure raises and the script exits nonzero:
               --fused_dphase steps (B twice, I, C and D once), each
               profiled once; small fused steps on the card against the
               CPU.
+5c. regularizers - 3 + 10 steps at Config() width for each of
+              REGULARIZERS: --fused_train with SPGAN_EDGE_BWD=pallas (M
+              once a step, D never), --gan wgan --lambda_gp 10 with and
+              without --gp_mapping, and --mix (kernel E once a step), each
+              with its launch counts, one profiled step and small steps on
+              the card against the CPU.
 6. metrics  - kernel E (the EMD auction) against its plain version on the
               card, bit for bit, at [4, 2048, 2048] and [2, 4096, 4096] in
               the protocol regime (eps 0.002, 10000 iterations, 4 phases)
@@ -67,7 +85,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
-              I-L and C's bf16 mode at the --fused_train step's shape.
+              I-L and C's bf16 mode at the --fused_train step's shape; M,
+              N and O at the shapes of phase 3b.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Needs no file outside the sources.
@@ -82,6 +101,7 @@ import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -92,11 +112,12 @@ F32_OPS = F32_FLOPS / 2    # f32 instructions that are not FMAs (sub, max)
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the port's kernels A to L by wrapper name (sp_gan_tpu_torch.ops.kernels)
+# the port's kernels A to O by wrapper name (sp_gan_tpu_torch.ops.kernels)
 KERNEL_NAMES = ("knn", "knn_edge", "edge_tail", "scatter_diff_bwd", "auction",
                 "knn_edge_window", "knn_blocked", "scatter_add",
                 "edge_train_stats2", "edge_train_bwd1", "edge_train_bwd2",
-                "edge_train_bwd3")
+                "edge_train_bwd3", "edge_scatter_bwd", "chamfer_nn",
+                "jacobi_auction")
 
 
 def per(**launches) -> dict:
@@ -144,6 +165,32 @@ PER_STEP_DPHASE = per(knn_edge=2, edge_train_stats2=1, edge_tail=1,
 # gives them exactly zero gradient, so Adam leaves them in place
 FUSED_STILL = ("edge2.conv_w1.bias", "edge2.conv_w2.bias",
                "edge2.conv_x.bias")
+# per --fused_train step under SPGAN_EDGE_BWD=pallas: kernel M takes kernel
+# D's place as the backward of EdgeConv2's concat edges
+PER_STEP_FUSED_M = {**PER_STEP_FUSED, "scatter_diff_bwd": 0,
+                    "edge_scatter_bwd": 1}
+# the WGAN critic loss mean(D(fake)) - mean(D(real)) gives D's last bias
+# exactly zero gradient, and the penalty does not depend on it
+WGAN_STILL = ("D.head4.bias",)
+# the D phase's regularizers and the concat edges' kernel M backward at
+# Config() width: label -> (flags, environment, kernel launches per step,
+# weights that must stay); CutMix runs kernel E once a step (one phase,
+# eps 0.005, 50 rounds), the EMD pairing of --gp_mapping is plain PyTorch
+REGULARIZERS = {
+    "--fused_train, SPGAN_EDGE_BWD=pallas": (
+        dict(fused_train=True), {"SPGAN_EDGE_BWD": "pallas"},
+        PER_STEP_FUSED_M, FUSED_STILL),
+    "--gan wgan --lambda_gp 10": (
+        dict(gan="wgan", lambda_gp=10.0), {}, PER_STEP, WGAN_STILL),
+    "--gan wgan --lambda_gp 10 --gp_mapping": (
+        dict(gan="wgan", lambda_gp=10.0, gp_mapping=True), {}, PER_STEP,
+        WGAN_STILL),
+    "--mix": (dict(mix=True), {}, per(knn_edge=2, scatter_diff_bwd=1,
+                                      auction=1), ()),
+}
+# kernel N's path: chamfer_directed above B * N * M = 128 Mi takes it, at
+# [24, 2048, 3] it computes the dense minima
+CHAMFER_FUSED, CHAMFER_DENSE = (64, 2048, 3), (24, 2048, 3)
 # published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet): the
 # bound of the bf16-mode matmuls
 BF16_FLOPS = 989e12
@@ -635,8 +682,10 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     return res, full
 
 
-def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
-    """One training step of copies of G0 and D0 on `device`, recording
+def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
+               draws=None):
+    """One training step of copies of G0 and D0 on `device` (the
+    regularizers' `draws` handed to it), recording
     EdgeConv2's inputs and selections, the max pools' inputs, both
     phases' gradients, the D-phase fakes, the G-phase fakes and D right
     after its Adam step. With `pinned` (a record of another run), the
@@ -648,14 +697,21 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
     from sp_gan_tpu_torch.ops import edge as edge_mod
     from sp_gan_tpu_torch.train import step as step_mod
     from sp_gan_tpu_torch.train.state import create_train_state
+    from sp_gan_tpu_torch.nn import discriminator as disc_mod
     from sp_gan_tpu_torch.nn import fused_train as ft_mod
     G, D = copy.deepcopy(G0), copy.deepcopy(D0)
     state = create_train_state(cfg, device=device, G=G, D=D)
-    rec = {"knn": [], "pools": [], "grads": [], "fakes": []}
+    rec = {"knn": [], "pools": [], "grads": [], "fakes": [], "lrelu": []}
     fused, window = edge_mod.edge_diff_fused, edge_mod.edge_diff_window
     concat, adain = edge_mod.edge_concat_fused, ft_mod._adain
     gft = step_mod.generator_forward_train
     apply = step_mod._apply
+    lrelu = disc_mod.lrelu
+
+    def recording_lrelu(x, slope):
+        """D's leaky ReLUs (six a forward), recording their inputs."""
+        rec["lrelu"].append(x.detach().float().cpu())
+        return lrelu(x, slope)
 
     def recording(op):
         """EdgeConv2's fused op (kernel B's diff or, on the fused train
@@ -707,16 +763,20 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None):
     ft_mod._adain = recording_adain
     step_mod.generator_forward_train = recording_gft
     step_mod._apply = recording_apply
+    disc_mod.lrelu = recording_lrelu
     try:
         step = step_mod.make_train_step(cfg, sphere)
         state, m = step(state, torch.as_tensor(real, device=device),
                         torch.as_tensor(z_d, device=device),
-                        torch.as_tensor(z_g, device=device))
+                        torch.as_tensor(z_g, device=device),
+                        {k: torch.as_tensor(v, device=device)
+                         for k, v in (draws or {}).items()})
     finally:
         edge_mod.edge_diff_fused, edge_mod.edge_diff_window = fused, window
         edge_mod.edge_concat_fused, ft_mod._adain = concat, adain
         step_mod.generator_forward_train = gft
         step_mod._apply = apply
+        disc_mod.lrelu = lrelu
     rec["loss"] = {k: float(m[k]) for k in ("d_loss", "g_loss")}
     rec["g_params"] = [p.detach().cpu() for p in G.parameters()]
     rec["stats"] = [b.detach().cpu() for b in
@@ -734,6 +794,10 @@ def grads_worst(names, ours, ref) -> dict:
     """The largest elementwise error over each tensor's max-abs (for a
     bias that feeds a training BatchNorm, whose exact gradient is 0, over
     its kernel's) and the largest relative L2 error, with their tensors."""
+    def over(err: float, scale: float) -> float:
+        # a gradient that is exactly zero (WGAN's last bias) must stay so
+        return err / scale if scale else (0.0 if not err else float("inf"))
+
     worst = {"elem": (0.0, ""), "l2": (0.0, "")}
     for name, a, b in zip(names, ours, ref):
         scale = float(b.abs().max())
@@ -741,10 +805,10 @@ def grads_worst(names, ours, ref) -> dict:
             kern = ref[names.index(name[:-4] + "kernel")]
             scale = max(scale, float(kern.abs().max()))
         else:
-            worst["l2"] = max(worst["l2"], (float((a - b).norm())
-                                            / float(b.norm()), name))
+            worst["l2"] = max(worst["l2"], (over(float((a - b).norm()),
+                                                 float(b.norm())), name))
         worst["elem"] = max(worst["elem"],
-                            (float((a - b).abs().max()) / scale, name))
+                            (over(float((a - b).abs().max()), scale), name))
     return worst
 
 
@@ -780,6 +844,14 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     statistics, fakes and gradient columns, so then only the D phase is
     compared ("g_flips") and the caller takes another seed.
 
+    Under WGAN-GP the penalty is a function of D's input gradient, so a
+    leaky ReLU input of D's forward on the interpolates that lies within
+    rounding of 0 and takes the other slope on the other device moves
+    d_loss itself (by 1.3e-4 relative on the H100, seed 4 of
+    --gp_mapping): such a flip must lie within 1e-3 of its tensor's
+    max-abs, and then d_loss and D's gradients are not compared
+    ("gp_flips") and the caller takes another seed.
+
     With knn_mode approx (SMALL_APPROX) the G phase is far worse
     conditioned: on the CPU one ulp of the real batch moves the JAX step's
     G gradients by up to 0.42 of a tensor's max-abs and 0.36 relative L2
@@ -800,17 +872,39 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
                 for _ in range(2))
     real = SyntheticDataset(4, cfg.np, seed=seed).data
     sphere = sphere_template(cfg.np)
-    card = small_step("cuda", cfg, G0, D0, sphere, real, z_d, z_g)
+    # WGAN-GP's alpha and CutMix's lam, anchor and flip, the same on both
+    # devices; D's forwards on their inputs add pools to the D phase
+    draws = {"alpha": rng.uniform(size=(4, 1, 1)).astype(np.float32),
+             "lam": rng.uniform(size=4).astype(np.float32),
+             "anchor": rng.integers(0, cfg.np, 4),
+             "flip": np.array(rng.uniform() < 0.5)}
+    regs = int(cfg.gan == "wgan" and cfg.lambda_gp > 0) + int(cfg.mix)
+    card = small_step("cuda", cfg, G0, D0, sphere, real, z_d, z_g,
+                      draws=draws)
     cpu = small_step("cpu", cfg, G0, D0, sphere, real, z_d, z_g,
-                     pinned=card)
+                     pinned=card, draws=draws)
     res = {"seed": seed, "knn_mode": cfg.knn_mode,
            "fake2": rel_max(card["fakes"][1], cpu["fakes"][1]),
-           "d_flips": 0, "g_flips": 0, "flip_input_err": 0.0, "fail": []}
+           "d_flips": 0, "g_flips": 0, "gp_flips": 0, "flip_input_err": 0.0,
+           "fail": []}
+    if cfg.gan == "wgan" and cfg.lambda_gp > 0:
+        # D's third forward of the D phase is the penalty's; D runs
+        # 2 + regs forwards in the D phase and one in the G phase
+        per = len(cpu["lrelu"]) // (3 + regs)
+        for a, b in zip(card["lrelu"][2 * per:3 * per],
+                        cpu["lrelu"][2 * per:3 * per]):
+            flip = (a >= 0) != (b >= 0)
+            res["gp_flips"] += int(flip.sum())
+            if bool(flip.any()) and float(b[flip].abs().max()) \
+                    > 1e-3 * float(b.abs().max()):
+                res["fail"].append("a leaky ReLU of the penalty's D forward "
+                                   "flips away from 0")
     g_bounds = (5e-1, 8e-2)
     if cfg.knn_mode == "approx":
         own = [grads_worst(cpu["names"][1], small_step(
             "cpu", cfg, G0, D0, sphere, real, z_d,
-            (z_g * (1 + eps)).astype(np.float32), pinned=card)["grads"][1],
+            (z_g * (1 + eps)).astype(np.float32), pinned=card,
+            draws=draws)["grads"][1],
             cpu["grads"][1]) for eps in (2.0 ** -23, -2.0 ** -23)]
         res["g_own"] = (max(o["elem"][0] for o in own),
                         max(o["l2"][0] for o in own))
@@ -818,8 +912,9 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     def flips(what, i):
         """(flipped entries, the inputs' disagreement over their max-abs)
         of selection `i`: EdgeConv2's kNN in the D, G phase (0, 1); the
-        pools of G, D on the real batch, D on the fakes (D phase: 0, 1, 2)
-        and of G, D (G phase: 3, 4)."""
+        pools of G, D on the real batch, D on the fakes, D on the
+        regularizers' inputs (D phase: 0, 1, 2, then 3 to 2 + regs) and
+        of G, D (G phase: 3 + regs, 4 + regs)."""
         if what == "knn":
             (x, a), (xc, b) = card["knn"][i], cpu["knn"][i]
         else:
@@ -827,7 +922,7 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
             a, b = x.argmax(1), xc.argmax(1)
         return int((a != b).sum()), rel_max(x, xc)
 
-    for i in (1, 2):            # D's pools on inputs both devices share
+    for i in range(1, 3 + regs):    # D's pools on inputs both devices share
         ha, hb = card["pools"][i], cpu["pools"][i]
         ia, ib = ha.argmax(1), hb.argmax(1)
         if not torch.equal(ia, ib):
@@ -842,7 +937,7 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     # flip changes the inputs of the later ones, so the first flip of each
     # chain must be a near-tie
     for chain in ((("knn", 0), ("pool", 0)),
-                  (("knn", 1), ("pool", 3), ("pool", 4))):
+                  (("knn", 1), ("pool", 3 + regs), ("pool", 4 + regs))):
         first = True
         for what, i in chain:
             n, err = flips(what, i)
@@ -854,9 +949,11 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     if res["flip_input_err"] > 1e-3:
         res["fail"].append(f"a selection flips where its inputs differ by "
                            f"{res['flip_input_err']} of their max-abs")
-    d_ok, g_ok = not res["d_flips"], not res["g_flips"]
+    d_ok = not (res["d_flips"] or res["gp_flips"])
+    g_ok = not res["g_flips"]
     ok = True
-    for key, rel, always in (("d_loss", 1e-5, True), ("g_loss", 5e-5, g_ok)):
+    for key, rel, always in (("d_loss", 1e-5, not res["gp_flips"]),
+                             ("g_loss", 5e-5, g_ok)):
         if always:
             a, b = card["loss"][key], cpu["loss"][key]
             res[key] = abs(a - b) / abs(b)
@@ -880,22 +977,25 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
         res["fail"].append("beyond the step-parity tolerances")
     log(f"  small step (N={cfg.np}, bs=4, f32) cuda vs cpu: {res}"
         + ("" if d_ok else "; D's gradients not compared (flips in D)")
+        + ("; d_loss not compared (a flip in the penalty's D forward)"
+           if res["gp_flips"] else "")
         + ("" if g_ok else "; only the D phase compared (flips in G)"))
     return res
 
 
-def check_small_steps(seed: int, need: int, cfg_kw=None) -> list:
+def check_small_steps(seed: int, need: int, cfg_kw=None,
+                      tries: int = 0) -> list:
     """`check_small_step` from `seed` on, one seed after another, until
     `need` seeds had D's and `need` seeds G's gradients compared (at most
-    4 * need + 4 seeds: G's were compared in 9 of seeds 0-25), then fails
-    if any seed failed or too few were compared. Every seed's readings are
-    logged first."""
+    `tries` seeds, by default 4 * need + 4: G's were compared in 9 of
+    seeds 0-25), then fails if any seed failed or too few were compared.
+    Every seed's readings are logged first."""
     runs = []
 
     def compared(tag):
         return sum(tag in r for r in runs)
 
-    for s in range(seed, seed + 4 * need + 4):
+    for s in range(seed, seed + (tries or 4 * need + 4)):
         runs.append(check_small_step(s, cfg_kw))
         if min(compared("d_grads"), compared("g_grads")) >= need:
             break
@@ -915,8 +1015,9 @@ def timed_training(cfg, steps: int, warmup: int, expected: dict,
     and a per-cloud point shuffle each step), weights from cfg.seed, from
     launch counts of 0: each kernel must have launched `expected` times a
     step, the losses must be finite and every weight tensor must move but
-    the generator's named in `still`, which must not (their gradient is
-    exactly zero). Returns the trainer and the timings."""
+    those named in `still`, which must not (their gradient is exactly
+    zero; D's weights are named "D.<name>"). Returns the trainer and the
+    timings."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.ops import kernels
@@ -940,8 +1041,8 @@ def timed_training(cfg, steps: int, warmup: int, expected: dict,
         raise AssertionError(f"{label}: non-finite losses {losses}")
     now = list(tr.state.G.parameters()) + list(tr.state.D.parameters())
     names = ([n for n, _ in tr.state.G.named_parameters()]
-             + [None] * len(list(tr.state.D.parameters())))
-    wrong = [n or "D" for n, a, b in zip(names, start, now)
+             + [f"D.{n}" for n, _ in tr.state.D.named_parameters()])
+    wrong = [n for n, a, b in zip(names, start, now)
              if torch.equal(a, b) != (n in still)]
     if wrong:
         raise AssertionError(f"{label}: weight tensors that moved where "
@@ -1334,6 +1435,223 @@ def metrics_phase(man, seed: int) -> dict:
     out.update(run, small=card, fpd=fpd, profile=prof)
     return out
 
+def check_edge_scatter_bwd(idx, gen) -> dict:
+    """Kernel M against its plain version at the --fused_train step's
+    EdgeConv2 (d_ee [B, N, k, 128], C = 64), in bf16 and f32: two launches
+    bit-identical, and within 1e-6 relative L2 of the plain version run on
+    CPU copies of the same inputs, which sums in the kernel's order
+    (ascending source, central sum last). The plain version on the card
+    (index_add_ with atomics, in no fixed order) is logged beside it.
+    Returns the readings and the bf16 d_ee (for the timings)."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.scatter import (edge_scatter_bwd,
+                                                      edge_scatter_bwd_plain)
+    B, N, k = idx.shape
+    res = {"max_abs_err": 0.0, "rel_l2": 0.0, "deterministic": True}
+    for dt in (torch.float32, torch.bfloat16):
+        d_ee = torch.randn(B, N, k, 128, generator=gen,
+                           device=idx.device).to(dt)
+        a, b = edge_scatter_bwd(d_ee, idx), edge_scatter_bwd(d_ee, idx)
+        torch.cuda.synchronize()
+        tag = f"edge_scatter_bwd[{str(dt)[6:]}, d_ee {list(d_ee.shape)}]"
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: two launches differ")
+        ref = edge_scatter_bwd_plain(d_ee.cpu(), idx.cpu())
+        err = (a.cpu() - ref).abs().max().item()
+        rel = ((a.cpu() - ref).norm() / ref.norm()).item()
+        card = edge_scatter_bwd_plain(d_ee, idx)
+        card_rel = ((a - card).norm() / card.norm()).item()
+        log(f"  {tag}: relative L2 {rel} (max abs {err}) vs the plain "
+            f"version on the cpu (limit 1e-6), {card_rel} vs the plain "
+            "version on the card; bit-identical over two launches")
+        if not rel <= 1e-6:
+            raise AssertionError(f"{tag}: relative L2 error {rel}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["rel_l2"] = max(res["rel_l2"], rel)
+    return res, d_ee
+
+
+def chamfer_clouds(B: int, n: int, seed: int):
+    """Two sets of B normalized synthetic shapes of n points on the card,
+    the clouds the metric protocol compares."""
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.manipulate import normalize_point_cloud
+    pcs = normalize_point_cloud(torch.as_tensor(SyntheticDataset(
+        2 * B, n, seed=seed).data, device="cuda"))
+    return pcs[:B].contiguous(), pcs[B:].contiguous()
+
+
+def check_chamfer(seed: int, gen) -> dict:
+    """`ops.dispatch.chamfer_directed` forward and backward at
+    CHAMFER_FUSED, from launch counts of 0: kernel N once (its backward's
+    scatter kernel H twice) and nothing else. Kernel N's four outputs
+    bit-equal to its plain version on the card (the same f32 fold); the
+    gradients bit-equal to the plain backward (`nn_backward` with
+    `scatter_add_plain`) on CPU copies, which scatters in kernel H's
+    order, and bit-identical over two runs; the plain backward on the card
+    (index_add_ with atomics) logged beside it. At CHAMFER_DENSE the dense
+    route runs, launching nothing, with the kernel's distances. Returns
+    the readings and the clouds (for the timings)."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops.chamfer import nn_backward
+    from sp_gan_tpu_torch.ops.dispatch import chamfer_directed
+    from sp_gan_tpu_torch.ops.kernels.scatter import scatter_add_plain
+    B, n, _ = CHAMFER_FUSED
+    x, y = chamfer_clouds(B, n, seed + 7)
+    w1 = torch.randn(B, n, generator=gen, device="cuda")
+    w2 = torch.randn(B, n, generator=gen, device="cuda")
+
+    def run():
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        d1, d2 = chamfer_directed(xg, yg)
+        ((d1 * w1).sum() + (d2 * w2).sum()).backward()
+        return d1.detach(), d2.detach(), xg.grad, yg.grad
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    first = run()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = per(chamfer_nn=1, scatter_add=2)
+    if launches != want:
+        raise AssertionError(f"chamfer_directed{list(x.shape)}: launches "
+                             f"{launches}, expected {want}")
+    again = run()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("chamfer_directed: two runs differ")
+    out = kernels.chamfer_nn(x, y)
+    plain = kernels.chamfer_nn_plain(x, y)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+        raise AssertionError("chamfer_nn: kernel and plain version differ")
+    if not (torch.equal(first[0], out[0]) and torch.equal(first[1], out[2])):
+        raise AssertionError("chamfer_directed: distances are not kernel N's")
+    _, i1, _, i2 = (t.cpu() for t in out)
+    ref = nn_backward(x.cpu(), y.cpu(), i1, i2, w1.cpu(), w2.cpu(),
+                      scatter_add_plain)
+    card = nn_backward(x, y, out[1], out[3], w1, w2, scatter_add_plain)
+    card_err = max((a - b).abs().max().item()
+                   for a, b in zip(first[2:], card))
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(first[2:], ref)):
+        err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(first[2:], ref))
+        raise AssertionError(f"chamfer_directed: gradients differ from the "
+                             f"plain backward on the cpu by {err}")
+    log(f"  chamfer_directed{list(x.shape)}: launches {launches}; kernel N "
+        "bit-equal to its plain version (distances and indices), gradients "
+        "bit-equal to the plain backward on the cpu and over two runs, "
+        f"{card_err} from the plain backward on the card")
+    Bd = CHAMFER_DENSE[0]
+    kernels.reset_launch_counts()
+    d1, d2 = chamfer_directed(x[:Bd], y[:Bd])
+    torch.cuda.synchronize()
+    dense = kernels.launch_counts()
+    if any(dense.values()):
+        raise AssertionError(f"chamfer_directed{list(CHAMFER_DENSE)}: the "
+                             f"dense route launched {dense}")
+    if not (torch.equal(d1, out[0][:Bd]) and torch.equal(d2, out[2][:Bd])):
+        raise AssertionError("chamfer_directed: the dense route's distances "
+                             "differ from kernel N's")
+    log(f"  chamfer_directed{list(CHAMFER_DENSE)}: dense route, no launch, "
+        "distances equal to kernel N's")
+    return {"launches": launches, "max_abs_err": 0.0,
+            "plain_backward_on_card_err": card_err}, (x, y)
+
+
+def check_jacobi_auction(d, regime) -> dict:
+    """Kernel O in both modes through `auction(mode=...)` from launch
+    counts of 0 (kernel O once, nothing else), against its plain version
+    on the card: assignments, rounds and bidders bit-equal (the same f32
+    and int32 operations). A pair whose cap was not spent must be a
+    bijection; each pair's matched cost within N * eps of kernel E's on
+    the same d (both solve to within N * eps of the optimum). Returns,
+    per mode, the readings and the plain version's wall time."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    eps, iters, phases = regime
+    B, N, M = d.shape
+
+    def cost(a):
+        return d.gather(2, a.long()[..., None]).sum((1, 2))
+    e_cost = cost(kernels.auction(d, eps, iters, phases)[0])
+    out = {}
+    for mode in ("jacobi", "packed"):
+        tag = f"auction[{mode}, {list(d.shape)}, eps {eps}, {iters}, " \
+              f"{phases} ph]"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        asg, rounds, bids = kernels.auction(d, eps, iters, phases,
+                                            mode=mode)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        if launches != per(jacobi_auction=1):
+            raise AssertionError(f"{tag}: launches {launches}")
+        t = time.perf_counter()
+        asg_p, rounds_p, bids_p = kernels.jacobi_auction_plain(
+            d, eps, iters, phases, mode=mode)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        mismatches = int((asg != asg_p).sum())
+        if not (mismatches == 0 and torch.equal(rounds, rounds_p)
+                and torch.equal(bids, bids_p)):
+            raise AssertionError(
+                f"{tag}: {mismatches} assignments, rounds {rounds.tolist()} "
+                f"vs {rounds_p.tolist()}, bidders {bids.tolist()} vs "
+                f"{bids_p.tolist()} differ from the plain version")
+        spent = [int(r) >= iters for r in rounds.tolist()]
+        for b in range(B):
+            if not spent[b] and torch.unique(asg[b]).numel() != N:
+                raise AssertionError(f"{tag}: pair {b} converged without a "
+                                     "bijection")
+        gap = (cost(asg) - e_cost).abs().tolist()
+        log(f"  {tag}: bit-equal to the plain version; rounds "
+            f"{rounds.tolist()} (cap {iters}, spent {spent}), bidders "
+            f"{bids.tolist()}; cost minus kernel E's {gap} (limit "
+            f"{N * eps}); plain version {plain_ms:.0f} ms")
+        if max(gap) > N * eps:
+            raise AssertionError(f"{tag}: cost beyond N * eps of kernel E's")
+        out[mode] = {"launches": launches["jacobi_auction"],
+                     "rounds": rounds.tolist(), "bidders": bids.tolist(),
+                     "cap_spent": spent, "cost_gap_to_e": gap,
+                     "plain_ms": plain_ms, "mismatches": mismatches,
+                     "max_abs_err": 0.0}
+    return out
+
+
+def last_kernels_phase(seed: int, idx_t, gen) -> dict:
+    """Kernels M, N and O against their plain versions at the shapes of
+    their paths (see `check_edge_scatter_bwd`, `check_chamfer`,
+    `check_jacobi_auction`; O at [4, 2048, 2048] in the metric regime).
+    Returns the readings and the inputs for the timings."""
+    res, ins = {}, {}
+    res["edge_scatter_bwd"], ins["d_ee"] = check_edge_scatter_bwd(idx_t, gen)
+    res["chamfer"], ins["clouds"] = check_chamfer(seed, gen)
+    ins["d"] = auction_pairs(2048, 4, seed + 11)
+    res["jacobi_auction"] = check_jacobi_auction(ins["d"], PROTOCOL)
+    return res, ins
+
+
+def regularizers_phase(seed: int) -> dict:
+    """For each of REGULARIZERS at Config() width: 3 warm-up and 10 timed
+    training steps with their launch counts (`timed_training`), one
+    profiled step, and a small step on the card against the CPU
+    (`check_small_steps`, one seed with both phases compared)."""
+    from sp_gan_tpu_torch.config import Config
+    res = {}
+    for label, (kw, env, expected, still) in REGULARIZERS.items():
+        with mock.patch.dict(os.environ, env):
+            tr, run = timed_training(Config(seed=seed, **kw), TIMED_STEPS,
+                                     WARMUP_STEPS, expected, label, still)
+            run["profile"] = profile_call(lambda: tr.time_steps(1), label)
+            del tr
+            # G's gradients were compared in 1 of seeds 0-7 under
+            # --gp_mapping on the H100 (near-tie flips in the G phase)
+            run["small_step"] = check_small_steps(seed, 1, kw, tries=16)
+        res[label] = run
+    return res
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
@@ -1442,6 +1760,16 @@ def main() -> None:
     del x_h
     ph.end()
 
+    # --------------------------------------------------------------- 3b
+    ph.start("last_kernels")
+    # a generator of its own, so that the later phases draw what they drew
+    # before this phase existed
+    last, last_in = last_kernels_phase(
+        args.seed, idx_t, torch.Generator(device=dev).manual_seed(
+            args.seed + 9))
+    log(json.dumps({"last_kernels": last}))
+    ph.end()
+
     # ---------------------------------------------------------------- 4
     ph.start("serve")
     man.generate(64, seed=args.seed + 1000)          # warm-up request
@@ -1485,6 +1813,14 @@ def main() -> None:
     log(json.dumps({"fused_train": {k: fused[k] for k in (
         "concat_bf16", "full", "small", "autograd", "fused_train",
         "fused_dphase", "small_step")}}))
+    ph.end()
+
+    # --------------------------------------------------------------- 5c
+    ph.start("regularizers")
+    regs = regularizers_phase(args.seed)
+    log(json.dumps({"regularizers": {label: {k: r[k] for k in (
+        "ms_per_step", "steps_per_sec", "launches_per_step", "small_step",
+        "profile")} for label, r in regs.items()}}))
     ph.end()
 
     # ---------------------------------------------------------------- 6
@@ -1805,6 +2141,76 @@ def main() -> None:
             plain_ms=cuda_ms(lambda: plain(*fargs), 3),
             bound_ms=f_bound, bound_by=f_by, library_ms=None,
             shape=list(ee_f.shape), path="--fused_train step"))
+    # kernel M at the --fused_train step's EdgeConv2: d_ee [24, 2048, 10,
+    # 128] bf16; index_add_ of the neighbor half alone is a partial
+    # yardstick (it leaves out the central term)
+    d_ee = last_in["d_ee"]
+    Bm, Nm, km, c2m = d_ee.shape
+    cm = c2m // 2
+    m_bound, m_by = bound(3 * Bm * Nm * km * cm, d_ee.numel() * 2
+                          + idx_t.numel() * 4 + Bm * Nm * cm * 4, F32_OPS)
+    tgt_m = (idx_t.long() + Nm * torch.arange(Bm, device=dev)[:, None, None]
+             ).reshape(-1)
+    nbr_m = d_ee[..., cm:].reshape(-1, cm).float()
+    zeros_m = torch.zeros(Bm * Nm, cm, device=dev)
+    fm = regs["--fused_train, SPGAN_EDGE_BWD=pallas"]
+    rows.append(dict(
+        name="edge_scatter_bwd", route="cuda",
+        source="sp_gan_tpu_torch/csrc/scatter.cu",
+        replaces="sp_gan_tpu/ops/pallas/scatter.py:104 "
+                 "(edge_scatter_bwd_pallas, _edge_bwd_kernel :47)",
+        launches=fm["launches"]["edge_scatter_bwd"],
+        launches_per_step=fm["launches_per_step"]["edge_scatter_bwd"],
+        max_abs_err=last["edge_scatter_bwd"]["max_abs_err"],
+        max_err=last["edge_scatter_bwd"]["max_abs_err"],
+        rel_l2=last["edge_scatter_bwd"]["rel_l2"],
+        ms=cuda_ms(lambda: kernels.edge_scatter_bwd(d_ee, idx_t), 50),
+        plain_ms=cuda_ms(lambda: kernels.edge_scatter_bwd_plain(d_ee, idx_t),
+                         20),
+        bound_ms=m_bound, bound_by=m_by,
+        library_ms=cuda_ms(lambda: torch.index_add(zeros_m, 0, tgt_m, nbr_m),
+                           20),
+        library="torch.index_add of the neighbor half only (f32 rows, "
+                "atomics): a partial yardstick, no central term",
+        shape=list(d_ee.shape),
+        path="--fused_train step, SPGAN_EDGE_BWD=pallas"))
+    # kernel N at CHAMFER_FUSED: per pair the distance (2C + 2 operations)
+    # and a compare in each direction, none an FMA
+    xc, yc = last_in["clouds"]
+    Bc, Nc, Cc = xc.shape
+    Mc = yc.shape[1]
+    n_bound, n_by = bound(Bc * Nc * Mc * (2 * Cc + 4),
+                          (Bc * Nc + Bc * Mc) * (Cc * 4 + 8), F32_OPS)
+    rows.append(dict(
+        name="chamfer_nn", route="cuda",
+        source="sp_gan_tpu_torch/csrc/chamfer.cu",
+        replaces="sp_gan_tpu/ops/pallas/chamfer.py:79 "
+                 "(_chamfer_pallas_raw, _chamfer_kernel :26)",
+        launches=last["chamfer"]["launches"]["chamfer_nn"],
+        max_abs_err=0.0, max_err=0.0,
+        ms=cuda_ms(lambda: kernels.chamfer_nn(xc, yc), 20),
+        plain_ms=cuda_ms(lambda: kernels.chamfer_nn_plain(xc, yc), 5),
+        bound_ms=n_bound, bound_by=n_by, library_ms=None,
+        shape=[Bc, Nc, Mc, Cc], path="ops.dispatch.chamfer_directed"))
+    # kernel O in both modes at [4, 2048, 2048], the metric regime; its
+    # bound counts the rows that bid (as kernel E's)
+    d_o = last_in["d"]
+    for mode, body in (("jacobi", "_auction_kernel :345"),
+                       ("packed", "_auction_kernel_packed :47")):
+        o = last["jacobi_auction"][mode]
+        o_bound, o_by = auction_bound(d_o, o["bidders"])
+        rows.append(dict(
+            name=f"jacobi_auction[{mode}]", route="cuda",
+            source="sp_gan_tpu_torch/csrc/auction_jacobi.cu",
+            replaces=f"sp_gan_tpu/ops/pallas/auction.py:510 "
+                     f"(auction_assignment_pallas {mode}, {body})",
+            launches=o["launches"], max_abs_err=0.0, max_err=0.0,
+            ms=cuda_ms(lambda: kernels.auction(d_o, *PROTOCOL, mode=mode),
+                       3),
+            plain_ms=o["plain_ms"], bound_ms=o_bound, bound_by=o_by,
+            library_ms=None, rounds=o["rounds"], bidders=o["bidders"],
+            regime="eps 0.002, 10000 iterations, 4 phases",
+            shape=list(d_o.shape), path=f"auction(mode={mode!r})"))
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"]
                is not None else "no single PyTorch call computes this "

@@ -50,35 +50,16 @@
 // per pair runs its rounds one after another: a round's latency (a row
 // scan, four barriers) bounds a pair, and the card is filled only when
 // B is well over the 132 SMs.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "auction_common.cuh"
 
 namespace {
+
+using spgan::kMaxPhases;
+using spgan::PhaseEps;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 64;
-constexpr int kMaxPhases = 16;
-constexpr float kNeg = -1e30f;  // the JAX kernel's _NEG
-
-struct PhaseEps {
-  float v[kMaxPhases];
-};
-
-// (best, index of best, second) of two disjoint column sets, merged: the
-// better best (higher, or equal at a lower index) wins, and the second is
-// the larger of the winner's second and the loser's best.
-__device__ __forceinline__ void top2_merge(float& b, int& i, float& s,
-                                           float b2, int i2, float s2) {
-  if (b2 > b || (b2 == b && i2 < i)) {
-    s = fmaxf(s2, b);
-    b = b2;
-    i = i2;
-  } else {
-    s = fmaxf(s, b2);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     auction_kernel(const float* __restrict__ d, int32_t* __restrict__ asg,
@@ -153,25 +134,9 @@ __global__ void __launch_bounds__(kThreads)
       // 2. best, second and the bid of each unassigned row
       for (int u = warp; u < nu; u += kWarps) {
         const float* row = dp + (size_t)(rows0 + urow[u]) * M;
-        float b = -INFINITY, s = kNeg;
-        int bi = 0x7fffffff;
-#pragma unroll 4
-        for (int m = lane; m < M; m += 32) {
-          const float v = __fsub_rn(-__ldg(row + m), price[m]);
-          if (v > b) {
-            s = fmaxf(s, b);
-            b = v;
-            bi = m;
-          } else {
-            s = fmaxf(s, v);
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float b2 = __shfl_xor_sync(0xffffffffu, b, off);
-          const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
-          const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-          top2_merge(b, bi, s, b2, i2, s2);
-        }
+        float b, s;
+        int bi;
+        spgan::row_top2(row, price, M, lane, b, bi, s);
         if (lane == 0) {
           bid_item[u] = bi;
           bid_val[u] = __fadd_rn(__fsub_rn(b, s), eps_p);
@@ -218,33 +183,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // forced final pass: owned rows take their item, the rest the argmin of
   // d + price (lowest index)
-  int32_t* out = asg + (size_t)blockIdx.x * N;
-  for (int r = warp; r < N; r += kWarps) {
-    const int it = item_of[r];
-    if (it >= 0) {
-      if (lane == 0) out[r] = it;
-      continue;
-    }
-    const float* row = dp + (size_t)r * M;
-    float b = INFINITY;
-    int bi = 0x7fffffff;
-    for (int m = lane; m < M; m += 32) {
-      const float v = __fadd_rn(__ldg(row + m), price[m]);
-      if (v < b) {
-        b = v;
-        bi = m;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float b2 = __shfl_xor_sync(0xffffffffu, b, off);
-      const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (b2 < b || (b2 == b && i2 < bi)) {
-        b = b2;
-        bi = i2;
-      }
-    }
-    if (lane == 0) out[r] = bi;
-  }
+  spgan::forced_pass(dp, item_of, price, asg + (size_t)blockIdx.x * N, N, M,
+                     warp, kWarps, lane);
   if (t == 0) {
     rounds[blockIdx.x] = (int32_t)s_it;
     bidders[blockIdx.x] = s_bids;

@@ -1,5 +1,23 @@
-// Kernels D and H: deterministic scatter-adds by target through a CSR
+// Kernels D, H and M: deterministic scatter-adds by target through a CSR
 // inversion of the index lists, with no float atomics.
+//
+// Kernel M (spgan_edge_scatter_bwd): backward of the concat-form edge op
+// (kernel B without diff_only), ee = [central, nbr - central].
+// d_ee [B, N, k, 2C] in f32 or bf16 and idx [B, N, k] int32 ->
+//   d_x[b, p, :] = sum_{(q, j): idx[b, q, j] = p} d_ee[b, q, j, C:]
+//                  + sum_j (d_ee[b, p, j, :C] - d_ee[b, p, j, C:])
+// in f32, accumulated in f32 for bf16 d_ee too. Replaces the TPU kernel
+// sp_gan_tpu/ops/pallas/scatter.py::edge_scatter_bwd_pallas
+// (_edge_bwd_kernel), which the JAX package runs under SPGAN_EDGE_BWD=pallas
+// (sp_gan_tpu/ops/edge.py:147-155): there an O(N^2 k C) one-hot matmul over
+// the neighbor half, f32 made exact by a hi/mid/lo bf16 split, the central
+// sum added where the target tile is the source tile. Here it is the four
+// passes below on the neighbor half (sources at a row stride of 2C), then
+// the central sum (j ascending, each term a - b in f32) added last. What
+// bounds it on an H100: at the --fused_train step's EdgeConv2 (d_ee
+// [24, 2048, 10, 128] bf16) the function moves 125.8 MB of d_ee, 2.0 MB of
+// idx and 12.6 MB of d_x (140.4 MB, 42 us at 3.35 TB/s) for 94 MFLOP of
+// adds: bytes.
 //
 // Kernel H (spgan_scatter_add): g [B, S, F] in f32 or bf16 and idx [B, S]
 // int32 -> out[b, p, :] = sum_{s: idx[b, s] = p} g[b, s, :], [B, n, F] f32.
@@ -137,15 +155,21 @@ __global__ void __launch_bounds__(kThreads)
   src[b * per_cloud + slot] = (int32_t)(e - b * per_cloud);
 }
 
+// What a target row adds after its in-edges: nothing (kernel H), minus the
+// sum of its own central_k source rows (kernel D), or plus the sum of
+// a - b over its own rows, a the C values before each source row (kernel M)
+enum Central { kNoCentral = 0, kSubtractOwn = 1, kAddConcat = 2 };
+
 // One warp per target row p of cloud b: its segment of sources in
-// ascending order, summed in f32, then (kernel D, central_k > 0) the
-// central sum of row p's own central_k sources, subtracted last.
+// ascending order, summed in f32, then the central term of `mode` over row
+// p's own central_k sources, j ascending, last. Source s is the row of C
+// values at g + s * stride.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     sum_kernel(const T* __restrict__ g, const int32_t* __restrict__ start,
                const int32_t* __restrict__ src, int32_t* __restrict__ sorted,
                float* __restrict__ out, int B, int n, int64_t per_cloud,
-               int C, int central_k) {
+               int C, int64_t stride, int central_k, int mode) {
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= (int64_t)B * n) return;
@@ -155,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lo = s[p], hi = s[p + 1];
   const int32_t* seg = src + b * per_cloud;
   int32_t* srt = sorted + b * per_cloud;
-  const T* gb = g + b * per_cloud * C;
+  const T* gb = g + b * per_cloud * stride;
 
   // the segment's sources are distinct: each one's rank is its slot
   for (int i = lo + lane; i < hi; i += 32) {
@@ -171,7 +195,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < kChannelsPerLane; ++t) acc[t] = 0.0f;
 #pragma unroll 4
   for (int r = lo; r < hi; ++r) {
-    const T* gr = gb + (int64_t)srt[r] * C;
+    const T* gr = gb + (int64_t)srt[r] * stride;
 #pragma unroll
     for (int t = 0; t < kChannelsPerLane; ++t) {
       const int c = lane + 32 * t;
@@ -179,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   float* o = out + row * C;
-  if (central_k == 0) {
+  if (mode == kNoCentral) {
 #pragma unroll
     for (int t = 0; t < kChannelsPerLane; ++t) {
       const int c = lane + 32 * t;
@@ -187,27 +211,34 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
-  // the central term, j ascending, subtracted last
-  const T* own = gb + (int64_t)p * central_k * C;
+  // the central term, j ascending, last
+  const T* own = gb + (int64_t)p * central_k * stride;
 #pragma unroll
   for (int t = 0; t < kChannelsPerLane; ++t) {
     const int c = lane + 32 * t;
     if (c < C) {
       float cs = 0.0f;
-      for (int j = 0; j < central_k; ++j)
-        cs = __fadd_rn(cs, to_f32(own[j * C + c]));
-      o[c] = __fsub_rn(acc[t], cs);
+      for (int j = 0; j < central_k; ++j) {
+        const T* r = own + j * stride;
+        cs = __fadd_rn(cs, mode == kSubtractOwn
+                               ? to_f32(r[c])
+                               : __fsub_rn(to_f32(r[c - C]), to_f32(r[c])));
+      }
+      o[c] = mode == kSubtractOwn ? __fsub_rn(acc[t], cs)
+                                  : __fadd_rn(acc[t], cs);
     }
   }
 }
 
 // The four passes on the caller's stream: n targets and per_cloud sources
-// a cloud, g [B, per_cloud, C], idx [B, per_cloud], out [B, n, C];
-// `scratch` holds B * (3 n + 1 + 2 per_cloud) int32 and needs no
-// initialising. Returns the first nonzero cudaError_t.
+// a cloud, the sources' C values at g + offset + s * stride (s over
+// [B, per_cloud]), idx [B, per_cloud], out [B, n, C]; `scratch` holds
+// B * (3 n + 1 + 2 per_cloud) int32 and needs no initialising. Returns the
+// first nonzero cudaError_t.
 int csr_scatter(const void* g, const void* idx, void* out, void* scratch,
-                int B, int n, int64_t per_cloud, int C, bool g_bf16,
-                int central_k, cudaStream_t st) {
+                int B, int n, int64_t per_cloud, int C, int64_t offset,
+                int64_t stride, bool g_bf16, int central_k, int mode,
+                cudaStream_t st) {
   const int64_t total = per_cloud * B;
   int32_t* deg = static_cast<int32_t*>(scratch);
   int32_t* start = deg + (int64_t)B * n;
@@ -232,12 +263,14 @@ int csr_scatter(const void* g, const void* idx, void* out, void* scratch,
       (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
   if (g_bf16)
     sum_kernel<__nv_bfloat16><<<row_blocks, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(g), start, src, sorted,
-        static_cast<float*>(out), B, n, per_cloud, C, central_k);
+        static_cast<const __nv_bfloat16*>(g) + offset, start, src, sorted,
+        static_cast<float*>(out), B, n, per_cloud, C, stride, central_k,
+        mode);
   else
     sum_kernel<float><<<row_blocks, kThreads, 0, st>>>(
-        static_cast<const float*>(g), start, src, sorted,
-        static_cast<float*>(out), B, n, per_cloud, C, central_k);
+        static_cast<const float*>(g) + offset, start, src, sorted,
+        static_cast<float*>(out), B, n, per_cloud, C, stride, central_k,
+        mode);
   return (int)cudaGetLastError();
 }
 
@@ -256,8 +289,9 @@ extern "C" int spgan_scatter_diff_bwd(const void* d_diff, const void* idx,
   if (B <= 0 || N <= 0 || k <= 0 || C <= 0 || C > kMaxC ||
       (int64_t)N * k >= INT_MAX)
     return (int)cudaErrorInvalidValue;
-  return csr_scatter(d_diff, idx, d_x, scratch, B, N, (int64_t)N * k, C,
-                     dd_bf16 != 0, k, static_cast<cudaStream_t>(stream));
+  return csr_scatter(d_diff, idx, d_x, scratch, B, N, (int64_t)N * k, C, 0,
+                     C, dd_bf16 != 0, k, kSubtractOwn,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Kernel H. g [B, S, F] f32 or bf16 (g_bf16) and idx [B, S] int32,
@@ -272,6 +306,24 @@ extern "C" int spgan_scatter_add(const void* g, const void* idx, void* out,
                                  int g_bf16, void* stream) {
   if (B <= 0 || S <= 0 || n <= 0 || F <= 0 || F > kMaxC)
     return (int)cudaErrorInvalidValue;
-  return csr_scatter(g, idx, out, scratch, B, n, S, F, g_bf16 != 0, 0,
+  return csr_scatter(g, idx, out, scratch, B, n, S, F, 0, F, g_bf16 != 0, 0,
+                     kNoCentral, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel M. d_ee [B, N, k, 2C] f32 or bf16 (ee_bf16) and idx [B, N, k]
+// int32, contiguous on the device; d_x [B, N, C] f32. `scratch` holds
+// B * (3 N + 1 + 2 N k) int32, as kernel D's; nothing in it needs
+// initialising. Entries of idx outside [0, N) are ignored. Launches on
+// `stream` and returns the first nonzero cudaError_t (0 on success). Takes
+// C <= 128.
+extern "C" int spgan_edge_scatter_bwd(const void* d_ee, const void* idx,
+                                      void* d_x, void* scratch, int B, int N,
+                                      int k, int C, int ee_bf16,
+                                      void* stream) {
+  if (B <= 0 || N <= 0 || k <= 0 || C <= 0 || C > kMaxC ||
+      (int64_t)N * k >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  return csr_scatter(d_ee, idx, d_x, scratch, B, N, (int64_t)N * k, C, C,
+                     2 * (int64_t)C, ee_bf16 != 0, k, kAddConcat,
                      static_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,7 @@ data-parallel slice (`train.step.make_train_step` refuses them).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -140,7 +141,8 @@ class SPBatchNorm(nn.Module):
     """BatchNorm over every axis but the last:
     `(x - mean) * (rsqrt(var + eps) * scale) + bias` in f32, cast back to
     x's dtype. Training mode normalizes with the batch statistics and
-    updates the running ones in place; eval mode uses the running ones."""
+    updates the running ones in place (unless `update_running` is False,
+    see `frozen_running_stats`); eval mode uses the running ones."""
 
     def __init__(self, c: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -150,6 +152,7 @@ class SPBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
         self.epsilon = epsilon
         self.momentum = momentum
+        self.update_running = True
 
     def init_weights(self, rng: np.random.Generator) -> None:
         with torch.no_grad():
@@ -167,6 +170,8 @@ class SPBatchNorm(nn.Module):
         axes = tuple(range(xf.dim() - 1))
         mean = xf.mean(dim=axes)
         var = (xf * xf).mean(dim=axes) - mean * mean
+        if not self.update_running:
+            return mean, var
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -178,6 +183,22 @@ class SPBatchNorm(nn.Module):
         mean, var = self.statistics(xf, train)
         inv = torch.rsqrt(var + self.epsilon) * self.scale
         return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Inside the block the training-mode BatchNorms of `module` normalize
+    with batch statistics but leave their running averages as they are
+    (the JAX step runs a forward and drops its `batch_stats` mutation)."""
+    norms = [m for m in module.modules() if isinstance(m, SPBatchNorm)]
+    before = [m.update_running for m in norms]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m, b in zip(norms, before):
+            m.update_running = b
 
 
 class MaxPoolBNLReLU(SPBatchNorm):

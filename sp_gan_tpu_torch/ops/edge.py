@@ -16,7 +16,8 @@ package runs it in XLA. Gradients: the fused ops are
 (`ops/kernels/scatter.py`): the diff-only ones are the counterparts of the
 JAX `_knn_edge_diff` and `_knn_edge_diff_window` VJPs, the concat form
 (`EdgeConcat`, which the fused training forward differentiates) of the
-default branch of `_knn_edge`'s VJP; the gather's backward is
+default branch of `_knn_edge`'s VJP, or with SPGAN_EDGE_BWD=pallas of its
+kernel M branch; the gather's backward is
 `scatter_rows` (kernel H where the JAX package calls its Pallas scatter,
 else `index_add_`). Eligibility is the JAX rule of
 `_use_fused_knn_edge` (N % 8 == 0, N <= 8192, N*C*4 <= 8 MiB, C >= 16)
@@ -40,7 +41,8 @@ from sp_gan_tpu_torch.ops.kernels.knn import MAX_C, MAX_K
 from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
 from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (jax_tile,
                                                           knn_edge_window)
-from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
+from sp_gan_tpu_torch.ops.kernels.scatter import (edge_scatter_bwd,
+                                                  scatter_diff_bwd,
                                                   scatter_rows)
 
 
@@ -83,6 +85,15 @@ def knn_select_mode() -> str:
     return mode
 
 
+def edge_bwd_mode() -> str:
+    """Backward of the concat-form fused op, from env SPGAN_EDGE_BWD as in
+    the JAX package: xla (the default) or pallas (kernel M)."""
+    mode = os.environ.get("SPGAN_EDGE_BWD", "xla")
+    if mode not in ("xla", "pallas"):
+        raise ValueError(f"SPGAN_EDGE_BWD must be xla|pallas, got {mode!r}")
+    return mode
+
+
 def _fused(x, k, out_dtype, diff_only):
     with torch.no_grad():
         return knn_edge(x.detach().float().contiguous(), k,
@@ -98,8 +109,11 @@ class EdgeConcat(torch.autograd.Function):
     neighbor half scatters through the indices. The scatter is kernel D on
     the neighbor half (which subtracts that half's own sum over k in f32,
     added back here). As in JAX, the central sum, the scatter and their
-    sum are each in the edges' type before the cast to x's. kNN selection
-    carries no gradient."""
+    sum are each in the edges' type before the cast to x's. With
+    SPGAN_EDGE_BWD=pallas and N % 8 == 0 the backward is instead the JAX
+    branch that calls `edge_scatter_bwd_pallas` (`sp_gan_tpu/ops/edge.py:
+    147-155`): kernel M, f32 sums whatever the edges' type, cast to x's
+    type once. kNN selection carries no gradient."""
 
     @staticmethod
     def forward(ctx, x, k, out_dtype):
@@ -112,6 +126,9 @@ class EdgeConcat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_ee, d_idx):
         (idx,) = ctx.saved_tensors
+        if edge_bwd_mode() == "pallas" and d_ee.shape[1] % 8 == 0:
+            return (edge_scatter_bwd(d_ee.contiguous(), idx).to(ctx.dtype),
+                    None, None)
         C = d_ee.shape[-1] // 2
         d_nbr = d_ee[..., C:]
         d_central = (d_ee[..., :C] - d_nbr).sum(dim=2)

@@ -67,6 +67,13 @@ SIGNATURES = {
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # g, idx, out, scratch, B, S, n, F, g_bf16, stream
     "spgan_scatter_add": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # d_ee, idx, d_x, scratch, B, N, k, C, ee_bf16, stream
+    "spgan_edge_scatter_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # x, y, d1, i1, d2, i2, B, N, M, C, stream
+    "spgan_chamfer": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # d, asg, rounds, bidders, B, N, M, phases, eps (host f32[16]), iters,
+    # packed, stream
+    "spgan_auction_jacobi": (_P,) * 4 + (_I,) * 4 + (_P, _I, _I, _P),
     # d, asg, rounds, bidders, B, N, M, w, phases, eps (host f32[16]), cap,
     # stream
     "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P),

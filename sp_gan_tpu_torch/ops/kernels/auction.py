@@ -36,7 +36,9 @@ and the kernel runs the same f32 operations in the same order: the two agree
 bit for bit, and a difference is a bug. `auction` launches the kernel for
 a CUDA tensor (N * M * 4 <= 1 GB; the JAX package's XLA solver above that
 is not ported) and runs `auction_plain` for a CPU tensor.
-`auction.launches` counts kernel launches.
+`auction.launches` counts kernel launches. `auction(mode="jacobi")` and
+`mode="packed"` go to kernel O (`auction_jacobi.py`), which counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -198,10 +200,19 @@ def smem_bytes(n: int, m: int, w: int) -> int:
 
 
 def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
-            theta: float = 8.0, block_w: int = 64
+            theta: float = 8.0, block_w: int = 64, mode: str = "blockgs"
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """d [B, N, M] f32 -> (assignment [B, N] int32, block-rounds [B] int32,
-    bidders [B] int64). Kernel E on CUDA, `auction_plain` on the CPU."""
+    """d [B, N, M] f32 -> (assignment [B, N] int32, rounds [B] int32,
+    bidders [B] int64) in the JAX kernel's `mode`. "blockgs" and
+    "blockgs_hbm": kernel E on CUDA, `auction_plain` on the CPU, the rounds
+    being block-rounds; "jacobi" and "packed": kernel O
+    (`auction_jacobi.jacobi_auction`, which ignores `block_w`)."""
+    if mode in ("jacobi", "packed"):
+        # a local import: auction_jacobi imports this module
+        from sp_gan_tpu_torch.ops.kernels.auction_jacobi import jacobi_auction
+        return jacobi_auction(d, eps, iters, phases, theta, mode)
+    if mode not in ("blockgs", "blockgs_hbm"):
+        raise ValueError(f"unknown auction mode {mode!r}")
     _check(d, phases, block_w)
     if d.device.type == "cpu":
         return auction_plain(d, eps, iters, phases, theta, block_w)

@@ -1,4 +1,4 @@
-"""Kernels D and H: deterministic scatter-adds, `csrc/scatter.cu`.
+"""Kernels D, H and M: deterministic scatter-adds, `csrc/scatter.cu`.
 
 Kernel H replaces `sp_gan_tpu/ops/pallas/scatter.py::scatter_add_pallas`
 (`_scatter_kernel`): g [B, S, F] (f32 or bf16) and idx [B, S] int32 give
@@ -31,6 +31,22 @@ source order, the central sum last: deterministic, with no float atomics
 `scatter_diff_bwd_plain`, the same sums in the same order in plain
 PyTorch, for CPU tensors. `scatter_diff_bwd.launches` counts kernel
 launches (one per call: the four passes are one launch of the function).
+
+Kernel M, the backward of the concat-form edge op under
+`SPGAN_EDGE_BWD=pallas`, replaces
+`sp_gan_tpu/ops/pallas/scatter.py::edge_scatter_bwd_pallas`
+(`_edge_bwd_kernel`). d_ee [B, N, k, 2C] (f32 or bf16) and idx [B, N, k]
+int32 give
+
+    d_x[b, p] = sum_{(q, j): idx[b, q, j] = p} d_ee[b, q, j, C:]
+                + sum_j (d_ee[b, p, j, :C] - d_ee[b, p, j, C:])
+
+as [B, N, C] f32, accumulated in f32 whatever d_ee's type, as the Pallas
+kernel's exact one-hot matmuls accumulate. It is kernel D's CSR passes on
+the neighbor half, the central sum added last. `edge_scatter_bwd`
+launches it for CUDA tensors and runs `edge_scatter_bwd_plain` (the same
+sums in the same order) for CPU tensors; `edge_scatter_bwd.launches`
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -43,11 +59,14 @@ MAX_C = 128
 GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(d_diff: torch.Tensor, idx: torch.Tensor) -> None:
-    if d_diff.dim() != 4:
-        raise ValueError(f"d_diff must be [B, N, k, C], got "
+def _check(d_diff: torch.Tensor, idx: torch.Tensor, halves: int = 1) -> None:
+    """d_diff [B, N, k, halves * C] and idx [B, N, k] as the kernels take
+    them."""
+    if d_diff.dim() != 4 or d_diff.shape[-1] % halves:
+        raise ValueError(f"d_diff must be [B, N, k, {halves}C], got "
                          f"{tuple(d_diff.shape)}")
     B, N, k, C = d_diff.shape
+    C //= halves
     if tuple(idx.shape) != (B, N, k):
         raise ValueError(f"idx must be {(B, N, k)}, got {tuple(idx.shape)}")
     if d_diff.dtype not in GRAD_DTYPES:
@@ -107,6 +126,31 @@ def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
     return out.reshape(B, n, F)
 
 
+def _launch(name: str, g: torch.Tensor, idx: torch.Tensor, n: int,
+            sources: int, C: int, dims) -> torch.Tensor:
+    """Runs the CSR scatter `name` of `csrc/scatter.cu` on CUDA tensors g
+    (f32 or bf16) and idx: n targets and `sources` sources a cloud, out
+    [B, n, C] f32; `dims` are the function's int arguments before the
+    type flag."""
+    if g.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {g.device}")
+    B = g.shape[0]
+    out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
+    # in-degrees, segment starts, fill cursors, sources as filled and
+    # sorted; freeing it on return is safe, since the caching allocator
+    # hands it only to work queued later on this stream
+    scratch = torch.empty(B * (3 * n + 1 + 2 * sources), dtype=torch.int32,
+                          device=g.device)
+    lib = _build.library()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(
+            g.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            *dims, int(g.dtype == torch.bfloat16), stream)
+    _build.check(err, name)
+    return out
+
+
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """(g [B, S, F] f32/bf16, idx [B, S] int32) -> out [B, n, F] f32, see
     the module docstring. Kernel H on CUDA (F <= 128), `scatter_add_plain`
@@ -114,25 +158,11 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     _check_add(g, idx, n)
     if g.device.type == "cpu":
         return scatter_add_plain(g, idx, n)
-    if g.device.type != "cuda":
-        raise ValueError(f"scatter_add runs on cuda or cpu, not {g.device}")
     B, S, F = g.shape
     if F > MAX_C:
         raise ValueError(f"kernel H (scatter_add) takes F <= {MAX_C} "
                          f"channels on CUDA, got {F}")
-    out = torch.empty((B, n, F), dtype=torch.float32, device=g.device)
-    # in-degrees, segment starts, fill cursors, sources as filled and
-    # sorted; freeing it on return is safe, since the caching allocator
-    # hands it only to work queued later on this stream
-    scratch = torch.empty(B * (3 * n + 1 + 2 * S), dtype=torch.int32,
-                          device=g.device)
-    lib = _build.library()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.spgan_scatter_add(
-            g.data_ptr(), idx.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            B, S, n, F, int(g.dtype == torch.bfloat16), stream)
-    _build.check(err, "spgan_scatter_add")
+    out = _launch("spgan_scatter_add", g, idx, n, S, F, (B, S, n, F))
     scatter_add.launches += 1
     return out
 
@@ -178,26 +208,44 @@ def scatter_diff_bwd(d_diff: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(d_diff, idx)
     if d_diff.device.type == "cpu":
         return scatter_diff_bwd_plain(d_diff, idx)
-    if d_diff.device.type != "cuda":
-        raise ValueError(f"scatter_diff_bwd runs on cuda or cpu, not "
-                         f"{d_diff.device}")
     B, N, k, C = d_diff.shape
-    d_x = torch.empty((B, N, C), dtype=torch.float32, device=d_diff.device)
-    # in-degrees, segment starts, fill cursors, sources as filled and
-    # sorted; freeing it on return is safe, since the caching allocator
-    # hands it only to work queued later on this stream
-    scratch = torch.empty(B * (3 * N + 1 + 2 * N * k), dtype=torch.int32,
-                          device=d_diff.device)
-    lib = _build.library()
-    with torch.cuda.device(d_diff.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.spgan_scatter_diff_bwd(
-            d_diff.data_ptr(), idx.data_ptr(), d_x.data_ptr(),
-            scratch.data_ptr(), B, N, k, C,
-            int(d_diff.dtype == torch.bfloat16), stream)
-    _build.check(err, "spgan_scatter_diff_bwd")
+    d_x = _launch("spgan_scatter_diff_bwd", d_diff, idx, N, N * k, C,
+                  (B, N, k, C))
     scatter_diff_bwd.launches += 1
     return d_x
 
 
 scatter_diff_bwd.launches = 0
+
+
+def edge_scatter_bwd_plain(d_ee: torch.Tensor,
+                           idx: torch.Tensor) -> torch.Tensor:
+    """Kernel M's function in plain PyTorch: the neighbor half added by
+    target (`scatter_add_plain`), then the central sum over j in ascending
+    order of `d_ee[..., j, :C] - d_ee[..., j, C:]`, added last, all in f32.
+    On the CPU the sums run in the kernel's order."""
+    g = d_ee.float()
+    B, N, k, C2 = g.shape
+    C = C2 // 2
+    central = torch.zeros(B, N, C, dtype=torch.float32, device=g.device)
+    for j in range(k):
+        central = central + (g[:, :, j, :C] - g[:, :, j, C:])
+    return (scatter_add_plain(g[..., C:].reshape(B, N * k, C),
+                              idx.reshape(B, N * k), N) + central)
+
+
+def edge_scatter_bwd(d_ee: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(d_ee [B, N, k, 2C] f32/bf16, idx [B, N, k] int32) -> d_x [B, N, C]
+    f32, see the module docstring. Kernel M on CUDA,
+    `edge_scatter_bwd_plain` on the CPU."""
+    _check(d_ee, idx, halves=2)
+    if d_ee.device.type == "cpu":
+        return edge_scatter_bwd_plain(d_ee, idx)
+    B, N, k, C2 = d_ee.shape
+    d_x = _launch("spgan_edge_scatter_bwd", d_ee, idx, N, N * k, C2 // 2,
+                  (B, N, k, C2 // 2))
+    edge_scatter_bwd.launches += 1
+    return d_x
+
+
+edge_scatter_bwd.launches = 0

@@ -37,10 +37,29 @@ and kernel C once each, and in the G phase kernels J, K and L and kernel D
 `knn_mode` (EdgeConv2 selects exactly even under approx); the port refuses
 that combination.
 
-The step takes z_d and z_g explicitly when given (a parity test hands it
-the JAX step's codes); otherwise it draws them from the state's
-`torch.Generator`. WGAN-GP (`gan=wgan` with `lambda_gp > 0`), CutMix
-(`mix`) and region-mixed codes (`n_mix`) need slices not ported yet.
+Under `fused_train` with env SPGAN_EDGE_BWD=pallas, EdgeConv2's concat
+edges take their backward from kernel M instead of kernel D
+(`ops.edge.EdgeConcat`), as the JAX step does under the same switch.
+
+The D phase's regularizers, as in the JAX step
+(`sp_gan_tpu/train/step.py:132-147`):
+
+- WGAN-GP (`gan=wgan` with `lambda_gp > 0`): `losses.wgan_gp` on D in
+  training mode with batch statistics whose running averages stay as they
+  were (`frozen_running_stats`: the JAX step drops that forward's
+  statistics), differentiated twice; with `gp_mapping` the interpolates
+  pair each fake point with its real point by the fixed-iteration EMD
+  auction (`ops.emd.auction_jacobi`, plain PyTorch as it is XLA in JAX);
+- CutMix (`mix`): `losses.cutmix` splices the EMD-aligned fakes into the
+  real clouds (kernel E once a step, one phase of eps 0.005 and
+  `mix_emd_iters` rounds), D's training forward on the mixed clouds adds
+  `mix_loss`, and its statistics become D's.
+
+The step takes z_d and z_g, and the regularizers' draws (`draws`: alpha
+[B, 1, 1] of WGAN-GP; lam [B], anchor [B] and flip of CutMix) explicitly
+when given (a parity test hands it the JAX step's); otherwise it draws
+them from the state's `torch.Generator`. Region-mixed codes (`n_mix`) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -52,10 +71,13 @@ import torch
 
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data.noise import sample_z
-from sp_gan_tpu_torch.losses.gan import dis_loss, gen_loss
+from sp_gan_tpu_torch.losses.cutmix import cutmix, cutmix_draws
+from sp_gan_tpu_torch.losses.gan import dis_loss, gen_loss, mix_loss
+from sp_gan_tpu_torch.losses.gp import wgan_gp
 from sp_gan_tpu_torch.nn.fused_eval import (generator_forward_eval,
                                             supports_fused)
 from sp_gan_tpu_torch.nn.fused_train import generator_forward_train
+from sp_gan_tpu_torch.nn.layers import frozen_running_stats
 from sp_gan_tpu_torch.ops.edge import edge_features
 from sp_gan_tpu_torch.ops.pairwise import knn_indices
 from sp_gan_tpu_torch.train.state import (TrainState, ema_update, lr_at,
@@ -86,16 +108,11 @@ def _apply(opt: torch.optim.Adam, params, grads, lr: float,
 
 def make_train_step(cfg: Config, sphere
                     ) -> Callable[..., Tuple[TrainState, dict]]:
-    """`step(state, real [B, N, 3], z_d=None, z_g=None) -> (state,
-    metrics)` on the device of `state.G`. `sphere` [N, 3] (array or
-    tensor) is the run's template; metrics are 0-d tensors (d_loss, g_loss,
-    real_acc, fake_acc) left on the device."""
-    if cfg.gan == "wgan" and cfg.lambda_gp > 0:
-        raise NotImplementedError("WGAN-GP needs the EMD slice (not ported "
-                                  "yet); use --lambda_gp 0")
-    if cfg.mix:
-        raise NotImplementedError("CutMix (--mix) needs the EMD slice, not "
-                                  "ported yet")
+    """`step(state, real [B, N, 3], z_d=None, z_g=None, draws=None) ->
+    (state, metrics)` on the device of `state.G`. `sphere` [N, 3] (array
+    or tensor) is the run's template; metrics are 0-d tensors (d_loss,
+    g_loss, real_acc, fake_acc) left on the device."""
+    use_gp = cfg.gan == "wgan" and cfg.lambda_gp > 0
     if cfg.n_mix:
         raise NotImplementedError("region-mixed codes (--n_mix) are not "
                                   "ported yet")
@@ -137,7 +154,8 @@ def make_train_step(cfg: Config, sphere
 
     def step(state: TrainState, real: torch.Tensor,
              z_d: Optional[torch.Tensor] = None,
-             z_g: Optional[torch.Tensor] = None):
+             z_g: Optional[torch.Tensor] = None,
+             draws: Optional[dict] = None):
         G, D, gen = state.G, state.D, state.gen
         dev = next(G.parameters()).device
         real = real.to(dev, torch.float32)
@@ -156,6 +174,25 @@ def make_train_step(cfg: Config, sphere
         logit_fake = D(fake, train=True)
         d_loss, d_info = dis_loss(logit_real, logit_fake, gan=cfg.gan,
                                   noise_label=cfg.flip_d, gen=gen)
+        draws = dict(draws or {})
+        if use_gp:
+            if "alpha" not in draws:
+                draws["alpha"] = torch.rand((B, 1, 1), generator=gen,
+                                            device=gen.device)
+            with frozen_running_stats(D):
+                d_loss = d_loss + wgan_gp(
+                    lambda pts: D(pts, train=True), real, fake,
+                    draws["alpha"].to(dev), cfg.lambda_gp,
+                    emd_pairing=cfg.gp_mapping, emd_iters=cfg.gp_emd_iters)
+        if cfg.mix:
+            if "lam" not in draws:
+                draws.update(zip(("lam", "anchor", "flip"),
+                                 cutmix_draws(gen, B, N)))
+            mixed, _, _ = cutmix(real, fake, draws["lam"].to(dev),
+                                 draws["anchor"].to(dev),
+                                 draws["flip"].to(dev),
+                                 emd_iters=cfg.mix_emd_iters)
+            d_loss = d_loss + mix_loss(D(mixed, train=True), gan=cfg.gan)[0]
         d_grads = torch.autograd.grad(d_loss, d_params)
         _apply(state.d_opt, d_params, d_grads,
                lr_at(cfg, cfg.lr_d, updates_done(state.d_opt), spe),

@@ -26,6 +26,7 @@ gradients and parameters) is compared on the free run.
 """
 
 import functools
+import importlib
 import re
 
 import jax
@@ -34,26 +35,37 @@ import numpy as np
 import optax
 import pytest
 import torch
+from flax import linen as flax_nn
 
+from sp_gan_tpu import losses as jlosses
 from sp_gan_tpu.config import Config as JaxConfig
 from sp_gan_tpu.data import sphere_template as jsphere_template
 from sp_gan_tpu.data.h5 import SyntheticDataset as JaxSynthetic
 from sp_gan_tpu.data.noise import sample_z as jsample_z
+from sp_gan_tpu.nn import discriminator as jdisc
 from sp_gan_tpu.nn import generator as jgenerator
 from sp_gan_tpu.nn import layers as jlayers
 from sp_gan_tpu.ops import approx_knn as japprox
 from sp_gan_tpu.ops import dispatch as jdispatch
+from sp_gan_tpu.ops import emd as jemd
 from sp_gan_tpu.ops.pairwise import knn_indices as jknn_indices
 from sp_gan_tpu.train.state import create_train_state as jcreate
 from sp_gan_tpu.train.step import make_train_step as jmake_step
 from sp_gan_tpu_torch.compat import state_from_jax, trees
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.nn import Discriminator, Generator
+from sp_gan_tpu_torch.nn import discriminator as tdisc
 from sp_gan_tpu_torch.nn import fused_train as tfused
-from sp_gan_tpu_torch.nn.layers import MaxPoolBNLReLU
+from sp_gan_tpu_torch.nn.layers import MaxPoolBNLReLU, lrelu
 from sp_gan_tpu_torch.ops import edge as tedge
 from sp_gan_tpu_torch.train import step as tstep
 from sp_gan_tpu_torch.train.state import create_train_state
+
+# the CutMix and GP modules (each package's `losses` exports a function
+# named like the first)
+jcutmix = importlib.import_module("sp_gan_tpu.losses.cutmix")
+tcutmix = importlib.import_module("sp_gan_tpu_torch.losses.cutmix")
+tgp = importlib.import_module("sp_gan_tpu_torch.losses.gp")
 
 torch.set_num_threads(2)   # six test workers share the host's cores
 
@@ -121,14 +133,19 @@ class Replay:
 
     def __init__(self, own_knn=None):
         self.table, self.inputs = {}, {}
-        self.n_knn = self.n_pool = 0
+        self.n_knn = self.n_pool = self.n_emd = self.n_lrelu = 0
         # the JAX step's own selection, for the near-tie checks
         self.own_knn = own_knn or jknn_indices
 
-    def load(self, knn_picks, pools):
-        """Entries from a port run: kNN picks in call order, and pools as
-        ("g", argmax) or ("d", argmax, argmin) in call order."""
+    def load(self, knn_picks, pools, emds=(), slopes=()):
+        """Entries from a port run: kNN picks in call order, pools as
+        ("g", argmax) or ("d", argmax, argmin) in call order, EMD
+        assignments (WGAN-GP's pairing, CutMix's alignment) and the signs
+        of D's leaky ReLU inputs (1 where the input is >= 0) in call
+        order."""
         self.table = {("knn", i): a for i, a in enumerate(knn_picks)}
+        self.table.update({("emd", i): a for i, a in enumerate(emds)})
+        self.table.update({("lrelu", i): a for i, a in enumerate(slopes)})
         for i, entry in enumerate(pools):
             for which in range(1, len(entry)):
                 self.table[("pool", i, which)] = entry[which]
@@ -149,6 +166,23 @@ class Replay:
     def __getattr__(self, name):
         return getattr(jnp, name)
 
+    def leaky_relu(self, x, negative_slope=0.01):
+        """D's leaky ReLU with the port's slope choices (installed through
+        `FlaxNN` as the `nn` of the JAX discriminator module)."""
+        key = ("lrelu", self.n_lrelu)
+        self.n_lrelu += 1
+        up = self._read(key, x.shape, jax.lax.stop_gradient(x)) != 0
+        return jnp.where(up, x, negative_slope * x)
+
+    def emd(self, xyz1, xyz2, eps=0.005, iters=50, scaled=False):
+        """`emd_auction` with the port's assignment: (dist, assignment)."""
+        key = ("emd", self.n_emd)
+        self.n_emd += 1
+        both = jax.lax.stop_gradient(jnp.concatenate([xyz1, xyz2], axis=1))
+        ass = self._read(key, xyz1.shape[:2], both)
+        matched = jnp.take_along_axis(xyz2, ass[..., None], axis=1)
+        return jnp.sum((xyz1 - matched) ** 2, axis=-1), ass
+
     def _pool(self, x, which):
         # D's pool asks for max, then min, of one tensor; G's for max only
         if which == 1:
@@ -168,25 +202,45 @@ class Replay:
         """The JAX step's own choices agree with the replayed ones up to
         near-ties within `rel`, at the given entries."""
         for key in keys:
+            if key[0] == "emd":
+                continue      # the assignment's cost: see emd_cost_gaps
             x, mine = self.inputs[key], self.table[key]
             if key[0] == "knn":
                 own = np.asarray(self.own_knn(jnp.asarray(x),
                                               mine.shape[-1]))
                 assert knn_near_tie(mine, own, x, rel), key
+            elif key[0] == "lrelu":
+                # a slope differs only where the input is within rounding
+                # of 0, on the scale of its tensor
+                flip = (x >= 0) != (mine != 0)
+                assert np.all(np.abs(x[flip]) <= rel * np.abs(x).max()), key
             else:
                 assert pool_near_tie(x, mine, key[2], rel), key
 
 
-def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
+class FlaxNN:
+    """`flax.linen` with `leaky_relu` taken from a `Replay`."""
+
+    def __init__(self, replay):
+        self.leaky_relu = replay.leaky_relu
+
+    def __getattr__(self, name):
+        return getattr(flax_nn, name)
+
+
+def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None,
+              draws=None):
     """One port step from the JAX start `jstate`. Returns (results, the
-    EdgeConv2 selections, the max-pool choices), both in call order. With
-    `pinned_d` (name -> array), D's parameters take those values right
-    after D's Adam step."""
+    EdgeConv2 selections, the max-pool choices, the EMD assignments, the
+    signs of D's leaky ReLU inputs), all in call order. With `pinned_d`
+    (name -> array), D's parameters take those values right after D's
+    Adam step. `draws` (name -> array) are the regularizers' draws handed
+    to the step."""
     G, D = Generator(cfg, seed=None), Discriminator(cfg, seed=None)
     G.load_state_dict(state_from_jax(jstate.g_params, jstate.g_stats))
     D.load_state_dict(state_from_jax(jstate.d_params, jstate.d_stats))
     state = create_train_state(cfg, device="cpu", G=G, D=D)
-    picks, grads, pools = [], [], []
+    picks, grads, pools, emds, slopes = [], [], [], [], []
 
     def recording(fused):
         """EdgeConv2's fused op (kernel B's diff or, under fused_train and
@@ -197,6 +251,17 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
             picks.append(idx.numpy().copy())
             return diff, idx
         return run
+
+    def recording_emd(fn):
+        def run(*a, **kw):
+            dist, ass = fn(*a, **kw)
+            emds.append(ass.numpy().copy())
+            return dist, ass
+        return run
+
+    def recording_lrelu(x, slope):
+        slopes.append((x.detach() >= 0).numpy().astype(np.int32))
+        return lrelu(x, slope)
 
     apply = tstep._apply
 
@@ -234,11 +299,19 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
                    recording(tedge.edge_concat_fused))
         mp.setattr(tfused, "_adain", recording_adain)
         mp.setattr(tstep, "_apply", recording_apply)
+        mp.setattr(tdisc, "lrelu", recording_lrelu)
+        mp.setattr(tgp, "emd_auction", recording_emd(tgp.emd_auction))
+        mp.setattr(tcutmix, "emd_auction",
+                   recording_emd(tcutmix.emd_auction))
         step = tstep.make_train_step(cfg, sphere)
         state, m = step(state, torch.from_numpy(real), torch.from_numpy(z_d),
-                        torch.from_numpy(z_g))
+                        torch.from_numpy(z_g),
+                        {k: torch.from_numpy(np.asarray(v))
+                         for k, v in (draws or {}).items()})
     assert len(picks) == 2     # EdgeConv2 in the D and in the G phase
-    assert [p[0] for p in pools] == ["g", "d", "d", "g", "d"]
+    # D on the real batch, the fakes, and the regularizers' inputs
+    regs = int(cfg.gan == "wgan" and cfg.lambda_gp > 0) + int(cfg.mix)
+    assert [p[0] for p in pools] == ["g"] + ["d"] * (2 + regs) + ["g", "d"]
     out = {key: float(m[key]) for key in ("d_loss", "g_loss", "real_acc",
                                           "fake_acc")}
     out["d_grads"] = dict(zip([n for n, _ in D.named_parameters()],
@@ -248,7 +321,21 @@ def port_step(cfg, jstate, sphere, real, z_d, z_g, pinned_d=None):
     for net, mod in (("g", state.G), ("d", state.D)):
         params, stats = trees(mod)
         out[f"{net}_params"], out[f"{net}_stats"] = flat(params), flat(stats)
-    return out, picks, pools
+    return out, picks, pools, emds, slopes
+
+
+def jax_draws(k_gp, cfg) -> dict:
+    """The regularizers' draws of the JAX step from its key `k_gp`
+    (`train/step.py:116`): WGAN-GP's alpha (`losses/gp.py:71`) and
+    CutMix's lam, anchor and flip (`losses/cutmix.py:50-96`)."""
+    B, N = cfg.bs, cfg.np
+    k_lam, k_anchor, k_flip = jax.random.split(k_gp, 3)
+    return {"alpha": np.array(jax.random.uniform(k_gp, (B, 1, 1),
+                                                 dtype=jnp.float32)),
+            "lam": np.array(jax.random.uniform(k_lam, (B,))),
+            "anchor": np.array(jax.random.randint(k_anchor, (B,), 0, N),
+                               np.int64),
+            "flip": np.array(jax.random.bernoulli(k_flip))}
 
 
 # the D phase's choices: EdgeConv2's kNN, the G pool, D's real and fake pools
@@ -259,7 +346,7 @@ REAL_POOLS = [("pool", 1, 1), ("pool", 1, 2)]
 
 
 def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
-             jax_one_ulp=False, **kw):
+             jax_one_ulp=False, replay_slopes=False, **kw):
     """One step of each package from the same start: a dict of numpy
     results of the free port run, the pinned port run and the JAX step.
     `near_tie` bounds how far the JAX step's own choices may lie from the
@@ -286,7 +373,11 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
     With `jax_one_ulp`, also the JAX step of run B with the real batch
     moved by one ulp up and down, replaying the same choices
     ("jax_one_ulp": [results]): how far rounding alone moves the JAX
-    step."""
+    step.
+
+    With `replay_slopes`, the slopes of D's leaky ReLUs are replayed too
+    (each JAX slope checked to differ from the port's only where its input
+    lies within `near_tie` of 0 on its tensor's scale)."""
     jcfg = JaxConfig(**{**CFG_KW, **kw}, donate_state=False)
     cfg = Config(**{**CFG_KW, **kw})
     jgrads = {"d": [], "g": []}
@@ -296,10 +387,11 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
                             d_opt=d_tx.init(jstate.d_params))
     sphere = jsphere_template(cfg.np)
     real = JaxSynthetic(n_items=cfg.bs, n_points=cfg.np, seed=5).data.copy()
-    # the JAX step's codes, from its own key splits
-    _, k_zd, k_zg, _, _, _ = jax.random.split(jstate.rng, 6)
+    # the JAX step's codes and draws, from its own key splits
+    _, k_zd, k_zg, _, _, k_gp = jax.random.split(jstate.rng, 6)
     z_d, z_g = (np.array(jsample_z(kk, cfg.bs, cfg.np, cfg.nz, cfg.nv))
                 for kk in (k_zd, k_zg))
+    draws = jax_draws(k_gp, cfg)
 
     if witness:
         wcfg = JaxConfig(**{**CFG_KW, **kw, "dtype": witness},
@@ -308,8 +400,9 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SPGAN_KNN_SELECT", "exact")
-        free_run = port_step(cfg, jstate, sphere, real, z_d, z_g)
-        free, picks, pools = free_run
+        free_run = port_step(cfg, jstate, sphere, real, z_d, z_g,
+                             draws=draws)
+        free, picks, pools, emds, slopes = free_run
         own = None
         if cfg.knn_mode == "approx":
             # EdgeConv2's band: the JAX step selects with the XLA window
@@ -322,6 +415,12 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
                    lambda x, k, window=None, block=None: replay.knn(x, k))
         mp.setattr(jlayers, "jnp", replay)
         mp.setattr(jgenerator, "jnp", replay)
+        if replay_slopes:
+            mp.setattr(jdisc, "nn", FlaxNN(replay))
+        mp.setattr(jemd, "emd_auction", replay.emd)
+        mp.setattr(jcutmix, "emd_auction", replay.emd)
+        # cutmix unjitted, so that no trace cached with the real EMD serves
+        mp.setattr(jlosses, "cutmix", jcutmix.cutmix.__wrapped__)
         jstep = jmake_step(jcfg, jG, jD, g_tx, d_tx, jnp.asarray(sphere))
 
         def jax_run():
@@ -335,18 +434,22 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
                 out[key] = flat(jax.device_get(getattr(jnew, key)))
             return out
 
-        replay.load(picks, pools)
+        replay.load(picks, pools, emds, slopes if replay_slopes else ())
         run_a = jax_run()
         if near_tie:
             replay.assert_near_ties(tie_keys or D_PHASE, near_tie)
         pinned_run = port_step(cfg, jstate, sphere, real, z_d, z_g,
-                               pinned_d=run_a["d_params"])
-        replay.load(*pinned_run[1:])
+                               pinned_d=run_a["d_params"], draws=draws)
+        replay.load(*pinned_run[1:4],
+                    pinned_run[4] if replay_slopes else ())
         theirs = jax_run()
         if near_tie:
             replay.assert_near_ties(tie_keys or sorted(replay.table),
                                     near_tie)
-        out = {"free": free, "pinned": pinned_run[0], "jax": theirs}
+        out = {"free": free, "pinned": pinned_run[0], "jax": theirs,
+               "emd_inputs": {k: v for k, v in replay.inputs.items()
+                              if k[0] == "emd"},
+               "emds": emds}
         if jax_one_ulp:
             exact, out["jax_one_ulp"] = real, []
             for eps in (2.0 ** -23, -2.0 ** -23):
@@ -360,13 +463,15 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
             jstate = jstate.replace(g_opt=g_tx.init(jstate.g_params),
                                     d_opt=d_tx.init(jstate.d_params))
             jstep = jmake_step(wcfg, wG, wD, g_tx, d_tx, jnp.asarray(sphere))
-            replay.n_knn = replay.n_pool = 0     # a new trace counts anew
+            # a new trace counts anew
+            replay.n_knn = replay.n_pool = replay.n_emd = replay.n_lrelu = 0
             out["witness"] = jax_run()
         if one_ulp:
             out["one_ulp"] = []
             for eps in (2.0 ** -23, -2.0 ** -23):
                 ulp = port_step(cfg, jstate, sphere, real, z_d,
-                                (z_g * (1 + eps)).astype(np.float32))
+                                (z_g * (1 + eps)).astype(np.float32),
+                                draws=draws)
                 same = (all(np.array_equal(a, b)
                             for a, b in zip(free_run[1], ulp[1]))
                         and all(np.array_equal(a[1], b[1])

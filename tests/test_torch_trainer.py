@@ -131,11 +131,22 @@ class TestState:
         assert not st.d_opt.state and not st.g_opt.state
         assert st.step == 1
 
-    @pytest.mark.parametrize("kw", [dict(gan="wgan"), dict(mix=True),
-                                    dict(n_mix=True)])
+    @pytest.mark.parametrize("kw", [dict(n_mix=True)])
     def test_emd_paths_not_ported(self, kw):
         with pytest.raises(NotImplementedError):
             make_train_step(Config(**TINY, **kw), np.zeros((64, 3)))
+
+    @pytest.mark.parametrize("kw", [dict(gan="wgan"), dict(mix=True)])
+    def test_emd_paths_take_a_step(self, kw):
+        """WGAN-GP (gan=wgan with the default lambda_gp 10) and CutMix
+        build and take one finite step on the CPU."""
+        cfg = Config(**TINY, **kw)
+        st = create_train_state(cfg, device="cpu")
+        step = make_train_step(cfg, np.zeros((cfg.np, 3), np.float32) + 0.1)
+        real = torch.from_numpy(h5.SyntheticDataset(4, cfg.np).data)
+        st, m = step(st, real)
+        assert all(np.isfinite(float(v)) for v in m.values())
+        assert st.step == 1
 
     def test_per_shard_batchnorm_not_ported(self):
         """Per-shard statistic groups wait for the data-parallel slice."""
