@@ -1,13 +1,17 @@
 """Builds the port's CUDA kernels with nvcc into one shared library with a
 plain C interface, and loads it with ctypes.
 
-One nvcc call compiles every `sp_gan_tpu_torch/csrc/*.cu` for sm_90a. No
-PyTorch headers, no CUTLASS and no ninja are involved, so the build takes
-seconds. The library goes to `build/sp_gan_tpu_torch/` at the repository
-root, named after a hash of the sources and flags: a changed source builds
-anew, an unchanged one is loaded as it is. The compile writes to a private
-temporary name first and `os.replace` publishes it, so two processes
-building at once never load a half-written file.
+One nvcc process per `sp_gan_tpu_torch/csrc/*.cu`, all started together,
+compiles each source for sm_90a into an object; one more links the objects
+into the library. No PyTorch headers, no CUTLASS and no ninja are
+involved, so the build takes as long as the slowest source. The library
+goes to `build/sp_gan_tpu_torch/` at the repository root, named after a
+hash of the sources and flags: a changed source builds anew, an unchanged
+one is loaded as it is. The objects go to a private temporary directory
+and the link to a private temporary name, which `os.replace` publishes,
+so two processes building at once never load a half-written file.
+`last_log` keeps ptxas's report (registers, shared memory and spills of
+each kernel) of the last build in this process.
 
 Nothing here runs at import time: the first call of `library()` builds.
 """
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -27,14 +32,17 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "sp_gan_tpu_torch"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v", "-c")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
+NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS     # what the library's hash covers
 
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t (or,
-# for spgan_knn_blocked_chunks, a count, and for spgan_ebt_scratch a count
-# of floats as a long long, RESTYPES)
+# for spgan_knn_blocked_chunks, a count, and for spgan_ebt_scratch and
+# spgan_csr_scratch a count of floats or int32 as a long long, RESTYPES)
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
     "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -67,6 +75,8 @@ SIGNATURES = {
     "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # g, idx, out, scratch, B, S, n, F, g_bf16, stream
     "spgan_scatter_add": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # B, n, S -> int32 of scratch of D, H and M (long long)
+    "spgan_csr_scratch": (_I, _I, _L),
     # d_ee, idx, d_x, scratch, B, N, k, C, ee_bf16, stream
     "spgan_edge_scatter_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # x, y, d1, i1, d2, i2, B, N, M, C, stream
@@ -75,14 +85,16 @@ SIGNATURES = {
     # packed, stream
     "spgan_auction_jacobi": (_P,) * 4 + (_I,) * 4 + (_P, _I, _I, _P),
     # d, asg, rounds, bidders, B, N, M, w, phases, eps (host f32[16]), cap,
-    # stream
-    "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P),
+    # prof, stream
+    "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P, _P),
 }
 
-RESTYPES = {"spgan_ebt_scratch": ctypes.c_longlong}
+RESTYPES = {"spgan_ebt_scratch": ctypes.c_longlong,
+            "spgan_csr_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+last_log = ""
 
 
 def find_nvcc() -> str:
@@ -115,27 +127,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libspgan_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> list:
+    """Runs the commands side by side; returns (command, returncode,
+    stderr) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    return [(c, p.returncode, e) for c, p, e in zip(cmds, procs, errs)]
+
+
 def build() -> Path:
     """Compiles the library unless it exists; returns its path. Raises with
-    nvcc's stderr if the compile fails."""
+    nvcc's stderr if a compile or the link fails."""
+    global last_log
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    work = Path(tempfile.mkdtemp(prefix=f".{out.stem}.", dir=BUILD_DIR))
+    tmp = work / out.name
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
+        srcs = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [work / f"{s.stem}.o" for s in srcs]
+        runs = []
+        for cmds in ([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)]
+                      for s, o in zip(srcs, objs)],
+                     [[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                       *[str(o) for o in objs]]]):
+            runs += _run_all(cmds)
+            for cmd, rc, err in runs:
+                if rc != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
         os.replace(tmp, out)
+        last_log = "".join(err for _, _, err in runs)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

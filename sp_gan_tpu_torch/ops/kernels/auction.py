@@ -43,7 +43,7 @@ launches.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,11 @@ MAX_BLOCK_W = 64
 MAX_PHASES = 16
 MAX_BYTES = 1 << 30         # d per pair; the JAX package's blockgs_hbm limit
 SMEM_LIMIT = 232448         # shared memory a block may use on an H100
-SMEM_STATIC = 1024          # the kernel's static shared memory, rounded up
+SMEM_STATIC = 1024          # kernel O's static shared memory, rounded up
+# kernel E's static shared memory, rounded up: each bidding row's partial
+# (best, index, second) from each of 16 warps, 64 rows, twice (by the
+# round's parity), and the bids
+E_SMEM_STATIC = 26624
 GRAPH_ROUNDS = 32           # block-rounds per CUDA graph of auction_plain
 
 
@@ -199,6 +203,23 @@ def smem_bytes(n: int, m: int, w: int) -> int:
     return 4 * (2 * m + n + n // w)
 
 
+def check_fits(N: int, M: int, block_w: int) -> int:
+    """Raises if kernel E cannot take a pair of N x M: d over 1 GB, or its
+    state over the block's shared memory. Returns the block width w."""
+    if N * M * 4 > MAX_BYTES:
+        raise ValueError(
+            f"kernel E takes N*M*4 <= 1 GB per pair, got N={N}, M={M} "
+            f"({N * M * 4} bytes); the JAX package's XLA auction for larger "
+            "pairs is not ported")
+    w = block_width(N, block_w)
+    smem = smem_bytes(N, M, w)
+    if smem + E_SMEM_STATIC > SMEM_LIMIT:
+        raise ValueError(f"kernel E keeps price, owner [M={M}] and the "
+                         f"inverse [N={N}] in shared memory: {smem} bytes "
+                         f"exceed the block's {SMEM_LIMIT - E_SMEM_STATIC}")
+    return w
+
+
 def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
             theta: float = 8.0, block_w: int = 64, mode: str = "blockgs"
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -219,19 +240,27 @@ def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
     if d.device.type != "cuda":
         raise ValueError(f"auction runs on cuda or cpu, not {d.device}")
     B, N, M = d.shape
-    if N * M * 4 > MAX_BYTES:
-        raise ValueError(
-            f"kernel E takes N*M*4 <= 1 GB per pair, got N={N}, M={M} "
-            f"({N * M * 4} bytes); the JAX package's XLA auction for larger "
-            "pairs is not ported")
-    w = block_width(N, block_w)
-    smem = smem_bytes(N, M, w)
-    if smem + SMEM_STATIC > SMEM_LIMIT:
-        raise ValueError(f"kernel E keeps price, owner [M={M}] and the "
-                         f"inverse [N={N}] in shared memory: {smem} bytes "
-                         f"exceed the block's {SMEM_LIMIT - SMEM_STATIC}")
+    w = check_fits(N, M, block_w)
     if not 1 <= B <= 2 ** 31 - 1:
         raise ValueError(f"B={B} outside 1..2^31-1")
+    out = launch_e(d, eps, iters, phases, theta, w)
+    auction.launches += 1
+    return out
+
+
+auction.launches = 0
+
+
+def launch_e(d: torch.Tensor, eps: float, iters: int, phases: int,
+             theta: float, w: int, prof: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel E's launch on a CUDA d that `auction` has checked, at block
+    width w; `auction` counts it in `auction.launches`. For timing the
+    kernel: `prof`, a [B, 4] int64 CUDA tensor, receives per pair the SM
+    clock cycles its rounds spent in warp 0's loads and columns, its warp
+    merges, the wait for the other warps' scans, and the rest of the round
+    (merge of the partials, resolve, pick)."""
+    B, N, M = d.shape
     d = d.contiguous()
     asg = torch.empty((B, N), dtype=torch.int32, device=d.device)
     rounds = torch.empty((B,), dtype=torch.int32, device=d.device)
@@ -244,10 +273,8 @@ def auction(d: torch.Tensor, eps: float, iters: int, phases: int,
         err = lib.spgan_auction(d.data_ptr(), asg.data_ptr(),
                                 rounds.data_ptr(), bidders.data_ptr(), B,
                                 N, M, w, phases,
-                                eps_p.ctypes.data, iters * (N // w), stream)
+                                eps_p.ctypes.data, iters * (N // w),
+                                None if prof is None else prof.data_ptr(),
+                                stream)
     _build.check(err, "spgan_auction")
-    auction.launches += 1
     return asg, rounds, bidders
-
-
-auction.launches = 0

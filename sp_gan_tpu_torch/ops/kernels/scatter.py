@@ -7,8 +7,9 @@ backward of the neighbor gather (`scatter_rows`) where the JAX package
 calls the Pallas kernel: on CUDA once the gather's one-hot would pass
 1 GiB (`one_hot_bytes`, the rule of `sp_gan_tpu/ops/edge.py:66`); below
 that JAX contracts an XLA one-hot and the port keeps `index_add_`. Kernel
-H runs kernel D's CSR passes without the central term: the sums run in
-ascending source order, no float atomics, bit-identical across launches.
+H runs kernel D's CSR passes without the central term: a stable counting
+sort of the sources by target, then the sums in ascending source order, no
+float atomics, bit-identical across launches.
 `scatter_add` launches it for CUDA tensors and runs `scatter_add_plain`
 (`index_add_`, ascending source order on the CPU) for CPU tensors;
 `scatter_add.launches` counts kernel launches.
@@ -56,6 +57,7 @@ import torch
 from sp_gan_tpu_torch.ops.kernels import _build
 
 MAX_C = 128
+MAX_TARGETS = 1 << 19       # targets a cloud the CSR passes take
 GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -135,13 +137,15 @@ def _launch(name: str, g: torch.Tensor, idx: torch.Tensor, n: int,
     if g.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {g.device}")
     B = g.shape[0]
-    out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
-    # in-degrees, segment starts, fill cursors, sources as filled and
-    # sorted; freeing it on return is safe, since the caching allocator
-    # hands it only to work queued later on this stream
-    scratch = torch.empty(B * (3 * n + 1 + 2 * sources), dtype=torch.int32,
-                          device=g.device)
     lib = _build.library()
+    ints = lib.spgan_csr_scratch(B, n, sources)
+    if ints < 0:
+        raise ValueError(f"{name} takes n <= {MAX_TARGETS} targets, got {n}")
+    out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
+    # histograms, bucket starts, sources placed by bucket and sorted by
+    # target; freeing it on return is safe, since the caching allocator
+    # hands it only to work queued later on this stream
+    scratch = torch.empty(ints, dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(

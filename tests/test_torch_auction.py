@@ -26,7 +26,9 @@ from sp_gan_tpu.ops.pallas.auction import auction_assignment_pallas
 from sp_gan_tpu.ops.voxel import voxel_occupancy as jvoxel
 from sp_gan_tpu_torch.ops import emd
 from sp_gan_tpu_torch.ops.kernels import KERNELS, auction, auction_plain
-from sp_gan_tpu_torch.ops.kernels.auction import block_width, phase_eps
+from sp_gan_tpu_torch.ops.kernels.auction import (E_SMEM_STATIC, SMEM_LIMIT,
+                                                  block_width, check_fits,
+                                                  phase_eps, smem_bytes)
 from sp_gan_tpu_torch.ops.voxel import occupancy_distribution, voxel_occupancy
 
 torch.set_num_threads(2)   # six test workers share the host's cores
@@ -85,6 +87,34 @@ class TestAuctionPlain:
             assert hungarian_gap(d[b:b + 1], want[b:b + 1])[0] \
                 <= 64 * eps + 1e-5
 
+    @pytest.mark.parametrize("kind, mode, eps, iters, phases, block_w", [
+        ("ties", "blockgs", 0.005, 800, 3, 16),
+        ("ties", "blockgs_hbm", 0.005, 50, 1, 64),
+        ("m_not_4", "blockgs", 0.005, 400, 2, 16),
+        ("m_not_4", "blockgs_hbm", 0.002, 3, 3, 8),    # the cap runs out
+    ])
+    def test_hard_inputs_equal_the_pallas_kernel(self, kind, mode, eps, iters,
+                                                 phases, block_w):
+        """The inputs that reach kernel E's edge cases, as chip_smoke.py
+        holds the kernel on them: clouds on a coarse grid (many duplicated
+        points, so exact ties in d and in the bids) and M = N + 2, not a
+        multiple of 4 (the kernel's scalar columns); block widths below
+        64. The plain version equals the Pallas kernel exactly."""
+        if kind == "ties":
+            x1, x2 = (np.round(c * 2) / 2 for c in clouds(13))
+            assert len(np.unique(x1[0], axis=0)) < 32   # of 64 points
+        else:
+            x1, x2 = clouds(14, m=66)
+        d = jax_d(x1.astype(np.float32), x2.astype(np.float32))
+        want = jax_auction(d, eps=eps, iters=iters, phases=phases,
+                           mode=mode, block_w=block_w)
+        asg, rounds, _ = auction_plain(torch.from_numpy(d), eps, iters,
+                                       phases, block_w=block_w)
+        np.testing.assert_array_equal(asg.numpy(), want)
+        cap = iters * 64 // block_w
+        for b in np.flatnonzero(rounds.numpy() < cap):
+            assert len(set(want[b])) == 64, "not a bijection"
+
     def test_uneven_block_width_and_sizes(self):
         """w is halved until it divides N (N=48: 64 -> 16), and M may
         differ from N."""
@@ -136,6 +166,22 @@ class TestAuctionPlain:
         kw = {**dict(eps=0.01, iters=1, phases=1), **bad}
         with pytest.raises(ValueError, match=match):
             auction(d, **kw)
+
+
+@pytest.mark.parametrize("N, M, fits", [
+    (2048, 2048, True), (16384, 16384, True), (4096, 4096, True),
+    (8192, 24000, False),            # state over the block's shared memory
+    (16384, 16385, False)])          # d over 1 GB
+def test_kernel_e_shared_memory_refusal(N, M, fits):
+    """Kernel E's wrapper refuses, before any launch, a pair whose price,
+    owner, inverse and counts (and the kernel's static partials) pass the
+    block's shared memory, or whose d passes 1 GB."""
+    if fits:
+        assert check_fits(N, M, 64) == block_width(N, 64)
+        assert smem_bytes(N, M, 64) + E_SMEM_STATIC <= SMEM_LIMIT
+    else:
+        with pytest.raises(ValueError, match="kernel E"):
+            check_fits(N, M, 64)
 
 
 @pytest.mark.cuda

@@ -393,8 +393,9 @@ class TestBuild:
         (csrc / "a.cu").write_text("// two\n")
         second = _build.build()
         assert second != first and second.exists()
+        # per build one compile for the one source and one link
         calls = (home / "bin" / "nvcc.calls").read_text().split()
-        assert len(calls) == 2
+        assert len(calls) == 2 * 2
         assert sorted(p.name for p in (tmp_path / "build").iterdir()) == \
             sorted([first.name, second.name])
 

@@ -50,6 +50,37 @@ class TestKernelHPlain:
         assert ours.shape == (B, n, F) and ours.dtype == torch.float32
         np.testing.assert_allclose(ours.numpy(), theirs, rtol=0, atol=1e-6)
 
+    @pytest.mark.parametrize("F, dtype", [
+        (3, "float32"), (3, "bfloat16"), (64, "float32"), (64, "bfloat16"),
+        (128, "float32"), (128, "bfloat16")])
+    def test_hard_idx_matches_pallas(self, F, dtype):
+        """The inputs that reach kernel H's edge cases, as chip_smoke.py
+        holds the kernel on them: a hub (half of cloud 0's sources on one
+        target), targets n/2.. with no source, and every 7th entry out of
+        range (-1, n, 2^31 - 1, -2^31), which the Pallas kernel's one-hot
+        drops. The plain version, on the input with those rows zeroed and
+        sent to target 0 (a +0.0 changes no sum), equals it exactly: the
+        rows are small integers, so every f32 sum is exact in any order."""
+        B, S, n = 2, 256, 64
+        rng = np.random.default_rng(5)
+        g = rng.integers(-8, 9, (B, S, F)).astype(np.float32)
+        idx = rng.integers(0, n // 2, (B, S)).astype(np.int32)
+        idx[0, :S // 2] = 3
+        bad = np.array([-1, n, 2 ** 31 - 1, -2 ** 31], np.int32)
+        idx[:, ::7] = bad[np.arange(idx[:, ::7].size) % 4].reshape(B, -1)
+        oob = (idx < 0) | (idx >= n)
+        gt = torch.from_numpy(g).to(getattr(torch, dtype))
+        ours = scatter_add_plain(gt.masked_fill(torch.from_numpy(oob)[..., None],
+                                                0),
+                                 torch.from_numpy(np.where(oob, 0, idx)), n)
+        fn = jax.jit(lambda a, b: jscatter.scatter_add_pallas(
+            a, b, n, t_tile=32, s_tile=64))
+        with pltpu.force_tpu_interpret_mode():
+            theirs = np.asarray(fn(jnp.asarray(g, getattr(jnp, dtype)),
+                                   jnp.asarray(idx)))
+        assert (ours[:, n // 2:] == 0).all() and ours[0, 3].abs().max() > 0
+        np.testing.assert_array_equal(ours.numpy(), theirs)
+
     def test_bf16_rows_summed_in_f32(self):
         g, idx = _inputs(2, 256, 16, 32, seed=1)
         gb = torch.from_numpy(g).to(torch.bfloat16)
