@@ -53,8 +53,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               --fused_train steps (per step B twice, I twice, C twice, J,
               K, L and D once) and 3 + 10
               --fused_dphase steps (B twice, I, C and D once), each
-              profiled once; small fused steps on the card against the
-              CPU.
+              profiled once (the --fused_train profile names J's and L's
+              share of the step); small fused steps on the card against
+              the CPU.
 5c. regularizers - 3 + 10 steps at Config() width for each of
               REGULARIZERS: --fused_train with SPGAN_EDGE_BWD=pallas (M
               once a step, D never), --gan wgan --lambda_gp 10 with and
@@ -96,7 +97,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
-              I-L and C's bf16 mode at the --fused_train step's shape; M,
+              I-L and C's bf16 mode at the --fused_train step's shape (J
+              and L also split by launch, from the profiled --fused_train
+              step: tile pass, d_u product, weight-gradient products,
+              reductions); M,
               N and O at the shapes of phase 3b; kernel H pass by pass
               (the profiler's device time of each of its kernels).
 
@@ -410,9 +414,27 @@ def bound(flops: float, nbytes: float, rate: float = F32_FLOPS):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def profile_call(fn, label: str) -> dict:
+# the launches of kernels J and L in bf16 mode (csrc/edgeblock_train_tc.cu)
+# by the part of the entry point each runs
+JL_PARTS = {"tile": "tile pass", "du_gemm": "d_u product",
+            "round": "bf16 rounding", "wg_gemm": "weight-gradient products",
+            "sum": "reductions"}
+
+
+def jl_part(name: str):
+    """"<kernel>: <part>" of a kernel's launch if it is one of J's or L's in
+    bf16 mode, else None."""
+    m = re.search(r"\btc_(tile|du_gemm|round|wg_gemm|sum)_kernel(<(\d))?",
+                  name)
+    if not m:
+        return None
+    return f"{'L' if m.group(3) == '3' else 'J'}: {JL_PARTS[m.group(1)]}"
+
+
+def profile_call(fn, label: str, group=None) -> dict:
     """Device time by kernel of one call of `fn` under torch.profiler, and
-    the device's idle share of its wall time."""
+    the device's idle share of its wall time; with `group` (a kernel's
+    name -> a label or None), also the device time of each label."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -431,10 +453,19 @@ def profile_call(fn, label: str) -> dict:
     for name, count, ms in rows[:12]:
         log(f"    {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} "
             f"{name[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms,
-            "top": [{"name": n[:120], "count": c, "ms": ms}
-                    for n, c, ms in rows[:12]]}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms,
+           "top": [{"name": n[:120], "count": c, "ms": ms}
+                   for n, c, ms in rows[:12]]}
+    if group is not None:
+        res["groups"] = {}
+        for name, _, ms in rows:
+            g = group(name)
+            if g is not None:
+                res["groups"][g] = res["groups"].get(g, 0.0) + ms
+        log("    by group: " + ", ".join(
+            f"{g} {ms:.3f} ms" for g, ms in res["groups"].items()))
+    return res
 
 
 def check_scatter(idx, gen) -> dict:
@@ -777,9 +808,9 @@ def check_fused_block_autograd(block, x, k, gen, draws: int = 24) -> dict:
 def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     """Kernels I-L and C's bf16 mode against their plain versions at the
     default training shape (bf16 edges: relative L2 within 5e-3; measured
-    on the H100 3e-7 for I, 2.5e-5 for C, 1.4e-4 to 4.2e-4 for J-L, where
+    on the H100 3e-7 for I, 2.5e-5 for C, 1.8e-4 to 4.4e-4 for J-L, where
     the two sum orders straddle a bf16 rounding point and an operand moves
-    by a bf16 ulp) and at a small f32 shape (1e-5; measured at most
+    by a bf16 ulp; J and L sum on the tensor cores) and at a small f32 shape (1e-5; measured at most
     6.4e-7), kernel B's concat bf16 form, the fused block under autograd
     against a plain oracle, then 3 + 10 --fused_train and --fused_dphase
     steps at Config() defaults with their launch counts and one profiled
@@ -805,8 +836,23 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     tr, res["fused_train"] = timed_training(
         Config(seed=seed, fused_train=True), TIMED_STEPS, WARMUP_STEPS,
         PER_STEP_FUSED, "--fused_train step", FUSED_STILL)
-    res["fused_train"]["profile"] = profile_call(
-        lambda: tr.time_steps(1), "--fused_train step")
+    # J's and L's launches in the profiled step (one call of each), by part
+    prof = res["fused_train"]["profile"] = profile_call(
+        lambda: tr.time_steps(1), "--fused_train step", jl_part)
+    prof["jl_split_ms"] = {}
+    for key, ms in prof["groups"].items():
+        kern, part = key.split(": ")
+        prof["jl_split_ms"].setdefault(kern, {})[part] = ms
+    prof["jl_share"] = {kern: sum(parts.values()) / prof["wall_ms"]
+                        for kern, parts in prof["jl_split_ms"].items()}
+    log("  kernels J and L's share of the profiled --fused_train step: "
+        + ", ".join(
+            f"{kern} {sum(parts.values()):.3f} ms ({100 * share:.1f}% of "
+            f"{prof['wall_ms']:.3f} ms wall, "
+            f"{100 * sum(parts.values()) / prof['device_busy_ms']:.1f}% of "
+            "device busy)"
+            for (kern, parts), share in zip(prof["jl_split_ms"].items(),
+                                            prof["jl_share"].values())))
     del tr
     tr, res["fused_dphase"] = timed_training(
         Config(seed=seed, fused_dphase=True), TIMED_STEPS, WARMUP_STEPS,
@@ -2392,29 +2438,30 @@ def main() -> None:
         shape=[Bh, Sh, Fh], n=n_h, path="N=16384 approx training"))
     # kernels I-L and C's bf16 mode at the default --fused_train step's
     # EdgeConv2: ee [24, 2048, 10, 128] bf16, F2 = 64, F = 128; the matmul
-    # work at the bf16 tensor-core peak, each input read and each output
-    # written once (the JAX function's: d_u is J's own scratch output)
+    # work each port kernel computes at the bf16 tensor-core peak, each
+    # input read and each output written once (the f32 d_u is J's output
+    # and K's and L's input)
     ee_f = fused_in["ee"]
     Bt, Nt, kt_, c2 = ee_f.shape
     f2, f = fused_in["w1"].shape[1], fused_in["w2"].shape[1]
     rows_f = Bt * Nt * kt_
     c1 = c2 // 2
     # multiply-adds per edge row: the chain (w1, w2, wx); conv_out (C);
-    # d_u = d_out @ wout[j]^T and d_wout (J); d_u, d_y1 and d_w2 (K); d_u,
-    # d_y1, d_diff, d_w1, d_full and d_wx (L)
+    # d_u = d_out @ wout[j]^T and d_wout (J); d_y1 and d_w2 (K); d_y1,
+    # d_diff, d_w1, d_full and d_wx (L)
     chain = c1 * f2 + f2 * f + c2 * f
     macs = {"edge_train_stats2": c1 * f2 + f2 * f,
             "edge_tail": chain + f * f,
             "edge_train_bwd1": chain + 2 * f * f,
-            "edge_train_bwd2": chain + f * f + 2 * f2 * f,
-            "edge_train_bwd3": chain + f * f + f2 * f + 2 * c1 * f2
-            + 2 * c2 * f}
+            "edge_train_bwd2": chain + 2 * f2 * f,
+            "edge_train_bwd3": chain + f2 * f + 2 * c1 * f2 + 2 * c2 * f}
     ee_bytes, dout_bytes = ee_f.numel() * 2, Bt * Nt * f * 4
+    du_bytes = rows_f * f * 4
     moved = {"edge_train_stats2": ee_bytes // 2,
              "edge_tail": ee_bytes + dout_bytes,
-             "edge_train_bwd1": ee_bytes + dout_bytes,
-             "edge_train_bwd2": ee_bytes + dout_bytes,
-             "edge_train_bwd3": 2 * ee_bytes + dout_bytes}
+             "edge_train_bwd1": ee_bytes + dout_bytes + du_bytes,
+             "edge_train_bwd2": ee_bytes + du_bytes,
+             "edge_train_bwd3": 2 * ee_bytes + du_bytes}
     replaces = {
         "edge_train_stats2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:152 "
                              "(_stats2_pallas, _stats2_kernel :111)",
@@ -2431,10 +2478,16 @@ def main() -> None:
                            "_bwd_pass3_kernel :328)"}
     source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train.cu" for n in macs}
     source["edge_tail"] = "sp_gan_tpu_torch/csrc/edgeblock.cu"
+    for name in ("edge_train_bwd1", "edge_train_bwd3"):   # bf16 mode
+        source[name] = "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu"
     ft_launches = fused["fused_train"]["launches"]
     for name, (fn, plain, fargs) in train_kernel_calls(fused_in).items():
         f_bound, f_by = bound(2 * macs[name] * rows_f, moved[name],
                               BF16_FLOPS)
+        # J and L: the device ms of each part of their call in the profiled
+        # --fused_train step, by launch
+        split = fused["fused_train"]["profile"]["jl_split_ms"].get(
+            {"edge_train_bwd1": "J", "edge_train_bwd3": "L"}.get(name))
         rows.append(dict(
             name=name, route="cuda", source=source[name],
             replaces=replaces[name], mode="bf16 edges",
@@ -2447,7 +2500,8 @@ def main() -> None:
             ms=cuda_ms(lambda: fn(*fargs), 10),
             plain_ms=cuda_ms(lambda: plain(*fargs), 3),
             bound_ms=f_bound, bound_by=f_by, library_ms=None,
-            shape=list(ee_f.shape), path="--fused_train step"))
+            shape=list(ee_f.shape), path="--fused_train step",
+            **({"split_ms": split} if split else {})))
     # kernel M at the --fused_train step's EdgeConv2: d_ee [24, 2048, 10,
     # 128] bf16; index_add_ of the neighbor half alone is a partial
     # yardstick (it leaves out the central term)

@@ -45,18 +45,27 @@
 //  - reduce_kernel: the partials summed in slice (or block) order.
 // No float atomics: two launches on one card give bit-identical results.
 //
-// What bounds it on an H100: operations. At the default training step (ee
-// [24, 2048, 10, 128] bf16, F2 = 64, F = 128; 491,520 edge rows) I is 12.1
-// GFLOP, J and K 60.4 and L 92.6 (0.02 to 0.09 ms at the bf16 tensor-core
-// peak of 989 TFLOP/s, 0.18 to 1.38 ms at the 67 TFLOP/s f32 rate), against
-// 126 to 277 MB moved (0.04 to 0.08 ms at 3.35 TB/s). These kernels run the
-// products as f32 FMAs on operands rounded to bf16, no tensor cores, and
-// round-trip the chain's intermediates that feed the weight gradients and
-// d_u through device memory: a first design that is right, not a fast one.
+// bf16 mode of J and L: edgeblock_train_tc.cu (tensor cores); the entry
+// points below hand a bf16 ee to it wherever its shared-memory layout fits
+// (ebt_tc_fits), else run the FMA path here. The rest here is I and K in
+// both modes and J and L in f32 mode.
+//
+// What bounds it on an H100: operations at the f32 rate, bytes at the bf16
+// tensor-core peak. At the default training step (ee [24, 2048, 10, 128]
+// bf16, F2 = 64, F = 128; 491,520 edge rows) I is 12.1 GFLOP, K 44.3, J
+// 60.4 and L 76.5 (0.01 to 0.08 ms at the bf16 tensor-core peak of 989
+// TFLOP/s, 0.18 to 1.14 ms at the 67 TFLOP/s f32 rate), against 63 to 503
+// MB moved, the f32 d_u that J writes and K and L read among them (0.02 to
+// 0.15 ms at 3.35 TB/s). These kernels run the products as f32 FMAs (in
+// bf16 mode on operands rounded to bf16), no tensor cores, and round-trip
+// the chain's intermediates that feed the weight gradients and d_u through
+// device memory: a first design that is right, not a fast one.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "edgeblock_train_tc.cuh"
 
 namespace {
 
@@ -542,12 +551,6 @@ int sm_count(int* sms) {
   return (int)err;
 }
 
-bool widths_ok(int B, int N, int C, int F2, int F, int k) {
-  return B > 0 && N > 0 && C > 0 && C % 4 == 0 && k >= 1 && k <= 32 &&
-         F2 > 0 && F2 % 4 == 0 && kThreads % F2 == 0 &&
-         (F == 64 || F == 128);
-}
-
 template <int PASS, int KM>
 void* tile_fn() {
   return reinterpret_cast<void*>(train_tile_kernel<PASS, KM>);
@@ -655,7 +658,7 @@ struct Scratch {
 
 int scratch_plan(int pass, int B, int N, int C, int F2, int F, int k,
                  Scratch* sc, TilePlan* tp) {
-  if (!widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
+  if (!ebt_widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   int err = sm_count(&sms);
   if (err) return err;
@@ -735,7 +738,12 @@ extern "C" long long spgan_ebt_scratch(int pass, int B, int N, int C, int F2,
   Scratch sc;
   TilePlan tp;
   const int err = scratch_plan(pass, B, N, C, F2, F, k, &sc, &tp);
-  return err ? -(long long)err : sc.total;
+  if (err) return -(long long)err;
+  if ((pass != kBwd1 && pass != kBwd3) || !ebt_tc_fits(pass, C, F2, F, k))
+    return sc.total;
+  // J and L: enough for either mode
+  const long long tc = ebt_tc_scratch(pass, B, N, C, F2, F, k);
+  return tc < 0 ? tc : tc > sc.total ? tc : sc.total;
 }
 
 // Kernel I. ee [B, N, k, 2C] (bf16 when `bf16`, else f32); w1 [C, F2]; a1
@@ -773,6 +781,16 @@ extern "C" int spgan_ebt_bwd1(const void* ee, const void* dout,
                               void* scratch, int B, int N, int C, int F2,
                               int F, int k, float neg, int bf16,
                               void* stream) {
+  if (bf16 && ebt_tc_fits(kBwd1, C, F2, F, k))
+    return ebt_tc_bwd1(
+        ee, static_cast<const float*>(dout), static_cast<const float*>(w1),
+        static_cast<const float*>(a1), static_cast<const float*>(w2),
+        static_cast<const float*>(a2), static_cast<const float*>(wx),
+        static_cast<const float*>(ax), static_cast<const float*>(gb2x),
+        static_cast<const float*>(wout), static_cast<float*>(sums),
+        static_cast<float*>(dwout), static_cast<float*>(dbout),
+        static_cast<float*>(du), static_cast<float*>(scratch), B, N, C, F2,
+        F, k, neg, static_cast<cudaStream_t>(stream));
   Scratch sc;
   TilePlan tp;
   int err = scratch_plan(kBwd1, B, N, C, F2, F, k, &sc, &tp);
@@ -862,6 +880,16 @@ extern "C" int spgan_ebt_bwd3(const void* ee, const void* du, const void* w1,
                               void* dw1, void* dwx, void* scratch, int B,
                               int N, int C, int F2, int F, int k, float neg,
                               int bf16, void* stream) {
+  if (bf16 && ebt_tc_fits(kBwd3, C, F2, F, k))
+    return ebt_tc_bwd3(
+        ee, static_cast<const float*>(du), static_cast<const float*>(w1),
+        static_cast<const float*>(a1), static_cast<const float*>(w2),
+        static_cast<const float*>(a2), static_cast<const float*>(wx),
+        static_cast<const float*>(ax), static_cast<const float*>(gb2x),
+        static_cast<const float*>(s2), static_cast<const float*>(gb1),
+        static_cast<const float*>(s1), dee, static_cast<float*>(dw1),
+        static_cast<float*>(dwx), static_cast<float*>(scratch), B, N, C, F2,
+        F, k, neg, static_cast<cudaStream_t>(stream));
   Scratch sc;
   TilePlan tp;
   int err = scratch_plan(kBwd3, B, N, C, F2, F, k, &sc, &tp);

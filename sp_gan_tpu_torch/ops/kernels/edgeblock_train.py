@@ -24,7 +24,11 @@ wx [2C, F], wout [k, F, F], the affines a1 [2, F2], a2 and ax [2, F] (scale
 row, shift row), gb2x [4, F] (BN2 and BNx gamma, beta) and gb1 [2, F2].
 
 On an H100 the four are bound by operations (the CUDA source has the
-counts and the design). Each wrapper launches its kernel for CUDA tensors
+counts and the design). In bf16 mode J and L run their products on the
+tensor cores (`csrc/edgeblock_train_tc.cu`) wherever the block's weights
+fit in shared memory (C <= 192 at F = 128, F2 = 64, k = 10); I, K, the
+f32 mode and wider blocks run them as f32 FMAs. Each wrapper launches its
+kernel for CUDA tensors
 and runs its plain PyTorch version (`*_plain`, the same arithmetic) for
 CPU tensors; `fn.launches` counts kernel launches. The CUDA kernels take
 C a multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128} and
@@ -224,7 +228,10 @@ def _launch(pass_: int, name: str, ee, k, neg, widths, fn_args,
         # hands it only to work queued later on this stream
         scratch = torch.empty(n, dtype=torch.float32, device=ee.device)
         stream = torch.cuda.current_stream().cuda_stream
+        # the kernels read 16 bytes at a time: a view that starts off that
+        # boundary is copied
         args = [t.contiguous() for t in fn_args]
+        args = [t.clone() if t.data_ptr() % 16 else t for t in args]
         err = getattr(lib, f"spgan_ebt_{name}")(
             *[t.data_ptr() for t in args + outs], scratch.data_ptr(), B, N,
             C, F2, F, k, float(neg), int(ee.dtype == torch.bfloat16), stream)

@@ -46,11 +46,11 @@ def rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def block(seed: int) -> layers.EdgeBlock:
+def block(seed: int, c: int = C, f: int = F, k: int = K) -> layers.EdgeBlock:
     """A port EdgeBlock with every parameter drawn from `seed`, the
     BatchNorm gammas and betas away from 1 and 0."""
     rng = np.random.default_rng(seed)
-    blk = layers.EdgeBlock(C, F, K)
+    blk = layers.EdgeBlock(c, f, k)
     for m in blk.modules():
         if hasattr(m, "init_weights"):
             m.init_weights(rng)
@@ -282,6 +282,84 @@ def test_wrapper_refuses_bad_inputs(setup):
                                p["conv_w2.kernel"], K)
 
 
+# the default training step's EdgeConv2 widths (C 64, F2 64, F 128, k 10)
+# at a small B and N
+WC, WF, WK, WB, WN = 64, 128, 10, 2, 64
+
+
+def train_inputs(blk, ee: torch.Tensor, d_out: torch.Tensor, k: int):
+    """The f32 operands kernels J and L take at this block and edge tensor:
+    the weights and the affines of the port's own batch statistics."""
+    p = {n: t.detach() for n, t in tebt.block_params(blk).items()}
+    stats = tebt.edge_block_train_stats(p, ee, k)
+    a1, a2, ax, gb2x, gb1 = tebt._fold_all(p, stats, 1e-5)
+    w1, w2, wx, wout = tebt._weights(p)
+    return dict(ee=ee, d_out=d_out, w1=w1, a1=a1, w2=w2, a2=a2, wx=wx,
+                ax=ax, gb2x=gb2x, gb1=gb1, wout=wout, k=k)
+
+
+def plain_j_l(i: dict) -> dict:
+    """Kernels J and L's plain versions, K's between them for s1."""
+    chain = (i["w1"], i["a1"], i["w2"], i["a2"], i["wx"], i["ax"])
+    sums, d_wout, d_bout, d_u = kebt.edge_train_bwd1_plain(
+        i["ee"], i["d_out"], *chain, i["gb2x"], i["wout"], i["k"])
+    s1 = kebt.edge_train_bwd2_plain(i["ee"], d_u, *chain, i["gb2x"], sums,
+                                    i["gb1"], i["k"])[0]
+    d_ee, d_w1, d_wx = kebt.edge_train_bwd3_plain(
+        i["ee"], d_u, *chain, i["gb2x"], sums, i["gb1"], s1, i["k"])
+    return dict(sums=sums, d_wout=d_wout, d_bout=d_bout, d_ee=d_ee.float(),
+                d_w1=d_w1, d_wx=d_wx)
+
+
+def test_plain_j_l_match_jax_at_full_width():
+    """Kernels J and L's plain versions (what the card holds the kernels
+    to) against JAX backward passes 1 and 3 in interpret mode, at the
+    default step's widths with bf16 edges: by the file's bf16 yardstick,
+    each output of J (the BN2 and BNx sums, d_wout, d_bout) and of L
+    (d_ee, d_w1, d_wx) no farther from JAX's float32 result than 1.1 times
+    JAX's bf16 one, plus 1e-6."""
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.standard_normal((WB, WN, WC)).astype(np.float32))
+    ee = np.array(j_edge_features(x, WK, idx=j_knn(x, WK)))
+    cot = rng.standard_normal((WB, WN, WF)).astype(np.float32)
+    blk = block(5, WC, WF, WK)
+    params, _ = trees(blk)
+    theirs = {}
+    for bf16 in (False, True):
+        e = jnp.asarray(ee).astype(jnp.bfloat16 if bf16 else jnp.float32)
+        with pltpu.force_tpu_interpret_mode():
+            stats = jax.jit(lambda p, e: jebt.edge_block_train_stats(
+                p, e, WK))(params, e)
+            d, d_ee = jebt.edge_block_train_backward(
+                params, e, stats, jnp.asarray(cot), WK)
+        theirs[bf16] = {
+            "sums": np.stack([d["bn_w2"]["bias"], d["bn_w2"]["scale"],
+                              d["bn_x"]["bias"], d["bn_x"]["scale"]]),
+            "d_wout": d["out_kernel"], "d_bout": d["out_bias"],
+            "d_ee": d_ee.astype(jnp.float32),
+            "d_w1": d["conv_w1"]["kernel"], "d_wx": d["conv_x"]["kernel"]}
+    ours = plain_j_l(train_inputs(
+        blk, torch.from_numpy(ee).to(torch.bfloat16),
+        torch.from_numpy(cot), WK))
+    for name, t in ours.items():
+        exact = np.asarray(theirs[False][name], np.float32)
+        assert rel(t.numpy(), exact) <= BF16_FACTOR * rel(
+            np.asarray(theirs[True][name], np.float32), exact) + 1e-6, name
+
+
+# bf16 cases of J and L on the card: (C, F2, F, k, B, N)
+BF16_CASES = {
+    "default widths": (64, 64, 128, 10, 2, 256),
+    "k 20": (64, 64, 128, 20, 2, 128),
+    "k 7": (64, 64, 128, 7, 2, 128),
+    "k 32": (64, 64, 128, 32, 1, 64),
+    "F 64": (64, 32, 64, 10, 2, 256),
+    "ragged last tile": (64, 64, 128, 10, 2, 125),
+    "zero padding": (12, 8, 64, 10, 2, 128),
+    "too wide for the tensor cores' layout": (256, 64, 128, 10, 1, 64),
+}
+
+
 @pytest.mark.cuda
 class TestOnCard:
     def test_kernels_match_plain_versions(self):
@@ -323,3 +401,41 @@ class TestOnCard:
                 assert torch.equal(x, y), name
                 torch.testing.assert_close(
                     x, z, rtol=0, atol=1e-4 * float(z.abs().max()))
+
+    @pytest.mark.parametrize("case", list(BF16_CASES))
+    def test_bf16_j_l_match_plain_versions(self, case):
+        """Kernels J and L in bf16 mode (the tensor cores) against their
+        plain versions on the card: each output within 5e-3 relative L2
+        (the sum orders differ, and where they straddle a bf16 rounding
+        point an operand moves by a bf16 ulp), and bit-identical over two
+        launches. The cases take the default step's widths, k = 20, 7
+        and 32 (the generic template, k bounded by 32), F = 64, a
+        point count that leaves each kernel a ragged last tile, C and F2
+        that the kernels pad with zeros, and a C whose weights do not fit
+        in shared memory (the FMA path in bf16 mode)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        Cc, F2, Fc, k, Bc, Nc = BF16_CASES[case]
+        g = torch.Generator(device="cuda").manual_seed(1)
+        r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+        ee = r(Bc, Nc, k, 2 * Cc).to(torch.bfloat16)
+        aff = lambda n: torch.stack([1 + 0.1 * r(n), 0.1 * r(n)])
+        chain = (r(Cc, F2) / 8, aff(F2), r(F2, Fc) / 8, aff(Fc),
+                 r(2 * Cc, Fc) / 11, aff(Fc))
+        gb2x, gb1 = torch.cat([aff(Fc), aff(Fc)]), aff(F2)
+        j_args = (ee, r(Bc, Nc, Fc), *chain, gb2x, r(k, Fc, Fc) / 36, k)
+        sums, _, _, d_u = j_ref = kebt.edge_train_bwd1_plain(*j_args)
+        s1 = kebt.edge_train_bwd2_plain(ee, d_u, *chain, gb2x, sums, gb1,
+                                        k)[0]
+        l_args = (ee, d_u, *chain, gb2x, sums, gb1, s1, k)
+        l_ref = kebt.edge_train_bwd3_plain(*l_args)
+        for tag, fn, args, ref in (
+                ("J", kebt.edge_train_bwd1, j_args, j_ref),
+                ("L", kebt.edge_train_bwd3, l_args, l_ref)):
+            out, again = fn(*args), fn(*args)
+            for n, (t, t2, z) in enumerate(zip(out, again, ref)):
+                assert torch.equal(t, t2), f"{case}: {tag}[{n}]"
+                t, z = t.float(), z.float()
+                err = float((t - z).norm() / z.norm())
+                assert err <= 5e-3, f"{case}: {tag}[{n}] {err}"
