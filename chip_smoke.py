@@ -46,16 +46,17 @@ Phases, in order; any failure raises and the script exits nonzero:
               sweep and backward sweeps) and kernel C's bf16 mode against
               their plain versions at the default step's EdgeConv2 (bf16
               edges [24, 2048, 10, 128]) and at a small f32 shape, I-L
-              bit-identical over two launches; kernel B's concat bf16 form;
+              and C's bf16 mode bit-identical over two launches; kernel
+              B's concat bf16 form;
               the fused block under autograd against a plain autograd
               oracle on 24 draws, each held against the oracle on kernels
               J-L's own leaky ReLU slopes, the slope flips counted; 3 + 10
               --fused_train steps (per step B twice, I twice, C twice, J,
               K, L and D once) and 3 + 10
               --fused_dphase steps (B twice, I, C and D once), each
-              profiled once (the --fused_train profile names J's and L's
-              share of the step); small fused steps on the card against
-              the CPU.
+              profiled once (the --fused_train profile names the share of
+              the step of J, K, L and C on the tensor cores, by part);
+              small fused steps on the card against the CPU.
 5c. regularizers - 3 + 10 steps at Config() width for each of
               REGULARIZERS: --fused_train with SPGAN_EDGE_BWD=pallas (M
               once a step, D never), --gan wgan --lambda_gp 10 with and
@@ -97,10 +98,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
-              I-L and C's bf16 mode at the --fused_train step's shape (J
-              and L also split by launch, from the profiled --fused_train
-              step: tile pass, d_u product, weight-gradient products,
-              reductions); M,
+              I-L and C's bf16 mode at the --fused_train step's shape (J,
+              K, L and C also split by launch, from the profiled
+              --fused_train step: tile pass, d_u product, wout's bf16
+              pair, weight-gradient products, contraction, reductions); M,
               N and O at the shapes of phase 3b; kernel H pass by pass
               (the profiler's device time of each of its kernels).
 
@@ -414,21 +415,27 @@ def bound(flops: float, nbytes: float, rate: float = F32_FLOPS):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-# the launches of kernels J and L in bf16 mode (csrc/edgeblock_train_tc.cu)
-# by the part of the entry point each runs
-JL_PARTS = {"tile": "tile pass", "du_gemm": "d_u product",
-            "round": "bf16 rounding", "wg_gemm": "weight-gradient products",
-            "sum": "reductions"}
+# the launches of kernels J, K, L and C in bf16 mode
+# (csrc/edgeblock_train_tc.cu) by the part of the entry point each runs;
+# the tile, weight-gradient and sum kernels name their kernel by the pass
+# number of their first template argument
+TC_PARTS = {"tile": "tile pass", "du_gemm": "d_u product",
+            "round": "bf16 rounding", "split": "wout's bf16 pair",
+            "wg_gemm": "weight-gradient products",
+            "tail_gemm": "contraction with wout", "sum": "reductions"}
+TC_PASSES = {"1": "J", "2": "K", "3": "L", "4": "C"}
+TC_OWN = {"du_gemm": "J", "round": "J", "split": "C", "tail_gemm": "C"}
 
 
-def jl_part(name: str):
-    """"<kernel>: <part>" of a kernel's launch if it is one of J's or L's in
-    bf16 mode, else None."""
-    m = re.search(r"\btc_(tile|du_gemm|round|wg_gemm|sum)_kernel(<(\d))?",
-                  name)
+def tc_part(name: str):
+    """"<kernel>: <part>" of a kernel's launch if it is one of J's, K's, L's
+    or C's in bf16 mode, else None."""
+    m = re.search(r"\btc_(tile|du_gemm|round|split|wg_gemm|tail_gemm|sum)"
+                  r"_kernel(<(\d+))?", name)
     if not m:
         return None
-    return f"{'L' if m.group(3) == '3' else 'J'}: {JL_PARTS[m.group(1)]}"
+    part = m.group(1)
+    return f"{TC_OWN.get(part) or TC_PASSES[m.group(3)]}: {TC_PARTS[part]}"
 
 
 def profile_call(fn, label: str, group=None) -> dict:
@@ -618,10 +625,36 @@ def train_kernel_calls(a: dict) -> dict:
     }
 
 
+# Kernel C's contraction in bf16 mode (out - bout) against its plain
+# version's, in relative L2. wout as a bf16 pair keeps about 16 bits;
+# rounded to one bf16 it puts about 2^-9 on each term, which the 5e-3 of
+# the other bf16 outputs would not see.
+TAIL_PAIR_TOL = 5e-4
+
+
+def check_wout_pair(a: dict, out, ref) -> dict:
+    """Kernel C's bf16 contraction within TAIL_PAIR_TOL of its plain
+    version's, and the control, the plain version with wout rounded to one
+    bf16, beyond it: the limit tells the pair from a single bf16."""
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail_plain
+    chain = (a["w1"], a["a1"], a["w2"], a["a2"], a["wx"], a["ax"])
+    bout, ref = a["bout"], ref - a["bout"]
+    single = edge_tail_plain(a["ee"], *chain, a["wout"].bfloat16().float(),
+                             bout, a["k"])
+    rel = lambda t: ((t - bout - ref).norm() / ref.norm()).item()
+    res = {"rel_l2": rel(out), "single_bf16_rel_l2": rel(single),
+           "limit": TAIL_PAIR_TOL}
+    log(f"  edge_tail contraction (wout as a bf16 pair): {res}")
+    if not res["rel_l2"] <= TAIL_PAIR_TOL < res["single_bf16_rel_l2"]:
+        raise AssertionError(f"edge_tail: wout pair {res}")
+    return res
+
+
 def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
     """I-L and kernel C against their plain versions on the same inputs
-    (TF32 off); I-L bit-identical over two launches (fixed-order sums, no
-    float atomics). See `hold`."""
+    (TF32 off); I-L, and C in bf16 mode, bit-identical over two launches
+    (fixed-order sums, no float atomics), C's bf16 contraction also by
+    `check_wout_pair`. See `hold`."""
     import torch
     res = {}
     for name, (fn, plain, args) in train_kernel_calls(a).items():
@@ -629,9 +662,11 @@ def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
         torch.cuda.synchronize()
         ref = plain(*args)
         as_list = lambda t: [t] if torch.is_tensor(t) else list(t)
+        twice = name != "edge_tail" or a["ee"].dtype == torch.bfloat16
         res[name] = hold(f"{name}[{label}]", as_list(out), as_list(ref),
-                         l2_tol, None if name == "edge_tail"
-                         else as_list(again))
+                         l2_tol, as_list(again) if twice else None)
+        if name == "edge_tail" and a["ee"].dtype == torch.bfloat16:
+            res["wout_pair"] = check_wout_pair(a, out, ref)
     return res
 
 
@@ -808,13 +843,15 @@ def check_fused_block_autograd(block, x, k, gen, draws: int = 24) -> dict:
 def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     """Kernels I-L and C's bf16 mode against their plain versions at the
     default training shape (bf16 edges: relative L2 within 5e-3; measured
-    on the H100 3e-7 for I, 2.5e-5 for C, 1.8e-4 to 4.4e-4 for J-L, where
+    on the H100 3e-7 for I, 4.4e-5 for C, 1.8e-4 to 6.1e-4 for J-L, where
     the two sum orders straddle a bf16 rounding point and an operand moves
-    by a bf16 ulp; J and L sum on the tensor cores) and at a small f32 shape (1e-5; measured at most
-    6.4e-7), kernel B's concat bf16 form, the fused block under autograd
-    against a plain oracle, then 3 + 10 --fused_train and --fused_dphase
-    steps at Config() defaults with their launch counts and one profiled
-    step each, and small fused steps on the card against the CPU.
+    by a bf16 ulp; J, K, L and C sum on the tensor cores; C's contraction
+    within 5e-4, which wout rounded to one bf16 would miss) and at a small
+    f32 shape (1e-5; measured at most 6.4e-7), kernel B's concat bf16
+    form, the fused block under autograd against a plain oracle, then 3 +
+    10 --fused_train and --fused_dphase steps at Config() defaults with
+    their launch counts and one profiled step each, and small fused steps
+    on the card against the CPU.
     Returns the readings and the default-shape inputs (for the timings)."""
     import torch
     from sp_gan_tpu_torch.config import Config
@@ -836,23 +873,24 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     tr, res["fused_train"] = timed_training(
         Config(seed=seed, fused_train=True), TIMED_STEPS, WARMUP_STEPS,
         PER_STEP_FUSED, "--fused_train step", FUSED_STILL)
-    # J's and L's launches in the profiled step (one call of each), by part
+    # the tensor-core launches of J, K, L (one call each) and C (two calls)
+    # in the profiled step, by part
     prof = res["fused_train"]["profile"] = profile_call(
-        lambda: tr.time_steps(1), "--fused_train step", jl_part)
-    prof["jl_split_ms"] = {}
+        lambda: tr.time_steps(1), "--fused_train step", tc_part)
+    prof["tc_split_ms"] = {}
     for key, ms in prof["groups"].items():
         kern, part = key.split(": ")
-        prof["jl_split_ms"].setdefault(kern, {})[part] = ms
-    prof["jl_share"] = {kern: sum(parts.values()) / prof["wall_ms"]
-                        for kern, parts in prof["jl_split_ms"].items()}
-    log("  kernels J and L's share of the profiled --fused_train step: "
-        + ", ".join(
+        prof["tc_split_ms"].setdefault(kern, {})[part] = ms
+    prof["tc_share"] = {kern: sum(parts.values()) / prof["wall_ms"]
+                        for kern, parts in prof["tc_split_ms"].items()}
+    log("  kernels J, K, L and C's share of the profiled --fused_train "
+        "step: " + ", ".join(
             f"{kern} {sum(parts.values()):.3f} ms ({100 * share:.1f}% of "
             f"{prof['wall_ms']:.3f} ms wall, "
             f"{100 * sum(parts.values()) / prof['device_busy_ms']:.1f}% of "
             "device busy)"
-            for (kern, parts), share in zip(prof["jl_split_ms"].items(),
-                                            prof["jl_share"].values())))
+            for (kern, parts), share in zip(prof["tc_split_ms"].items(),
+                                            prof["tc_share"].values())))
     del tr
     tr, res["fused_dphase"] = timed_training(
         Config(seed=seed, fused_dphase=True), TIMED_STEPS, WARMUP_STEPS,
@@ -2477,17 +2515,18 @@ def main() -> None:
                            "(edge_block_train_backward pass 3, "
                            "_bwd_pass3_kernel :328)"}
     source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train.cu" for n in macs}
-    source["edge_tail"] = "sp_gan_tpu_torch/csrc/edgeblock.cu"
-    for name in ("edge_train_bwd1", "edge_train_bwd3"):   # bf16 mode
+    for name in ("edge_train_bwd1", "edge_train_bwd2", "edge_train_bwd3",
+                 "edge_tail"):   # bf16 mode
         source[name] = "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu"
     ft_launches = fused["fused_train"]["launches"]
     for name, (fn, plain, fargs) in train_kernel_calls(fused_in).items():
         f_bound, f_by = bound(2 * macs[name] * rows_f, moved[name],
                               BF16_FLOPS)
-        # J and L: the device ms of each part of their call in the profiled
-        # --fused_train step, by launch
-        split = fused["fused_train"]["profile"]["jl_split_ms"].get(
-            {"edge_train_bwd1": "J", "edge_train_bwd3": "L"}.get(name))
+        # J, K, L and C: the device ms of each part of their calls in the
+        # profiled --fused_train step (C: two calls), by launch
+        split = fused["fused_train"]["profile"]["tc_split_ms"].get(
+            {"edge_train_bwd1": "J", "edge_train_bwd2": "K",
+             "edge_train_bwd3": "L", "edge_tail": "C"}.get(name))
         rows.append(dict(
             name=name, route="cuda", source=source[name],
             replaces=replaces[name], mode="bf16 edges",
@@ -2501,7 +2540,8 @@ def main() -> None:
             plain_ms=cuda_ms(lambda: plain(*fargs), 3),
             bound_ms=f_bound, bound_by=f_by, library_ms=None,
             shape=list(ee_f.shape), path="--fused_train step",
-            **({"split_ms": split} if split else {})))
+            **({"split_ms": split,
+                "split_calls": PER_STEP_FUSED[name]} if split else {})))
     # kernel M at the --fused_train step's EdgeConv2: d_ee [24, 2048, 10,
     # 128] bf16; index_add_ of the neighbor half alone is a partial
     # yardstick (it leaves out the central term)

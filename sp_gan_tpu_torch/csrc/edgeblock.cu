@@ -2,7 +2,11 @@
 // affines, ee [B, N, k, 2C] f32 or bf16 -> out [B, N, F] f32. The serving
 // path folds eval BatchNorm into f32 edges; the fused training forward
 // (--fused_train, --fused_dphase) folds the batch statistics and hands it
-// bf16 edges under mixed_edge (bf16 mode, at the entry point below).
+// bf16 edges under mixed_edge (bf16 mode, at the entry point below). bf16
+// mode runs on the tensor cores in edgeblock_train_tc.cu wherever its
+// layout fits (ebt_tc_fits(kEbtTail, ...): C a multiple of 4, F2 dividing
+// 256, F = 128, at the default widths C <= 224); the two kernels here are
+// the f32 serving mode and bf16 mode at the other widths.
 //
 // Replaces the TPU kernel sp_gan_tpu/ops/pallas/edgeblock.py::
 // edge_tail_pallas (_edge_tail_kernel). Per point, with diff = ee[..., C:],
@@ -33,12 +37,14 @@
 // price of letting the contraction take 128-point tiles, so that each wout
 // value fetched from L2 serves 128 points rather than the few whose edge
 // rows fit beside the weights in shared memory. Arithmetic is plain f32
-// FMA, no tensor cores, no TF32; bf16 mode rounds the operands to bf16
-// first and keeps the rounded v in the f32 scratch.
+// FMA, no tensor cores, no TF32; bf16 mode here rounds the operands to
+// bf16 first and keeps the rounded v in the f32 scratch.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "edgeblock_train_tc.cuh"
 
 namespace {
 
@@ -321,31 +327,57 @@ cudaError_t launch_rows(const Rows& r, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the widths kernel C takes, but for C's limit of shared memory
+bool widths_ok(int B, int N, int C, int F2, int F, int k) {
+  return B > 0 && N > 0 && C > 0 && k > 0 && k <= 32 && F2 > 0 &&
+         F2 % 4 == 0 && (F == 64 || F == 128);
+}
+
 }  // namespace
 
+// Floats of the scratch spgan_edge_tail takes at these widths in the mode
+// `bf16` names, or a negative cudaError_t: on the tensor cores (bf16 mode
+// where ebt_tc_fits(kEbtTail, ...)) a bf16 v [B, N, k, F] and wout's bf16 pair, else
+// an f32 v [B, N, k, F].
+extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
+                                             int F, int k, int bf16) {
+  if (!widths_ok(B, N, C, F2, F, k))
+    return -(long long)cudaErrorInvalidValue;
+  if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
+    return ebt_tc_scratch(kEbtTail, B, N, C, F2, F, k);
+  return (long long)B * N * k * F;
+}
+
 // ee [B, N, k, 2C]; w1 [C, F2]; a1 [2, F2]; w2 [F2, F]; a2, ax [2, F];
-// wx [2C, F]; wout [k, F, F]; bout [F]; vbuf [B, N, k, F] scratch; out
-// [B, N, F]. All f32 except ee, which is bf16 when `bf16` is set; all
-// contiguous, on the device. Launches both kernels on `stream` and returns
-// the first nonzero cudaError_t (0 on success). Takes F in {64, 128}, F2 a
-// multiple of 4, 1 <= k <= 32, and C small enough that the weights and
-// one point's rows fit in shared memory.
+// wx [2C, F]; wout [k, F, F]; bout [F]; vbuf the scratch, as many floats
+// as spgan_edge_tail_scratch says; out [B, N, F]. All f32 except ee, which
+// is bf16 when `bf16` is set; all contiguous, on the device. Launches its
+// kernels on `stream` and returns the first nonzero cudaError_t (0 on
+// success). Takes F in {64, 128}, F2 a multiple of 4, 1 <= k <= 32, and C
+// small enough that the weights and one point's rows fit in shared memory.
 //
 // bf16 mode, the JAX kernel's `cd = bfloat16`: the operands of the chain's
 // matmuls (the edge rows, w1, w2, wx, the activations before @ w2) and v
 // before @ wout are rounded to bf16; wout stays f32, as the JAX kernel's
 // mixed bf16 x f32 dot promotes it. Each product of two bf16 values is
 // exact in f32, so only the order of the f32 sums differs from the plain
-// version. The affines, leaky ReLU and softmax stay f32.
+// version (on the tensor cores also wout's bf16 pair, within 2^-17 of
+// each product). The affines, leaky ReLU and softmax stay f32.
 extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
                                const void* w2, const void* a2, const void* wx,
                                const void* ax, const void* wout,
                                const void* bout, void* vbuf, void* out, int B,
                                int N, int C, int F2, int F, int k, float neg,
                                int bf16, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || k <= 0 || k > 32 || F2 <= 0 ||
-      F2 % 4 != 0 || (F != 64 && F != 128))
-    return (int)cudaErrorInvalidValue;
+  if (!widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
+  if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
+    return ebt_tc_tail(
+        ee, static_cast<const float*>(w1), static_cast<const float*>(a1),
+        static_cast<const float*>(w2), static_cast<const float*>(a2),
+        static_cast<const float*>(wx), static_cast<const float*>(ax),
+        static_cast<const float*>(wout), static_cast<const float*>(bout),
+        static_cast<float*>(out), static_cast<float*>(vbuf), B, N, C, F2, F,
+        k, neg, static_cast<cudaStream_t>(stream));
   const int Cp = (C + 3) / 4 * 4;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -45,10 +45,11 @@
 //  - reduce_kernel: the partials summed in slice (or block) order.
 // No float atomics: two launches on one card give bit-identical results.
 //
-// bf16 mode of J and L: edgeblock_train_tc.cu (tensor cores); the entry
+// bf16 mode of J, K and L: edgeblock_train_tc.cu (tensor cores); the entry
 // points below hand a bf16 ee to it wherever its shared-memory layout fits
-// (ebt_tc_fits), else run the FMA path here. The rest here is I and K in
-// both modes and J and L in f32 mode.
+// (ebt_tc_fits), else run the FMA path here. The rest here is I in both
+// modes, J, K and L in f32 mode, and J, K and L in bf16 mode at widths
+// too wide for the tensor cores' layout.
 //
 // What bounds it on an H100: operations at the f32 rate, bytes at the bf16
 // tensor-core peak. At the default training step (ee [24, 2048, 10, 128]
@@ -59,7 +60,8 @@
 // 0.15 ms at 3.35 TB/s). These kernels run the products as f32 FMAs (in
 // bf16 mode on operands rounded to bf16), no tensor cores, and round-trip
 // the chain's intermediates that feed the weight gradients and d_u through
-// device memory: a first design that is right, not a fast one.
+// device memory: a first design that is right, not a fast one. In f32 mode
+// that FMA order is what chip_smoke.py's kernel_slopes re-derives.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -730,20 +732,19 @@ Args base_args(const void* ee, float* scratch, const Scratch& sc,
 }  // namespace
 
 // Floats of scratch that pass `pass` (0: I, 1: J, 2: K, 3: L) needs at
-// these widths, or a negative cudaError_t. The widths the kernels take: C
-// a multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128},
+// these widths in the mode `bf16` names (a bf16 ee when set), or a
+// negative cudaError_t: in bf16 mode J, K and L take the tensor-core
+// path's scratch where its layout fits. The widths the kernels take: C a
+// multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128},
 // 1 <= k <= 32.
 extern "C" long long spgan_ebt_scratch(int pass, int B, int N, int C, int F2,
-                                       int F, int k) {
+                                       int F, int k, int bf16) {
+  if (bf16 && pass != kStats && ebt_tc_fits(pass, C, F2, F, k))
+    return ebt_tc_scratch(pass, B, N, C, F2, F, k);
   Scratch sc;
   TilePlan tp;
   const int err = scratch_plan(pass, B, N, C, F2, F, k, &sc, &tp);
-  if (err) return -(long long)err;
-  if ((pass != kBwd1 && pass != kBwd3) || !ebt_tc_fits(pass, C, F2, F, k))
-    return sc.total;
-  // J and L: enough for either mode
-  const long long tc = ebt_tc_scratch(pass, B, N, C, F2, F, k);
-  return tc < 0 ? tc : tc > sc.total ? tc : sc.total;
+  return err ? -(long long)err : sc.total;
 }
 
 // Kernel I. ee [B, N, k, 2C] (bf16 when `bf16`, else f32); w1 [C, F2]; a1
@@ -840,6 +841,16 @@ extern "C" int spgan_ebt_bwd2(const void* ee, const void* du, const void* w1,
                               void* scratch, int B, int N, int C, int F2,
                               int F, int k, float neg, int bf16,
                               void* stream) {
+  if (bf16 && ebt_tc_fits(kBwd2, C, F2, F, k))
+    return ebt_tc_bwd2(
+        ee, static_cast<const float*>(du), static_cast<const float*>(w1),
+        static_cast<const float*>(a1), static_cast<const float*>(w2),
+        static_cast<const float*>(a2), static_cast<const float*>(wx),
+        static_cast<const float*>(ax), static_cast<const float*>(gb2x),
+        static_cast<const float*>(s2), static_cast<const float*>(gb1),
+        static_cast<float*>(s1), static_cast<float*>(dw2),
+        static_cast<float*>(scratch), B, N, C, F2, F, k, neg,
+        static_cast<cudaStream_t>(stream));
   Scratch sc;
   TilePlan tp;
   int err = scratch_plan(kBwd2, B, N, C, F2, F, k, &sc, &tp);

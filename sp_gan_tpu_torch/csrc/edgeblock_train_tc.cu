@@ -1,23 +1,36 @@
-// Kernels J and L in bf16 mode, on the H100's tensor cores: backward passes
-// 1 and 3 of the fused train-mode EdgeBlock for a bf16 ee [B, N, k, 2C].
+// Kernels J, K and L and kernel C in bf16 mode, on the H100's tensor cores:
+// the three backward passes of the fused train-mode EdgeBlock and the
+// EdgeBlock tail of its forward, for a bf16 ee [B, N, k, 2C].
 //
 // Replace, in the JAX kernels' bf16 mode (cd = bfloat16), the TPU kernels
-// of sp_gan_tpu/ops/pallas/edgeblock_train.py:
-//   J  backward pass 1 (_bwd_pass1_kernel, pallas_call :450): sums [4, F]
-//      (S2a, S2b, Sxa, Sxb), d_wout [k, F, F], d_bout [F], and d_u
-//      [B, N, k, F] = d_out @ wout[j]^T (f32, the input of K and L);
+//   J  backward pass 1 (sp_gan_tpu/ops/pallas/edgeblock_train.py,
+//      _bwd_pass1_kernel, pallas_call :450): sums [4, F] (S2a, S2b, Sxa,
+//      Sxb), d_wout [k, F, F], d_bout [F], and d_u [B, N, k, F] = d_out @
+//      wout[j]^T (f32, the input of K and L);
+//   K  backward pass 2 (_bwd_pass2_kernel, pallas_call :461): s1 [2, F2]
+//      (S1a, S1b), d_w2 [F2, F];
 //   L  backward pass 3 (_bwd_pass3_kernel, pallas_call :471): d_ee
-//      [B, N, k, 2C] bf16, d_w1 [C, F2], d_wx [2C, F].
-// The arithmetic is that of edgeblock_train.cu (its header states the
-// chain): every matmul takes bf16 operands, rounded at the same places, and
-// sums in f32; the affines, leaky ReLU, softmax and BatchNorm backward are
-// f32. Here each matmul is mma.sync.m16n8k16 (bf16 x bf16 -> f32), whose
-// sum order differs from the plain version's and from the FMA kernels',
-// and the BatchNorm x-hats and the softmax multiply by a reciprocal where
-// those divide (an ulp apart; a thread's channel constants are taken once).
+//      [B, N, k, 2C] bf16, d_w1 [C, F2], d_wx [2C, F];
+//   C  the EdgeBlock tail (sp_gan_tpu/ops/pallas/edgeblock.py::
+//      edge_tail_pallas, pallas_call :102): out [B, N, F] f32 = bout +
+//      v.reshape(k F) @ wout.reshape(k F, F), v = bf16(lrelu(px) * att).
+// The arithmetic is that of edgeblock_train.cu and edgeblock.cu (their
+// headers state the chain): every matmul of the chain takes bf16 operands,
+// rounded at the same places, and sums in f32; the affines, leaky ReLU,
+// softmax and BatchNorm backward are f32. Here each matmul is
+// mma.sync.m16n8k16 (bf16 x bf16 -> f32), whose sum order differs from the
+// plain version's and from the FMA kernels', and the BatchNorm x-hats and
+// the softmax multiply by a reciprocal where those divide (an ulp apart; a
+// thread's channel constants are taken once). C's contraction keeps wout
+// f32, as the port's contract has it (bf16 v x f32 wout, f32 sums): wout
+// is split into a bf16 pair hi + lo (hi = bf16(wout), lo = bf16(wout -
+// hi), exact differences), two products into one f32 sum, which carries
+// about 16 of wout's 24 significant bits (each term within 2^-17 of the
+// f32 product).
 //
 // Design. An entry point launches, on the caller's stream and in order:
 //  - (J) tc_round_kernel: wout and d_out rounded to bf16 into the scratch;
+//    (C) tc_split_kernel: wout split into its bf16 pair;
 //  - (J) tc_du_gemm_kernel: d_u = d_out @ wout^T [B*N, k*F] in 128 x 64
 //    tiles, the whole depth F in shared memory, written f32;
 //  - tc_tile_kernel<pass, KM>: one persistent block an SM (8 warps) walks
@@ -26,53 +39,73 @@
 //    point's k rows unroll exactly), else 32 with k checked at run time.
 //    w1, w2, wx sit in shared memory as bf16 for the block's life, each
 //    once: the forward products read them through ldmatrix.trans, the
-//    transposed ones of L through ldmatrix. C and F2 are padded with zeros
-//    to multiples of 16, which is exact. The next tile's ee rows load by
-//    cp.async into the second ee buffer while the current tile computes,
-//    and its d_u rows (J: and d_out rows) are prefetched into L2. Each
-//    product runs on the tensor cores into an f32 staging tile; the
-//    elementwise stages between products take one (point, channel) pair a
-//    thread, so the k rows of a point meet without shuffles, and write the
-//    next product's operand as bf16, rounded where the plain version
-//    rounds:
-//      h1 = diff @ w1 -> y1 = bf16(lrelu(p1))
-//      h2 = y1 @ w2, hx = ee @ wx -> softmax over k and the top of the
-//        backward; J: u = bf16(v w) to the scratch, the channel sums in
-//        registers; L: d_h2, d_hx (bf16; d_hx also to the scratch)
-//      (L) d_y1 = d_h2 @ w2^T -> d_h1 (bf16, also to the scratch)
+//    transposed ones of K and L through ldmatrix. C and F2 are padded with
+//    zeros to multiples of 16, which is exact. The next tile's ee rows load
+//    by cp.async into the second ee buffer while the current tile
+//    computes, and its d_u rows (J: and d_out rows) are prefetched into
+//    L2. Each product runs on the tensor cores into an f32 staging tile;
+//    the elementwise stages between products take one (point, channel)
+//    pair a thread, so the k rows of a point meet without shuffles, and
+//    write the next product's operand as bf16, rounded where the plain
+//    version rounds:
+//      h1 = diff @ w1 -> y1 = bf16(lrelu(p1)) (K: also to the scratch)
+//      h2 = y1 @ w2, hx = ee @ wx -> softmax over k; J: u = bf16(v w), C:
+//        its v, the same product, to the scratch; then (J, K, L) the top
+//        of the backward from d_u: J the channel sums in registers; K
+//        d_h2 (bf16, also to the scratch); L d_h2, d_hx (bf16; d_hx also
+//        to the scratch)
+//      (K, L) d_y1 = d_h2 @ w2^T -> d_p1; K the channel sums of d_p1 and
+//        d_p1 x-hat1 in registers; L d_h1 (bf16, also to the scratch)
 //      (L) d_full = d_hx @ wx^T, d_diff = d_h1 @ w1^T -> d_ee (bf16)
-//  - tc_wg_gemm_kernel: the weight gradients d_wout = u^T d_out (J), d_w1 =
-//    diff^T d_h1 and d_wx = ee^T d_hx (L) from the bf16 operands (exact:
-//    bf16 mode has rounded them already), split over slices of the
-//    contraction rows, each slice's partial product written by one block;
-//  - tc_sum_kernel: J's channel sums over its blocks, and each weight
-//    gradient over its slices, in order.
+//  - tc_wg_gemm_kernel: the weight gradients d_wout = u^T d_out (J), d_w2
+//    = y1^T d_h2 (K), d_w1 = diff^T d_h1 and d_wx = ee^T d_hx (L) from the
+//    bf16 operands (exact: bf16 mode has rounded them already), split over
+//    slices of the contraction rows, each slice's partial product written
+//    by one block;
+//  - tc_sum_kernel: J's and K's channel sums over their blocks, and each
+//    weight gradient over its slices, in order;
+//  - (C) tc_tail_gemm_kernel: out = bout + v [B*N, k F] @ (hi + lo) in
+//    64-row tiles of the full width F = 128 (the width of EdgeConv2, the
+//    one block whose tail runs in bf16 mode), three steps of 32 rows of the depth
+//    in flight by cp.async. wout (k F x F, 320 KB as one bf16 copy at the
+//    default widths) does not fit in shared memory beside the chain's
+//    weights, so the contraction is a second pass over the bf16 v rather
+//    than a stage of the tile pass.
 // No float atomics: two launches on one card give bit-identical results.
 // Widths whose weights and a tile of one point do not fit in a block's
-// shared memory (ebt_tc_fits; at F = 128, F2 = 64, k = 10: C > 192) stay
-// on the FMA path of edgeblock_train.cu, so no width is refused that the
-// FMA kernels take.
+// shared memory (ebt_tc_fits; at F = 128, F2 = 64, k = 10: J and L with C
+// > 192, K with C > 208, C with C > 224), and C's tail at F = 64, stay on
+// the FMA paths of edgeblock_train.cu and edgeblock.cu, so no width is
+// refused that the FMA kernels take.
 //
 // Shared memory of tc_tile_kernel, in bytes, Cp = C and F2p = F2 rounded up to
 // 16, rows padded by 8 bf16 or 8 f32 (ldmatrix and the staging stores free
 // of bank conflicts): the weights w1 Cp (F2p + 8) 2, w2 F2p (F + 8) 2, wx
 // 2Cp (F + 8) 2; two ee buffers Rp (2Cp + 8) 2 each; y1 (L: then d_h1) Rp
-// (F2p + 8) 2; (L) d_h2 and d_hx Rp (F + 8) 2 each; (L) p1 Rp (F2p + 8) 4;
-// staging h2 (then d_y1, d_diff) Rp (max(F, F2p, Cp) + 8) 4 and hx (then
-// d_full) Rp (max(F, 2Cp) + 8) 4; (J) 256 x 5 f32 for the channel sums. At
-// the default training step (C = 64, F2 = 64, F = 128, k = 10) the
-// weights take 61,440 B; J takes TP = 8 (Rp = 80): ee 2 x 21,760, y1
-// 11,520, staging 2 x 43,520, sums 5,120, 208,640 B in all; L takes TP = 6
-// (Rp = 64): ee 2 x 17,408, y1 9,216, d_h2 and d_hx 2 x 17,408, p1 18,432,
-// staging 2 x 34,816, 228,352 B in all, of the 232,448 a block may have.
+// (F2p + 8) 2; (K, L) d_h2 Rp (F + 8) 2; (L) d_hx Rp (F + 8) 2; (K, L) p1
+// Rp (F2p + 8) 4; staging h2 (then d_y1, d_diff) Rp (W2 + 8) 4 and hx (then
+// d_full) Rp (Wx + 8) 4, W2 = max(F, F2p, Cp) and Wx = max(F, 2Cp) for J
+// and L, W2 = max(F, F2p) and Wx = F for K and C; (J, K) 256 x 5 f32 for
+// the channel sums. TP is the most points whose layout fits (at most 160
+// rows). At the default training step (C = 64, F2 = 64,
+// F = 128, k = 10) the weights take 61,440 B; J takes TP = 8 (Rp = 80):
+// ee 2 x 21,760, y1 11,520, staging 2 x 43,520, sums 5,120, 208,640 B in
+// all; K takes TP = 6 (Rp = 64): ee 2 x 17,408, y1 9,216, d_h2 17,408, p1
+// 18,432, staging 2 x 34,816, sums 5,120, 216,064 B; L takes TP = 6: as K
+// with d_hx 17,408 and without the sums, 228,352 B; C takes TP = 9 (Rp =
+// 96): ee 2 x 26,112, y1 13,824, staging 2 x 52,224, 231,936 B; of the
+// 232,448 a block may have. tc_tail_gemm_kernel takes 3 x (64 x 40 + 2 x
+// 32 x (F + 8)) bf16: 67,584 B at F = 128.
 //
 // What bounds it: at that step (ee [24, 2048, 10, 128] bf16, 491,520 edge
-// rows) J's products are 60.4 GFLOP and L's 76.5 (0.061 and 0.077 ms at
-// the bf16 tensor-core peak of 989 TFLOP/s); each input read and each
-// output written once, the f32 d_u [24, 2048, 10, 128] that J writes and L
-// reads (252 MB) among them, they move 0.40 GB and 0.50 GB (0.120 and
-// 0.150 ms at 3.35 TB/s): bytes. The kernels also move the bf16 operands
-// of the weight gradients (u, d_h1, d_hx) through device memory.
+// rows) J's products are 60.4 GFLOP, K's 44.3, L's 76.5 and C's 44.3
+// (0.045 to 0.077 ms at the bf16 tensor-core peak of 989 TFLOP/s); each
+// input read and each output written once, the f32 d_u [24, 2048, 10,
+// 128] that J writes and K and L read (252 MB) among them, J moves 0.40
+// GB, K 0.38, L 0.50 and C 0.15 (0.045 to 0.150 ms at 3.35 TB/s): bytes.
+// The kernels also move the bf16 operands of the weight gradients (u, y1,
+// d_h2, d_h1, d_hx) and C's bf16 v (126 MB each way) through device
+// memory, and C multiplies by wout twice (hi and lo).
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -91,10 +124,14 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxRows = 160;  // edge rows a tile holds at most
-constexpr int kAcc = 5;        // J's per-thread channel sums
-constexpr int kJ = 1, kL = 3;  // the passes, as edgeblock_train.cu numbers
+constexpr int kAcc = 5;        // per-thread channel sums (J 5, K 2)
+// the passes, as edgeblock_train.cu numbers them, and kernel C's tail
+constexpr int kJ = 1, kK = 2, kL = 3, kC = kEbtTail;
 constexpr int DU_M = 128, DU_N = 64;           // tc_du_gemm_kernel tile
 constexpr int WG_M = 64, WG_N = 64, WG_K = 32, WG_THREADS = 128;
+// tc_tail_gemm_kernel: TG_M rows of out a block at the full width TG_F (C
+// runs on the tensor cores at F = 128 only), TG_K rows of the depth a step
+constexpr int TG_M = 64, TG_F = 128, TG_K = 32, TG_STAGES = 3;
 
 __device__ __forceinline__ float lrelu(float v, float neg) {
   return v >= 0.f ? v : neg * v;
@@ -154,6 +191,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// all but the N groups committed last are in
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // the 128-byte lines of [p, p + bytes) into L2, by the block's threads
@@ -242,6 +285,13 @@ __host__ __device__ inline Layout layout(int pass, int C, int F2, int F,
   L.F2p = up16(F2);
   L.Rp = up16(TP * k);
   const int Cp = L.Cp, F2p = L.F2p, Rp = L.Rp;
+  const bool bwd = pass == kK || pass == kL;  // d_y1 and BN1's backward
+  // the staging widths: L's d_diff is Cp and its d_full 2Cp wide, and J
+  // takes L's widths so that the two take the tensor cores at the same C;
+  // K and C stage only F- and F2-wide products
+  const bool wide = pass == kJ || pass == kL;
+  const int w2s = wide ? imax(F, imax(F2p, Cp)) : imax(F, F2p);
+  const int wxs = wide ? imax(F, 2 * Cp) : F;
   int o = 0;
   L.w1 = o;
   o += Cp * (F2p + 8) * 2;
@@ -256,17 +306,17 @@ __host__ __device__ inline Layout layout(int pass, int C, int F2, int F,
   L.y1 = o;
   o += Rp * (F2p + 8) * 2;
   L.dh = o;
-  if (pass == kL) o += Rp * (F + 8) * 2;
+  if (bwd) o += Rp * (F + 8) * 2;
   L.dhx = o;
   if (pass == kL) o += Rp * (F + 8) * 2;
   L.p1 = o;
-  if (pass == kL) o += Rp * (F2p + 8) * 4;
+  if (bwd) o += Rp * (F2p + 8) * 4;
   L.h2 = o;
-  o += Rp * (imax(F, imax(F2p, Cp)) + 8) * 4;
+  o += Rp * (w2s + 8) * 4;
   L.hx = o;
-  o += Rp * (imax(F, 2 * Cp) + 8) * 4;
+  o += Rp * (wxs + 8) * 4;
   L.red = o;
-  if (pass == kJ) o += kThreads * kAcc * 4;
+  if (pass == kJ || pass == kK) o += kThreads * kAcc * 4;
   L.total = o;
   return L;
 }
@@ -275,13 +325,16 @@ struct Args {
   const bf16* ee;                           // [M, 2C]
   const float *w1, *w2, *wx;                // f32 weights
   const float *a1, *a2, *ax, *gb2x, *gb1;   // affines, BN gammas and betas
-  const float* du;                          // [P, k, F]
+  const float* du;                          // [P, k, F] (J, K, L)
   const float* dout;                        // J: [P, F]
-  const float *s2, *s1;                     // L: J's sums [4, F], K's [2, F2]
-  bf16* u;                                  // J: bf16(v w) [M, F]
+  const float *s2, *s1;                     // K, L: J's sums [4, F]; L: K's
+                                            // [2, F2]
+  bf16* u;                                  // J: bf16(v w) [M, F]; C: v
+  bf16 *y1, *dh2;                           // K: [M, F2], [M, F]
   bf16 *dh1, *dhx;                          // L: [M, F2], [M, F]
   bf16* dee;                                // L: d_ee [M, 2C]
-  float* part;                              // J: [gridDim.x][5 F]
+  float* part;                              // J: [gridDim.x][5 F]; K:
+                                            // [gridDim.x][2 F2]
   long long P;                              // points, B * N
   int C, F2, F, k, TP;
   float neg, m;                             // m: edge rows B * N * k
@@ -313,9 +366,10 @@ __device__ __forceinline__ void load_ee(const Args& a, bf16* E,
   cp_async_commit();
 }
 
-// the d_u rows (J: and the d_out rows) of `tile` into L2
+// the d_u rows (J: and the d_out rows) of `tile` into L2; C has none
 __device__ __forceinline__ void prefetch_tile(const Args& a, int pass,
                                               long long tile) {
+  if (pass == kC) return;
   const long long p0 = tile * a.TP;
   const int np = a.P - p0 < a.TP ? (int)(a.P - p0) : a.TP;
   prefetch_l2(a.du + p0 * a.k * a.F, 4LL * np * a.k * a.F);
@@ -342,9 +396,11 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   bf16* DH = reinterpret_cast<bf16*>(sm + L.dh);
   bf16* DHX = reinterpret_cast<bf16*>(sm + L.dhx);
   float* P1 = reinterpret_cast<float*>(sm + L.p1);
-  float* H2 = reinterpret_cast<float*>(sm + L.h2);  // h1 (J), h2, d_y1, d_diff
+  // h1 (J, C), h2, d_y1, d_diff
+  float* H2 = reinterpret_cast<float*>(sm + L.h2);
   float* HX = reinterpret_cast<float*>(sm + L.hx);  // hx, d_full
-  float* H1 = PASS == kL ? P1 : H2;
+  constexpr bool BWD = PASS == kK || PASS == kL;    // d_y1, BN1's backward
+  float* H1 = BWD ? P1 : H2;
 
   // zeros everywhere, so padding rows and columns read as 0; then the
   // weights, rounded to bf16
@@ -369,18 +425,25 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   const int cf = tid % F, c1 = tid % F2;
   const float s2 = a.a2[cf], sh2 = a.a2[F + cf];
   const float sx = a.ax[cf], shx = a.ax[F + cf];
-  const float ig2 = 1.f / a.gb2x[cf], b2 = a.gb2x[F + cf];
-  const float igx = 1.f / a.gb2x[2 * F + cf], bx = a.gb2x[3 * F + cf];
+  float ig2 = 0.f, b2 = 0.f, igx = 0.f, bx = 0.f;  // (J, K, L)
+  if (PASS != kC) {
+    ig2 = 1.f / a.gb2x[cf];
+    b2 = a.gb2x[F + cf];
+    igx = 1.f / a.gb2x[2 * F + cf];
+    bx = a.gb2x[3 * F + cf];
+  }
   const float s1 = a.a1[c1], sh1 = a.a1[F2 + c1];
-  float S2a = 0.f, S2b = 0.f, Sxa = 0.f, Sxb = 0.f;  // (L) sums / m
+  float S2a = 0.f, S2b = 0.f, Sxa = 0.f, Sxb = 0.f;  // (K, L) sums / m
   float ig1 = 0.f, b1 = 0.f, S1a = 0.f, S1b = 0.f;
-  if (PASS == kL) {
+  if (BWD) {
     S2a = a.s2[cf] / m;
     S2b = a.s2[F + cf] / m;
-    Sxa = a.s2[2 * F + cf] / m;
-    Sxb = a.s2[3 * F + cf] / m;
     ig1 = 1.f / a.gb1[c1];
     b1 = a.gb1[F2 + c1];
+  }
+  if (PASS == kL) {
+    Sxa = a.s2[2 * F + cf] / m;
+    Sxb = a.s2[3 * F + cf] / m;
     S1a = a.s1[c1] / m;
     S1b = a.s1[F2 + c1] / m;
   }
@@ -410,8 +473,10 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     for (int row = tid / F2; row < R; row += kThreads / F2) {
       float* h = H1 + row * (F2p + 8) + c1;
       const float p = *h * s1 + sh1;
-      if (PASS == kL) *h = p;
-      Y1[row * lw1 + c1] = __float2bfloat16_rn(lrelu(p, neg));
+      if (BWD) *h = p;
+      const bf16 y = __float2bfloat16_rn(lrelu(p, neg));
+      Y1[row * lw1 + c1] = y;
+      if (PASS == kK) a.y1[(r0 + row) * F2 + c1] = y;
     }
     __syncthreads();
     // h2 = y1 @ w2, hx = ee @ wx
@@ -448,14 +513,15 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
 #pragma unroll
       for (int j = 0; j < KM; ++j)
         if (j < k) w[j] = w[j] * isum;
-      if (PASS == kJ) {
+      if (PASS == kJ || PASS == kC) {
 #pragma unroll
         for (int j = 0; j < KM; ++j)
           if (j < k)
             a.u[(row0 + j) * F + c] =
                 __float2bfloat16_rn(lrelu(hx[j], neg) * w[j]);
-        acc[4] += a.dout[(p0 + pp) * F + c];
       }
+      if (PASS == kJ) acc[4] += a.dout[(p0 + pp) * F + c];
+      if (PASS == kC) continue;
       // softmax backward over k
       const float* du = a.du + row0 * F + c;
       float sw = 0.f;
@@ -476,6 +542,12 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
             acc[1] += dp2 * xh2;
             acc[2] += dpx;
             acc[3] += dpx * xhx;
+          } else if (PASS == kK) {
+            const int row = pp * k + j;
+            const bf16 dh2 =
+                __float2bfloat16_rn(s2 * (dp2 - S2a - xh2 * S2b));
+            DH[row * lwf + c] = dh2;
+            a.dh2[(row0 + j) * F + c] = dh2;
           } else {
             const int row = pp * k + j;
             DH[row * lwf + c] =
@@ -488,20 +560,27 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
         }
       }
     }
-    if (PASS == kJ) continue;
+    if (PASS == kJ || PASS == kC) continue;
     __syncthreads();
 
-    // d_y1 = d_h2 @ w2^T; d_p1 = d_y1 lrelu'(p1); d_h1 (bf16) over y1
+    // d_y1 = d_h2 @ w2^T; d_p1 = d_y1 lrelu'(p1); K: the sums of d_p1 and
+    // d_p1 x-hat1; L: d_h1 (bf16) over y1
     tile_mm<true>(DH, lwf, W2, lwf, H2, F2p + 8, Mr, F2p, F);
     __syncthreads();
     for (int row = tid / F2; row < R; row += kThreads / F2) {
       const float p = P1[row * (F2p + 8) + c1];
       const float dp1 = H2[row * (F2p + 8) + c1] * dlrelu(p, neg);
       const float xh1 = (p - b1) * ig1;
+      if (PASS == kK) {
+        acc[0] += dp1;
+        acc[1] += dp1 * xh1;
+        continue;
+      }
       const bf16 dh1 = __float2bfloat16_rn(s1 * (dp1 - S1a - xh1 * S1b));
       Y1[row * lw1 + c1] = dh1;
       a.dh1[(r0 + row) * F2 + c1] = dh1;
     }
+    if (PASS == kK) continue;
     __syncthreads();
 
     // d_ee = [d_full][:C] ++ ([d_full][C:] + d_diff), d_full = d_hx @ wx^T
@@ -522,18 +601,20 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     }
   }
 
-  // J: the block's channel sums, threads of one channel added in index
-  // order
-  if (PASS == kJ) {
+  // J, K: the block's channel sums (J 5 over F channels, K 2 over F2),
+  // threads of one channel added in index order
+  if (PASS == kJ || PASS == kK) {
+    constexpr int nacc = PASS == kJ ? kAcc : 2;
+    const int width = PASS == kJ ? F : F2;
     float* RED = reinterpret_cast<float*>(sm + L.red);
 #pragma unroll
     for (int q = 0; q < kAcc; ++q) RED[tid * kAcc + q] = acc[q];
     __syncthreads();
-    for (int i = tid; i < kAcc * F; i += kThreads) {
-      const int q = i / F, c = i - q * F;
+    for (int i = tid; i < nacc * width; i += kThreads) {
+      const int q = i / width, c = i - q * width;
       float s = 0.f;
-      for (int t = c; t < kThreads; t += F) s += RED[t * kAcc + q];
-      a.part[(long long)blockIdx.x * kAcc * F + i] = s;
+      for (int t = c; t < kThreads; t += width) s += RED[t * kAcc + q];
+      a.part[(long long)blockIdx.x * nacc * width + i] = s;
     }
   }
 }
@@ -724,6 +805,123 @@ __global__ void tc_round_kernel(const float* __restrict__ a, bf16* ab,
   }
 }
 
+// w [n] f32 as the bf16 pair hi = bf16(w), lo = bf16(w - hi) (w - hi is
+// exact in f32), so that hi + lo is w to about 16 significant bits
+__global__ void tc_split_kernel(const float* __restrict__ w, bf16* hi,
+                                bf16* lo, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float x = w[i];
+    const bf16 h = __float2bfloat16_rn(x);
+    hi[i] = h;
+    lo[i] = __float2bfloat16_rn(x - __bfloat162float(h));
+  }
+}
+
+// Dynamic shared memory of tc_tail_gemm_kernel: TG_STAGES steps of an A
+// tile [TG_M][TG_K + 8] and the two B tiles [TG_K][TG_F + 8], bf16
+constexpr int kTailSmem =
+    TG_STAGES * (TG_M * (TG_K + 8) + 2 * TG_K * (TG_F + 8)) * 2;
+
+// out [P, F] f32 = bout + A [P, KF] @ (Bh + Bl) [KF, F], F = TG_F; A, Bh
+// and Bl bf16 row-major, KF a multiple of TG_K. A block takes TG_M rows of
+// out at the full width F, 8 warps of 32 x F / 4; the depth goes TG_K rows
+// a step,
+// TG_STAGES steps in flight by cp.async. Each 16 rows of a step multiply A
+// by Bh, then by Bl, into one f32 sum per output, in ascending order of the
+// depth; bout is added last, as the plain version adds it.
+__global__ void __launch_bounds__(kThreads)
+    tc_tail_gemm_kernel(const bf16* __restrict__ A,
+                        const bf16* __restrict__ Bh,
+                        const bf16* __restrict__ Bl,
+                        const float* __restrict__ bout,
+                        float* __restrict__ out, long long P, int KF) {
+  constexpr int F = TG_F, LA = TG_K + 8, LB = F + 8;
+  constexpr int SA = TG_M * LA, SB = TG_K * LB;  // bf16 of an A, a B tile
+  constexpr int NT = F / 32;                     // n8 tiles of a warp
+  constexpr int CA = TG_K / 8, CB = F / 8;       // 16-byte chunks of a row
+  extern __shared__ __align__(16) unsigned char sm[];
+  bf16* As = reinterpret_cast<bf16*>(sm);        // [stage][TG_M][LA]
+  bf16* Bs = As + TG_STAGES * SA;                // [stage][hi, lo][TG_K][LB]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long m0 = (long long)blockIdx.x * TG_M;
+  const int steps = KF / TG_K;
+  // the rows of A past P stay as they are: they feed only rows of out that
+  // are not written
+  auto load = [&](int step) {
+    if (step < steps) {
+      const int st = step % TG_STAGES, k0 = step * TG_K;
+      for (int i = tid; i < TG_M * CA; i += kThreads) {
+        const int r = i / CA, c = (i - r * CA) * 8;
+        if (m0 + r < P)
+          cp_async16(As + st * SA + r * LA + c, A + (m0 + r) * KF + k0 + c);
+      }
+      for (int i = tid; i < 2 * TG_K * CB; i += kThreads) {
+        const int h = i / (TG_K * CB), e = i - h * TG_K * CB;
+        const int r = e / CB, c = (e - r * CB) * 8;
+        cp_async16(Bs + (st * 2 + h) * SB + r * LB + c,
+                   (h ? Bl : Bh) + (long long)(k0 + r) * F + c);
+      }
+    }
+    cp_async_commit();  // an empty group past the last step
+  };
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * (F / 4);
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][n][q] = 0.f;
+  load(0);
+  load(1);
+  for (int step = 0; step < steps; ++step) {
+    load(step + 2);  // into the stage the last step's reads have left
+    cp_async_wait<2>();
+    __syncthreads();  // this step's tiles are in
+    const bf16* as = As + (step % TG_STAGES) * SA;
+    const bf16* bs = Bs + (step % TG_STAGES) * 2 * SB;
+#pragma unroll
+    for (int kk = 0; kk < TG_K; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm(af[i], as + (wm + i * 16 + (lane & 15)) * LA + kk +
+                        ((lane >> 4) << 3));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // hi, then lo
+#pragma unroll
+        for (int n = 0; n < NT / 2; ++n) {
+          uint32_t b[4];
+          ldsm_t(b, bs + h * SB +
+                        (kk + (lane & 7) + (((lane >> 3) & 1) << 3)) * LB +
+                        wn + n * 16 + ((lane >> 4) << 3));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma(acc[i][2 * n], af[i], b[0], b[1]);
+            mma(acc[i][2 * n + 1], af[i], b[2], b[3]);
+          }
+        }
+    }
+    __syncthreads();  // the step's reads are done before its stage refills
+  }
+  const int g = lane >> 2, t2 = (lane & 3) << 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = m0 + wm + i * 16 + g + 8 * h;
+      if (row >= P) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = wn + n * 8 + t2;
+        *reinterpret_cast<float2*>(out + row * F + col) =
+            make_float2(acc[i][n][2 * h] + bout[col],
+                        acc[i][n][2 * h + 1] + bout[col + 1]);
+      }
+    }
+}
+
 template <int PASS, int KM>
 void* tile_fn() {
   return reinterpret_cast<void*>(tc_tile_kernel<PASS, KM>);
@@ -735,7 +933,12 @@ void* tile_fn_k(int k) {
 }
 
 void* tile_kernel_of(int pass, int k) {
-  return pass == kJ ? tile_fn_k<kJ>(k) : tile_fn_k<kL>(k);
+  switch (pass) {
+    case kJ: return tile_fn_k<kJ>(k);
+    case kK: return tile_fn_k<kK>(k);
+    case kL: return tile_fn_k<kL>(k);
+    default: return tile_fn_k<kC>(k);
+  }
 }
 
 // What a call asks of the runtime, asked once: per device its SM count and
@@ -820,17 +1023,21 @@ long long al4(long long floats) { return (floats + 3) / 4 * 4; }
 
 // The tile size (the most points whose layout fits, at most kMaxRows edge
 // rows), grid (the blocks that fit on the card at once, at most one a
-// tile) and scratch (in floats) of a pass: J: part | slices | wout bf16 |
-// d_out bf16 | u bf16; L: slices | d_h1 bf16 | d_hx bf16.
+// tile) and scratch (in floats) of a pass: J: part
+// | slices | wout bf16 | d_out bf16 | u bf16; K: part | slices | y1 bf16 |
+// d_h2 bf16; L: slices | d_h1 bf16 | d_hx bf16; C: v bf16 | wout hi bf16 |
+// wout lo bf16.
 struct Plan {
   int TP, grid, sms;
   Layout L;
-  Split s1, s2;  // J: d_wout; L: d_w1, d_wx
-  long long part, slices, wout_b, dout_b, u_b, dh1_b, dhx_b, total;
+  Split s1, s2;  // J: d_wout; K: d_w2; L: d_w1, d_wx
+  long long part, slices, wout_b, wlo_b, dout_b, u_b, y1_b, dh2_b, dh1_b,
+      dhx_b, total;
 };
 
 int plan(int pass, int B, int N, int C, int F2, int F, int k, Plan* p) {
-  if (!ebt_widths_ok(B, N, C, F2, F, k) || (pass != kJ && pass != kL))
+  if (!ebt_widths_ok(B, N, C, F2, F, k) || pass < kJ || pass > kC ||
+      (pass == kC && F != TG_F))
     return (int)cudaErrorInvalidValue;
   int limit = 0, per_sm = 0;
   int err = device_attrs(&p->sms, &limit);
@@ -861,6 +1068,23 @@ int plan(int pass, int B, int N, int C, int F2, int F, int k, Plan* p) {
     o += al4(P * F / 2);
     p->u_b = o;
     o += al4(M * F / 2);
+  } else if (pass == kK) {
+    p->s1 = split(F2, F, M, p->sms);
+    p->part = o;
+    o += al4((long long)p->grid * 2 * F2);
+    p->slices = o;
+    o += al4((long long)p->s1.S * F2 * F);
+    p->y1_b = o;
+    o += al4(M * F2 / 2);
+    p->dh2_b = o;
+    o += al4(M * F / 2);
+  } else if (pass == kC) {
+    p->u_b = o;
+    o += al4(M * F / 2);
+    p->wout_b = o;
+    o += al4((long long)k * F * F / 2);
+    p->wlo_b = o;
+    o += al4((long long)k * F * F / 2);
   } else {
     p->s1 = split(C, F2, M, p->sms);
     p->s2 = split(2 * C, F, M, p->sms);
@@ -937,7 +1161,8 @@ Args base_args(const void* ee, const float* w1, const float* a1,
 
 bool ebt_tc_fits(int pass, int C, int F2, int F, int k) {
   int sms = 0, limit = 0;
-  return device_attrs(&sms, &limit) == 0 &&
+  return ebt_widths_ok(1, 1, C, F2, F, k) && (pass != kC || F == TG_F) &&
+         device_attrs(&sms, &limit) == 0 &&
          layout(pass, C, F2, F, k, 1).total <= limit;
 }
 
@@ -987,6 +1212,31 @@ int ebt_tc_bwd1(const void* ee, const float* dout, const float* w1,
                          scratch + p.slices, s);
 }
 
+int ebt_tc_bwd2(const void* ee, const float* du, const float* w1,
+                const float* a1, const float* w2, const float* a2,
+                const float* wx, const float* ax, const float* gb2x,
+                const float* s2, const float* gb1, float* s1, float* dw2,
+                float* scratch, int B, int N, int C, int F2, int F, int k,
+                float neg, cudaStream_t s) {
+  Plan p;
+  int err = plan(kK, B, N, C, F2, F, k, &p);
+  if (err) return err;
+  const long long M = (long long)B * N * k;
+  Args a = base_args(ee, w1, a1, w2, a2, wx, ax, gb2x, du, p, B, N, C, F2, F,
+                     k, neg);
+  a.gb1 = gb1;
+  a.s2 = s2;
+  a.y1 = reinterpret_cast<bf16*>(scratch + p.y1_b);
+  a.dh2 = reinterpret_cast<bf16*>(scratch + p.dh2_b);
+  a.part = scratch + p.part;
+  if ((err = launch_tile(kK, k, p, a, s))) return err;
+  if ((err = sum_slices<kK>(a.part, p.grid, 2 * F2, 0, 2 * F2, s1, s)))
+    return err;
+  // d_w2 [F2, F] = y1^T [F2, M] @ d_h2 [M, F]
+  return weight_grad<kK>(a.y1, F2, a.dh2, F, dw2, F2, F, M, p.s1,
+                         scratch + p.slices, s);
+}
+
 int ebt_tc_bwd3(const void* ee, const float* du, const float* w1,
                 const float* a1, const float* w2, const float* a2,
                 const float* wx, const float* ax, const float* gb2x,
@@ -1012,4 +1262,30 @@ int ebt_tc_bwd3(const void* ee, const float* du, const float* w1,
     return err;
   return weight_grad<kL>(a.ee, 2 * C, a.dhx, F, dwx, 2 * C, F, M, p.s2,
                          scratch + p.slices, s);
+}
+
+int ebt_tc_tail(const void* ee, const float* w1, const float* a1,
+                const float* w2, const float* a2, const float* wx,
+                const float* ax, const float* wout, const float* bout,
+                float* out, float* scratch, int B, int N, int C, int F2,
+                int F, int k, float neg, cudaStream_t s) {
+  Plan p;
+  int err = plan(kC, B, N, C, F2, F, k, &p);
+  if (err) return err;
+  const long long P = (long long)B * N, KF = (long long)k * F;
+  bf16* hi = reinterpret_cast<bf16*>(scratch + p.wout_b);
+  bf16* lo = reinterpret_cast<bf16*>(scratch + p.wlo_b);
+  Args a = base_args(ee, w1, a1, w2, a2, wx, ax, nullptr, nullptr, p, B, N, C,
+                     F2, F, k, neg);
+  a.u = reinterpret_cast<bf16*>(scratch + p.u_b);
+  tc_split_kernel<<<p.sms, 256, 0, s>>>(wout, hi, lo, KF * F);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = launch_tile(kC, k, p, a, s))) return err;
+  // out [P, F] = bout + v [P, k F] @ (hi + lo) [k F, F]
+  if ((err = allow_smem(reinterpret_cast<const void*>(tc_tail_gemm_kernel),
+                        kTailSmem, nullptr)))
+    return err;
+  tc_tail_gemm_kernel<<<(unsigned)((P + TG_M - 1) / TG_M), kThreads,
+                        kTailSmem, s>>>(a.u, hi, lo, bout, out, P, (int)KF);
+  return (int)cudaGetLastError();
 }

@@ -41,8 +41,9 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS     # what the library's hash covers
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t (or,
-# for spgan_knn_blocked_chunks, a count, and for spgan_ebt_scratch and
-# spgan_csr_scratch a count of floats or int32 as a long long, RESTYPES)
+# for spgan_knn_blocked_chunks, a count, and for spgan_edge_tail_scratch,
+# spgan_ebt_scratch and spgan_csr_scratch a count of floats or int32 as a
+# long long, RESTYPES)
 SIGNATURES = {
     # x, idx, dist, B, N, C, k, stream
     "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -55,11 +56,13 @@ SIGNATURES = {
     "spgan_knn_blocked_chunks": (_I,),
     # x, part_key, part_idx, idx, dist, B, N, C, k, stream
     "spgan_knn_blocked": (_P,) * 5 + (_I,) * 4 + (_P,),
-    # ee, w1, a1, w2, a2, wx, ax, wout, bout, vbuf, out, B, N, C, F2, F, k,
-    # neg, bf16, stream
+    # B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
+    "spgan_edge_tail_scratch": (_I,) * 7,
+    # ee, w1, a1, w2, a2, wx, ax, wout, bout, scratch, out, B, N, C, F2, F,
+    # k, neg, bf16, stream
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P),
-    # pass, B, N, C, F2, F, k -> floats of scratch (long long)
-    "spgan_ebt_scratch": (_I,) * 7,
+    # pass, B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
+    "spgan_ebt_scratch": (_I,) * 8,
     # ee, w1, a1, w2, out, scratch, B, N, C, F2, F, k, neg, bf16, stream
     "spgan_ebt_stats2": (_P,) * 6 + (_I,) * 6 + (_F, _I, _P),
     # ee, d_out, w1, a1, w2, a2, wx, ax, gb2x, wout, sums, d_wout, d_bout,
@@ -89,7 +92,8 @@ SIGNATURES = {
     "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P, _P),
 }
 
-RESTYPES = {"spgan_ebt_scratch": ctypes.c_longlong,
+RESTYPES = {"spgan_edge_tail_scratch": ctypes.c_longlong,
+            "spgan_ebt_scratch": ctypes.c_longlong,
             "spgan_csr_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()

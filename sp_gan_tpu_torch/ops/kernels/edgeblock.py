@@ -22,7 +22,13 @@ kernel's bf16 x f32 dot promotes it.
 
 On an H100 at EdgeConv2's serving shape (ee [64, 2048, 10, 128], F = 128)
 the function is bound by f32 operations: 118 GFLOP against 0.67 GB of
-input. The CUDA source says how its two passes are laid out.
+input. f32 mode runs on f32 FMAs (`csrc/edgeblock.cu`); bf16 mode runs on
+the tensor cores (`csrc/edgeblock_train_tc.cu`, with wout kept as a bf16
+pair hi + lo, about 16 of its bits) wherever C is a multiple of 4, F2
+divides 256 and the weights fit in shared memory (C <= 224 at F = 128,
+F2 = 64, k = 10), else on the FMA kernels too. The CUDA sources say how
+their passes are laid out; the scratch each call takes is sized for the
+path that runs.
 
 `edge_tail` launches the kernel for CUDA tensors and runs `edge_tail_plain`,
 the same function in plain PyTorch, for CPU tensors. `edge_tail.launches`
@@ -106,18 +112,23 @@ def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
                          f"{2 * MAX_K}) on CUDA; got k={k} (from --nk "
                          f"{2 * k})")
     F2, F = w1.shape[-1], w2.shape[-1]
-    # scratch for v; freeing it on return is safe, since the caching
-    # allocator hands it only to work queued later on this stream
-    vbuf = torch.empty((B, N, k, F), dtype=torch.float32, device=ee.device)
+    bf16 = int(ee.dtype == torch.bfloat16)
     out = torch.empty((B, N, F), dtype=torch.float32, device=ee.device)
     lib = _build.library()
     with torch.cuda.device(ee.device):
+        n = lib.spgan_edge_tail_scratch(B, N, C2 // 2, F2, F, k, bf16)
+        if n < 0:
+            _build.check(-n, "spgan_edge_tail_scratch")
+        # scratch for v (and, on the tensor cores, wout's bf16 pair);
+        # freeing it on return is safe, since the caching allocator hands
+        # it only to work queued later on this stream
+        scratch = torch.empty(n, dtype=torch.float32, device=ee.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.spgan_edge_tail(
             ee.data_ptr(), w1.data_ptr(), a1.data_ptr(), w2.data_ptr(),
             a2.data_ptr(), wx.data_ptr(), ax.data_ptr(), wout.data_ptr(),
-            bout.data_ptr(), vbuf.data_ptr(), out.data_ptr(), B, N, C2 // 2,
-            F2, F, k, float(neg), int(ee.dtype == torch.bfloat16), stream)
+            bout.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N,
+            C2 // 2, F2, F, k, float(neg), bf16, stream)
     _build.check(err, "spgan_edge_tail")
     edge_tail.launches += 1
     return out

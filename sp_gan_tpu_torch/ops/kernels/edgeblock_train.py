@@ -23,16 +23,17 @@ arithmetic stay f32. The other inputs are f32: w1 [C, F2], w2 [F2, F],
 wx [2C, F], wout [k, F, F], the affines a1 [2, F2], a2 and ax [2, F] (scale
 row, shift row), gb2x [4, F] (BN2 and BNx gamma, beta) and gb1 [2, F2].
 
-On an H100 the four are bound by operations (the CUDA source has the
-counts and the design). In bf16 mode J and L run their products on the
-tensor cores (`csrc/edgeblock_train_tc.cu`) wherever the block's weights
-fit in shared memory (C <= 192 at F = 128, F2 = 64, k = 10); I, K, the
-f32 mode and wider blocks run them as f32 FMAs. Each wrapper launches its
-kernel for CUDA tensors
-and runs its plain PyTorch version (`*_plain`, the same arithmetic) for
-CPU tensors; `fn.launches` counts kernel launches. The CUDA kernels take
-C a multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128} and
-k <= 32; the plain versions any widths.
+On an H100 the four are bound by bytes in bf16 mode (the CUDA sources
+have the counts and the design). In bf16 mode J, K and L run their
+products on the tensor cores (`csrc/edgeblock_train_tc.cu`) wherever the
+block's weights fit in shared memory (at F = 128, F2 = 64, k = 10: C <=
+192 for J and L, C <= 208 for K); I, the f32 mode and wider blocks run
+them as f32 FMAs (`csrc/edgeblock_train.cu`). The scratch each call
+takes is sized for the path that runs. Each wrapper launches its kernel
+for CUDA tensors and runs its plain PyTorch version (`*_plain`, the same
+arithmetic) for CPU tensors; `fn.launches` counts kernel launches. The
+CUDA kernels take C a multiple of 4, F2 a multiple of 4 dividing 256, F
+in {64, 128} and k <= 32; the plain versions any widths.
 """
 
 from __future__ import annotations
@@ -221,7 +222,8 @@ def _launch(pass_: int, name: str, ee, k, neg, widths, fn_args,
             f"F={F}, F2={F2}, C={C}, k={k}")
     lib = _build.library()
     with torch.cuda.device(ee.device):
-        n = lib.spgan_ebt_scratch(pass_, B, N, C, F2, F, k)
+        bf16 = int(ee.dtype == torch.bfloat16)
+        n = lib.spgan_ebt_scratch(pass_, B, N, C, F2, F, k, bf16)
         if n < 0:
             _build.check(-n, "spgan_ebt_scratch")
         # freeing the scratch on return is safe: the caching allocator
@@ -234,7 +236,7 @@ def _launch(pass_: int, name: str, ee, k, neg, widths, fn_args,
         args = [t.clone() if t.data_ptr() % 16 else t for t in args]
         err = getattr(lib, f"spgan_ebt_{name}")(
             *[t.data_ptr() for t in args + outs], scratch.data_ptr(), B, N,
-            C, F2, F, k, float(neg), int(ee.dtype == torch.bfloat16), stream)
+            C, F2, F, k, float(neg), bf16, stream)
     _build.check(err, f"spgan_ebt_{name}")
 
 

@@ -298,26 +298,30 @@ def train_inputs(blk, ee: torch.Tensor, d_out: torch.Tensor, k: int):
                 ax=ax, gb2x=gb2x, gb1=gb1, wout=wout, k=k)
 
 
-def plain_j_l(i: dict) -> dict:
-    """Kernels J and L's plain versions, K's between them for s1."""
+def plain_j_k_l(i: dict) -> dict:
+    """Kernels J, K and L's plain versions, in the order the backward runs
+    them."""
     chain = (i["w1"], i["a1"], i["w2"], i["a2"], i["wx"], i["ax"])
     sums, d_wout, d_bout, d_u = kebt.edge_train_bwd1_plain(
         i["ee"], i["d_out"], *chain, i["gb2x"], i["wout"], i["k"])
-    s1 = kebt.edge_train_bwd2_plain(i["ee"], d_u, *chain, i["gb2x"], sums,
-                                    i["gb1"], i["k"])[0]
+    s1, d_w2 = kebt.edge_train_bwd2_plain(i["ee"], d_u, *chain, i["gb2x"],
+                                          sums, i["gb1"], i["k"])
     d_ee, d_w1, d_wx = kebt.edge_train_bwd3_plain(
         i["ee"], d_u, *chain, i["gb2x"], sums, i["gb1"], s1, i["k"])
-    return dict(sums=sums, d_wout=d_wout, d_bout=d_bout, d_ee=d_ee.float(),
-                d_w1=d_w1, d_wx=d_wx)
+    return dict(sums=sums, d_wout=d_wout, d_bout=d_bout, s1=s1, d_w2=d_w2,
+                d_ee=d_ee.float(), d_w1=d_w1, d_wx=d_wx)
 
 
-def test_plain_j_l_match_jax_at_full_width():
-    """Kernels J and L's plain versions (what the card holds the kernels
-    to) against JAX backward passes 1 and 3 in interpret mode, at the
-    default step's widths with bf16 edges: by the file's bf16 yardstick,
-    each output of J (the BN2 and BNx sums, d_wout, d_bout) and of L
-    (d_ee, d_w1, d_wx) no farther from JAX's float32 result than 1.1 times
-    JAX's bf16 one, plus 1e-6."""
+# the outputs of each backward pass, by kernel
+PASS_OUTPUTS = {"J": ("sums", "d_wout", "d_bout"), "K": ("s1", "d_w2"),
+                "L": ("d_ee", "d_w1", "d_wx")}
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """(the plain versions' outputs, {bf16: JAX's}) at the default step's
+    widths: JAX backward passes 1-3 in interpret mode on f32 and bf16
+    edges, the plain versions on the bf16 edges."""
     rng = np.random.default_rng(11)
     x = jnp.asarray(rng.standard_normal((WB, WN, WC)).astype(np.float32))
     ee = np.array(j_edge_features(x, WK, idx=j_knn(x, WK)))
@@ -336,18 +340,32 @@ def test_plain_j_l_match_jax_at_full_width():
             "sums": np.stack([d["bn_w2"]["bias"], d["bn_w2"]["scale"],
                               d["bn_x"]["bias"], d["bn_x"]["scale"]]),
             "d_wout": d["out_kernel"], "d_bout": d["out_bias"],
+            "s1": np.stack([d["bn_w1"]["bias"], d["bn_w1"]["scale"]]),
+            "d_w2": d["conv_w2"]["kernel"],
             "d_ee": d_ee.astype(jnp.float32),
             "d_w1": d["conv_w1"]["kernel"], "d_wx": d["conv_x"]["kernel"]}
-    ours = plain_j_l(train_inputs(
+    ours = plain_j_k_l(train_inputs(
         blk, torch.from_numpy(ee).to(torch.bfloat16),
         torch.from_numpy(cot), WK))
-    for name, t in ours.items():
+    return ours, theirs
+
+
+@pytest.mark.parametrize("kernel", list(PASS_OUTPUTS))
+def test_plain_j_l_match_jax_at_full_width(full_width, kernel):
+    """Kernels J, K and L's plain versions (what the card holds the
+    kernels to) against JAX backward passes 1, 2 and 3 in interpret mode,
+    at the default step's widths with bf16 edges: by the file's bf16
+    yardstick, each output of J (the BN2 and BNx sums, d_wout, d_bout), of
+    K (the BN1 sums, d_w2) and of L (d_ee, d_w1, d_wx) no farther from
+    JAX's float32 result than 1.1 times JAX's bf16 one, plus 1e-6."""
+    ours, theirs = full_width
+    for name in PASS_OUTPUTS[kernel]:
         exact = np.asarray(theirs[False][name], np.float32)
-        assert rel(t.numpy(), exact) <= BF16_FACTOR * rel(
+        assert rel(ours[name].numpy(), exact) <= BF16_FACTOR * rel(
             np.asarray(theirs[True][name], np.float32), exact) + 1e-6, name
 
 
-# bf16 cases of J and L on the card: (C, F2, F, k, B, N)
+# bf16 cases of J, K, L and C on the card: (C, F2, F, k, B, N)
 BF16_CASES = {
     "default widths": (64, 64, 128, 10, 2, 256),
     "k 20": (64, 64, 128, 20, 2, 128),
@@ -357,7 +375,61 @@ BF16_CASES = {
     "ragged last tile": (64, 64, 128, 10, 2, 125),
     "zero padding": (12, 8, 64, 10, 2, 128),
     "too wide for the tensor cores' layout": (256, 64, 128, 10, 1, 64),
+    "C's FMA widths": (6, 12, 64, 10, 2, 128),
 }
+# the kernels a case runs where not all four take its widths: kernel C
+# refuses C = 256 (its FMA kernels' f32 weights do not fit in shared memory
+# either), J, K and L refuse C and F2 that C's FMA kernels take in bf16 mode
+# (C's tensor cores take F = 128 only; at F = 64 it runs its FMA kernels)
+BF16_KERNELS = {"too wide for the tensor cores' layout": "JKL",
+                "C's FMA widths": "C"}
+# kernel C's contraction in bf16 mode (out - bout) against its plain
+# version's, in relative L2: wout carried as a bf16 pair keeps about 16
+# bits, and rounded to one bf16 it lies beyond this limit
+TAIL_PAIR_TOL = 5e-4
+
+
+def bf16_case_args(case: str, device: str) -> dict:
+    """The inputs of a BF16_CASES case, drawn from seed 1 on `device`: the
+    bf16 ee, the chain (w1, a1, w2, a2, wx, ax), gb2x, gb1, wout, d_out
+    and bout."""
+    Cc, F2, Fc, k, Bc, Nc = BF16_CASES[case]
+    g = torch.Generator(device=device).manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=g, device=device)
+    ee = r(Bc, Nc, k, 2 * Cc).to(torch.bfloat16)
+    aff = lambda n: torch.stack([1 + 0.1 * r(n), 0.1 * r(n)])
+    chain = (r(Cc, F2) / 8, aff(F2), r(F2, Fc) / 8, aff(Fc),
+             r(2 * Cc, Fc) / 11, aff(Fc))
+    gb2x, gb1 = torch.cat([aff(Fc), aff(Fc)]), aff(F2)
+    wout = r(k, Fc, Fc) / 36
+    d_out = r(Bc, Nc, Fc)
+    return dict(ee=ee, chain=chain, gb2x=gb2x, gb1=gb1, wout=wout,
+                d_out=d_out, bout=r(1, Fc), k=k)
+
+
+def tail_contraction_rel(out, ref, bout):
+    """Relative L2 of kernel C's contraction: out - bout against ref - bout."""
+    ref = ref - bout
+    return float((out - bout - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in BF16_CASES if "C" in BF16_KERNELS.get(c, "JKLC")])
+def test_tail_pair_limit_tells_pair_from_single_bf16(case):
+    """The card's limit on kernel C's bf16 contraction sees how wout is
+    carried: on each case's inputs, the plain version with wout as its
+    bf16 pair hi + lo lies within TAIL_PAIR_TOL of the plain version, and
+    with wout rounded to one bf16 beyond it (measured on these inputs
+    1.6e-3 to 1.7e-3 with one bf16, about 2e-6 with the pair)."""
+    a = bf16_case_args(case, "cpu")
+    hi = a["wout"].bfloat16().float()
+    pair = hi + (a["wout"] - hi).bfloat16().float()
+    args = lambda w: (a["ee"], *a["chain"], w, a["bout"], a["k"])
+    ref = edge_tail_plain(*args(a["wout"]))
+    assert tail_contraction_rel(edge_tail_plain(*args(pair)), ref,
+                                a["bout"]) <= TAIL_PAIR_TOL / 10
+    assert tail_contraction_rel(edge_tail_plain(*args(hi)), ref,
+                                a["bout"]) > 2 * TAIL_PAIR_TOL
 
 
 @pytest.mark.cuda
@@ -404,38 +476,46 @@ class TestOnCard:
 
     @pytest.mark.parametrize("case", list(BF16_CASES))
     def test_bf16_j_l_match_plain_versions(self, case):
-        """Kernels J and L in bf16 mode (the tensor cores) against their
-        plain versions on the card: each output within 5e-3 relative L2
-        (the sum orders differ, and where they straddle a bf16 rounding
-        point an operand moves by a bf16 ulp), and bit-identical over two
-        launches. The cases take the default step's widths, k = 20, 7
-        and 32 (the generic template, k bounded by 32), F = 64, a
-        point count that leaves each kernel a ragged last tile, C and F2
-        that the kernels pad with zeros, and a C whose weights do not fit
-        in shared memory (the FMA path in bf16 mode)."""
+        """Kernels J, K and L and kernel C in bf16 mode (the tensor cores)
+        against their plain versions on the card: each output within 5e-3
+        relative L2 (the sum orders differ, and where they straddle a bf16
+        rounding point an operand moves by a bf16 ulp), C's contraction
+        within TAIL_PAIR_TOL (it carries wout as a bf16 pair), and
+        bit-identical over two launches. The
+        cases take the default step's widths, k = 20, 7 and 32 (the
+        generic template, k bounded by 32), F = 64, a point count that
+        leaves each kernel a ragged last tile, C and F2 that the kernels
+        pad with zeros, a C whose weights do not fit in shared memory (J's,
+        K's and L's FMA paths in bf16 mode), and a C and F2 that only
+        kernel C takes (its FMA path in bf16 mode)."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA device (kernels have no CPU mode)")
         torch.backends.cuda.matmul.allow_tf32 = False
-        Cc, F2, Fc, k, Bc, Nc = BF16_CASES[case]
-        g = torch.Generator(device="cuda").manual_seed(1)
-        r = lambda *s: torch.randn(*s, generator=g, device="cuda")
-        ee = r(Bc, Nc, k, 2 * Cc).to(torch.bfloat16)
-        aff = lambda n: torch.stack([1 + 0.1 * r(n), 0.1 * r(n)])
-        chain = (r(Cc, F2) / 8, aff(F2), r(F2, Fc) / 8, aff(Fc),
-                 r(2 * Cc, Fc) / 11, aff(Fc))
-        gb2x, gb1 = torch.cat([aff(Fc), aff(Fc)]), aff(F2)
-        j_args = (ee, r(Bc, Nc, Fc), *chain, gb2x, r(k, Fc, Fc) / 36, k)
+        a = bf16_case_args(case, "cuda")
+        ee, chain, gb2x, gb1, wout, k = (
+            a[n] for n in ("ee", "chain", "gb2x", "gb1", "wout", "k"))
+        j_args = (ee, a["d_out"], *chain, gb2x, wout, k)
         sums, _, _, d_u = j_ref = kebt.edge_train_bwd1_plain(*j_args)
-        s1 = kebt.edge_train_bwd2_plain(ee, d_u, *chain, gb2x, sums, gb1,
-                                        k)[0]
-        l_args = (ee, d_u, *chain, gb2x, sums, gb1, s1, k)
+        k_args = (ee, d_u, *chain, gb2x, sums, gb1, k)
+        k_ref = kebt.edge_train_bwd2_plain(*k_args)
+        l_args = (ee, d_u, *chain, gb2x, sums, gb1, k_ref[0], k)
         l_ref = kebt.edge_train_bwd3_plain(*l_args)
+        c_args = (ee, *chain, wout, a["bout"], k)
+        c_ref = (edge_tail_plain(*c_args),)
         for tag, fn, args, ref in (
                 ("J", kebt.edge_train_bwd1, j_args, j_ref),
-                ("L", kebt.edge_train_bwd3, l_args, l_ref)):
+                ("K", kebt.edge_train_bwd2, k_args, k_ref),
+                ("L", kebt.edge_train_bwd3, l_args, l_ref),
+                ("C", lambda *a: (edge_tail(*a),), c_args, c_ref)):
+            if tag not in BF16_KERNELS.get(case, "JKLC"):
+                continue
             out, again = fn(*args), fn(*args)
             for n, (t, t2, z) in enumerate(zip(out, again, ref)):
                 assert torch.equal(t, t2), f"{case}: {tag}[{n}]"
                 t, z = t.float(), z.float()
                 err = float((t - z).norm() / z.norm())
                 assert err <= 5e-3, f"{case}: {tag}[{n}] {err}"
+        if "C" in BF16_KERNELS.get(case, "JKLC"):
+            err = tail_contraction_rel(edge_tail(*c_args), c_ref[0],
+                                       a["bout"])
+            assert err <= TAIL_PAIR_TOL, f"{case}: C's contraction {err}"
