@@ -12,6 +12,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               (kernel B forward, kernel D backward) against a plain
               autograd graph; kernel F at the N=8192 campaign's shape,
               kernel G at N=16384 against kernel A and its plain version,
+              bit for bit and twice alike, on the template, normal
+              draws and hard inputs (an integer grid at C = 64 and 3,
+              a cloud far from the origin, one point repeated),
               kernel H at the N=16384 approx step's shape and on a hard
               idx (a hub of in-degree over 4096, targets with no source,
               entries out of range; f32 and bf16, F = 3, 64, 128).
@@ -91,7 +94,9 @@ Phases, in order; any failure raises and the script exits nonzero:
               --seed): two requests of 16 shapes through
               Manipulator.generate, each launching kernel G and kernel C
               twice; shapes, finiteness, radius; the card against the CPU
-              at B=1; one profiled request.
+              at B=1; kernel G bit-equal to kernel A and its plain
+              version on the 64-channel features the request hands it;
+              one profiled request, G's launches named by pass.
 9. largen_train_16k - approx training at N=16384, bs=2: a few steps whose
               EdgeConv2 band is plain PyTorch and whose gather backward is
               kernel H, once a step.
@@ -103,7 +108,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               --fused_train step: tile pass, d_u product, wout's bf16
               pair, weight-gradient products, contraction, reductions); M,
               N and O at the shapes of phase 3b; kernel H pass by pass
-              (the profiler's device time of each of its kernels).
+              (the profiler's device time of each of its kernels); kernel G
+              on the template, normal draws and P2's own features, and
+              its filter's margin swept from the wrapper's down to none on
+              the 64-channel inputs (none must break the offset cloud).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Needs no file outside the sources.
@@ -126,6 +134,7 @@ sys.path.insert(0, HERE)
 # published H100 SXM peaks (NVIDIA data sheet) for the bound column
 F32_FLOPS = 67e12          # f32 outside the tensor cores, an FMA as two
 F32_OPS = F32_FLOPS / 2    # f32 instructions that are not FMAs (sub, max)
+TF32_FLOPS = 495e12        # dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -438,22 +447,52 @@ def tc_part(name: str):
     return f"{TC_OWN.get(part) or TC_PASSES[m.group(3)]}: {TC_PARTS[part]}"
 
 
-def profile_call(fn, label: str, group=None) -> dict:
+# idle seconds before the marker launch of each attempt of profile_call
+PROFILE_LEADS_S = (0.1, 1.0, 5.0, 20.0)
+
+
+def profile_call(fn, label: str, group=None, expect=()) -> dict:
     """Device time by kernel of one call of `fn` under torch.profiler, and
     the device's idle share of its wall time; with `group` (a kernel's
-    name -> a label or None), also the device time of each label."""
+    name -> a label or None), also the device time of each label.
+
+    On the H100 machine, from about 80 s into this script on, the trace
+    lost the launches of a profile's first moments: P2's request lost the
+    first launches of its kNN, which a profile early in a process
+    records. An idle lead of up to 5 s before the first launch avoided
+    it. So each attempt idles for a lead,
+    launches a marker kernel (`torch.cuda._sleep`, "spin_kernel", left out
+    of the figures), then calls `fn`; an attempt that did not record the
+    marker, or a kernel whose name holds a string of `expect`, is made
+    again with the next lead, and after the last one the call raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+    for lead in PROFILE_LEADS_S:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(lead)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        lost = [m for m in ("spin_kernel",) + tuple(expect)
+                if not any(m in n for n in names)]
+        if not lost:
+            break
+        log(f"  profile of {label} after a lead of {lead} s recorded no "
+            f"{lost}")
+    else:
+        raise AssertionError(f"profile of {label}: no record of {lost}")
     rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[2])
+                   and e.self_device_time_total > 0
+                   and "spin_kernel" not in e.key), key=lambda r: -r[2])
     busy = sum(ms for _, _, ms in rows)
     log(f"  profiled {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms, idle {100 * (1 - busy / wall_ms):.1f}%")
@@ -1321,29 +1360,115 @@ def check_knn_edge_window(x, k, window) -> dict:
     return worst
 
 
-def check_knn_blocked(x, k) -> dict:
+def check_knn_blocked(x, k, label: str = "") -> dict:
     """Kernel G against kernel A at x's shape and against its plain version
-    on the first two clouds: indices and distances bit-equal (the three
-    compute the same f32 distances and order them alike)."""
+    on the first two clouds, and against itself over two launches: indices
+    and distances bit-equal (the three compute the same f32 distances and
+    order them alike; G's tensor-core filter only chooses which keys get
+    that computation)."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.knn import knn
     from sp_gan_tpu_torch.ops.kernels.knn_blocked import (knn_blocked,
                                                           knn_blocked_plain)
     idx, dist = knn_blocked(x, k)
+    idx2, dist2 = knn_blocked(x, k)
     idx_a, dist_a = knn(x, k)
     torch.cuda.synchronize()
     x2 = x[:2].contiguous()
     idx_p, dist_p = knn_blocked_plain(x2, k)
-    tag = f"knn_blocked[{list(x.shape)}, k={k}]"
+    tag = f"knn_blocked[{label}{list(x.shape)}, k={k}]"
     res = {"vs_knn": int((idx != idx_a).sum()) + int((dist != dist_a).sum()),
            "vs_plain": int((idx[:2] != idx_p).sum())
            + int((dist[:2] != dist_p).sum()),
+           "vs_again": int((idx != idx2).sum()) + int((dist != dist2).sum()),
            "max_abs_err": (dist[:2] - dist_p).abs().max().item()}
     log(f"  {tag}: {res['vs_knn']} entries differ from kernel A, "
-        f"{res['vs_plain']} from the plain version at B=2")
-    if res["vs_knn"] or res["vs_plain"]:
+        f"{res['vs_plain']} from the plain version at B=2, "
+        f"{res['vs_again']} between two launches")
+    if res["vs_knn"] or res["vs_plain"] or res["vs_again"]:
         raise AssertionError(f"{tag}: not bit-equal ({res})")
     return res
+
+
+def knn_blocked_hard(seed: int):
+    """Kernel G on the inputs where a filter that broke its contract would
+    show, at P2's N: an integer grid round(4 randn) at C = 64 and C = 3
+    (many exact ties), randn + 1000 at B = 2 (the margin then covers every
+    distance, so the filter must keep every key) and one point repeated.
+    Draws from a generator of its own. Returns the checks' results and the
+    inputs, by name."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, k = SERVE_16K, 10
+
+    def r(b, c):
+        return torch.randn(b, n, c, generator=gen, device="cuda")
+    cases = {"grid": torch.round(4 * r(4, 64)),
+             "grid3": torch.round(4 * r(4, 3)),
+             "offset": r(2, 64) + 1000,
+             "repeat": r(1, 64)[:, :1].expand(2, n, 64).contiguous(),
+             "repeat3": r(1, 3)[:, :1].expand(2, n, 3).contiguous()}
+    res = {label: check_knn_blocked(x, k, label + ", ")
+           for label, x in cases.items()}
+    return res, cases
+
+
+# the margins of kernel G's filter that g_margin_sweep tries: the wrapper's
+# (2^-12), smaller ones down to 2^-24, and none
+G_SWEEP_MU = [2.0 ** -e for e in range(12, 25, 2)] + [0.0]
+
+
+def g_margin_sweep(inputs: dict, k: int) -> dict:
+    """Kernel G launched with the filter's margin mu from G_SWEEP_MU (nu the
+    wrapper's, 0 with mu = 0) on 64-channel inputs, each against kernel A:
+    the entries that differ at each mu, and the smallest mu at which every
+    input, and at every larger mu, stayed bit-equal. The control: with mu =
+    nu = 0 the cloud far from the origin ("offset") must differ, or the
+    bit-equality checks could not see a margin that the card's TF32 sums
+    break."""
+    from sp_gan_tpu_torch.ops.kernels.knn import knn
+    from sp_gan_tpu_torch.ops.kernels.knn_blocked import FILTER_NU, _launch
+    ref = {name: knn(x, k) for name, x in inputs.items()}
+    differ = []
+    for mu in G_SWEEP_MU:
+        row = {}
+        for name, x in inputs.items():
+            i, d = _launch(x, k, mu, FILTER_NU if mu else 0.0)
+            row[name] = (int((i != ref[name][0]).sum())
+                         + int((d != ref[name][1]).sum()))
+        differ.append(row)
+        log(f"  knn_blocked margin mu={mu:.4g}: entries differing from "
+            f"kernel A {row}")
+    smallest = None
+    for mu, row in zip(G_SWEEP_MU, differ):
+        if any(row.values()):
+            break
+        smallest = mu
+    log(f"  knn_blocked: smallest margin exact on every input {smallest}")
+    if not differ[-1]["offset"]:
+        raise AssertionError("kernel G with no margin equals kernel A on the "
+                             "offset cloud: the check cannot see a margin "
+                             "that fails")
+    if any(differ[0].values()):
+        raise AssertionError("kernel G differs from kernel A at the "
+                             "wrapper's margin")
+    return {"mu": G_SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
+
+
+# kernel G's launches (csrc/knn_blocked.cu) by pass
+G_PASSES = {"knn_filter_kernel": "G: filter pass (C > 4)",
+            "knn_exact_kernel": "G: exact pass (C <= 4)",
+            "knn_norms_kernel": "G: norms", "knn_merge_kernel": "G: merge"}
+
+
+def g_pass(name: str):
+    """"G: <pass>" of a launch of kernel G, "C" of kernel C's f32 mode
+    (csrc/edgeblock.cu), else None."""
+    for kern, label in G_PASSES.items():
+        if kern in name:
+            return label
+    c_tail = re.search(r"\b(edge_rows|conv_out)_kernel", name)
+    return "C" if c_tail else None
 
 
 def check_scatter_add(g, idx, n) -> dict:
@@ -1468,14 +1593,22 @@ def largen_serve_phase(seed: int) -> dict:
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.manipulate import Manipulator
     from sp_gan_tpu_torch.nn.generator import Generator
-    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops import dispatch, kernels
     cfg = Config(np=SERVE_16K)
     man = Manipulator(cfg, Generator(cfg, seed=seed), device="cuda")
     if not man.fused:
         raise AssertionError("Config(np=16384) must be served by the fused "
                              "path")
     B = REQUEST_16K
-    man.generate(B, seed=seed + 1000, batch=B)             # warm-up
+    # warm-up, recording the 64-channel features the request hands kernel G
+    seen = {}
+    real = dispatch.knn_blocked
+
+    def record(x, k):
+        seen.setdefault(x.shape[-1], x.clone())
+        return real(x, k)
+    with mock.patch.object(dispatch, "knn_blocked", record):
+        man.generate(B, seed=seed + 1000, batch=B)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t = time.perf_counter()
@@ -1508,11 +1641,14 @@ def largen_serve_phase(seed: int) -> dict:
         f"{p99:.3g}, median {med:.3g} (cpu {cpu_s:.1f} s)")
     if not (p99 <= 1e-3 and med <= 1.2e-4):
         raise AssertionError("cuda output disagrees with the cpu reference")
+    features = check_knn_blocked(seen[64], cfg.k, "P2 features, ")
     prof = profile_call(lambda: man.generate(B, seed=seed, batch=B),
-                        f"request of {B} shapes at N={cfg.np}")
+                        f"request of {B} shapes at N={cfg.np}", g_pass,
+                        expect=tuple(G_PASSES)[:3])
     return {"ms_per_request": ms, "launches": launches,
             "cpu_check": {"max": float(err.max()), "p99": float(p99),
-                          "median": float(med)}, "profile": prof}
+                          "median": float(med)},
+            "knn_blocked_features": features, "profile": prof}, seen[64]
 
 
 def auction_pairs_clouds(n: int, clouds: int, seed: int):
@@ -2131,6 +2267,7 @@ def main() -> None:
            64: torch.randn(REQUEST_16K, SERVE_16K, 64, generator=gen,
                            device=dev)}
     res_g = {c: check_knn_blocked(xg, k) for c, xg in x_g.items()}
+    res_g_hard, x_g_hard = knn_blocked_hard(args.seed + 17)
     # kernel H at the N=16384 approx step's shape: the gather's bf16
     # cotangent [2, 16384 * 10, 64] at band picks of W=512
     n_h = TRAIN_16K["np"]
@@ -2231,7 +2368,7 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 8
     ph.start("largen_serve")
-    serve16 = largen_serve_phase(args.seed)
+    serve16, x_p2 = largen_serve_phase(args.seed)
     log(json.dumps({"largen_serve": serve16}))
     ph.end()
 
@@ -2416,21 +2553,44 @@ def main() -> None:
         bound_ms=f_bound, bound_by=f_by, library_ms=None,
         shape=[Bf, Nf, Cf], window=W, path="N=8192 approx training"))
     # kernel G at both call sites of a request of 16 at N=16384, kernel A
-    # at the same shapes beside it
+    # at the same shapes beside it: EdgeConv1's call on the template,
+    # EdgeConv2's on normal draws (the row's time, comparable with earlier
+    # readings on draws) and on the features a P2 request hands it (x_p2)
     from sp_gan_tpu_torch.ops.kernels.knn_blocked import (knn_blocked,
                                                           knn_blocked_plain)
     g_calls = {}
-    for c, xg in x_g.items():
+    for name, c, xg, checked in (
+            ("C=3", 3, x_g[3], res_g[3]), ("C=64", 64, x_g[64], res_g[64]),
+            ("C=64, P2 features", 64, x_p2,
+             serve16["knn_blocked_features"])):
         Bg, Ng, _ = xg.shape
-        g_bound, g_by = bound(2 * Bg * Ng * Ng * c,
-                              Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4)
-        g_calls[f"C={c}"] = dict(
+        refined = torch.zeros(1, dtype=torch.int64, device=dev)
+        knn_blocked(xg, k, refined=refined)
+        pairs = int(refined.item())
+        # the kernel's own work: above 4 channels the three TF32 products of
+        # every pair on the tensor cores, and for every pair it folds
+        # exactly 2 C + 3 f32 operations (multiply and add separate);
+        # its bytes: x read once, idx and dist written once
+        cp = -(-c // 16) * 16
+        t_ops = (pairs * (2 * c + 3) / F32_OPS
+                 + (3 * 2 * Bg * Ng * Ng * cp / TF32_FLOPS if c > 4 else 0))
+        t_bytes = (Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4) / HBM_BYTES_PER_S
+        old_bound, _ = bound(2 * Bg * Ng * Ng * c,
+                             Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4)
+        g_calls[name] = dict(
             shape=list(xg.shape), ms=cuda_ms(lambda: knn_blocked(xg, k), 5),
             knn_ms=cuda_ms(lambda: knn(xg, k), 3),
             plain_ms=cuda_ms(lambda: knn_blocked_plain(xg, k), 1),
-            bound_ms=g_bound, bound_by=g_by,
-            mismatches=res_g[c]["vs_knn"] + res_g[c]["vs_plain"])
-        log(f"  knn_blocked[C={c}]: {g_calls[f'C={c}']}")
+            refined_pairs=pairs, refined_per_query=pairs / (Bg * Ng),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes",
+            old_bound_ms=old_bound, mismatches=checked["vs_knn"])
+        log(f"  knn_blocked[{name}]: {g_calls[name]}")
+    margin = g_margin_sweep({"offset": x_g_hard["offset"],
+                             "grid": x_g_hard["grid"],
+                             "repeat": x_g_hard["repeat"],
+                             "randn": x_g[64], "P2 features": x_p2}, k)
+    req = (g_calls["C=3"], g_calls["C=64"])
     rows.append(dict(
         name="knn_blocked", route="cuda",
         source="sp_gan_tpu_torch/csrc/knn_blocked.cu",
@@ -2439,12 +2599,26 @@ def main() -> None:
         launches=serve16["launches"]["knn_blocked"],
         max_abs_err=max(r["max_abs_err"] for r in res_g.values()),
         max_err=max(r["max_abs_err"] for r in res_g.values()),
-        ms=sum(c["ms"] for c in g_calls.values()),
-        plain_ms=sum(c["plain_ms"] for c in g_calls.values()),
-        knn_ms=sum(c["knn_ms"] for c in g_calls.values()),
-        bound_ms=sum(c["bound_ms"] for c in g_calls.values()),
+        ms=sum(c["ms"] for c in req),
+        plain_ms=sum(c["plain_ms"] for c in req),
+        knn_ms=sum(c["knn_ms"] for c in req),
+        bound_ms=sum(c["bound_ms"] for c in req),
         bound_by=g_calls["C=64"]["bound_by"], library_ms=None,
-        per="one request of 16 at N=16384: the edge1 and the edge2 call",
+        old_bound_ms=sum(c["old_bound_ms"] for c in req),
+        ms_on_p2_features=(g_calls["C=3"]["ms"]
+                           + g_calls["C=64, P2 features"]["ms"]),
+        hard={**{f"C={c}": {kk: r[kk] for kk in ("vs_knn", "vs_plain",
+                                                 "vs_again")}
+                 for c, r in res_g.items()},
+              **{name: {kk: r[kk] for kk in ("vs_knn", "vs_plain",
+                                             "vs_again")}
+                 for name, r in res_g_hard.items()},
+              "P2 features": {kk: serve16["knn_blocked_features"][kk]
+                              for kk in ("vs_knn", "vs_plain", "vs_again")}},
+        margin=margin,
+        per="one request of 16 at N=16384: the edge1 call (template) and "
+            "the edge2 call (normal draws; ms_on_p2_features on the "
+            "request's own features)",
         calls=g_calls, path="serve at N=16384"))
     # kernel H at the N=16384 approx step's shape; index_add_ computes the
     # same function in one PyTorch call (on the f32 rows: it takes one type)
