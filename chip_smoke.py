@@ -10,7 +10,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. kernels  - each kernel against its plain PyTorch version on the card at
               the serving and training shapes, and the autograd edge op
               (kernel B forward, kernel D backward) against a plain
-              autograd graph; kernel F at the N=8192 campaign's shape,
+              autograd graph; kernel C's f32 mode (three TF32 products
+              a product on the tensor cores) at both serving calls
+              within 1e-5 + 1e-4 relative of its plain version and
+              twice alike, also on the serving edges offset by +10 and
+              scaled by 10; kernel F at the N=8192 campaign's shape,
               kernel G at N=16384 against kernel A and its plain version,
               bit for bit and twice alike, on the template, normal
               draws and hard inputs (an integer grid at C = 64 and 3,
@@ -96,15 +100,21 @@ Phases, in order; any failure raises and the script exits nonzero:
               twice; shapes, finiteness, radius; the card against the CPU
               at B=1; kernel G bit-equal to kernel A and its plain
               version on the 64-channel features the request hands it;
-              one profiled request, G's launches named by pass.
+              kernel C's f32 mode on the edges the request hands it, as
+              in phase 3; one profiled request, G's and C's launches
+              named by pass.
 9. largen_train_16k - approx training at N=16384, bs=2: a few steps whose
               EdgeConv2 band is plain PyTorch and whose gather backward is
               kernel H, once a step.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
-              I-L and C's bf16 mode at the --fused_train step's shape (J,
-              K, L and C also split by launch, from the profiled
+              kernel C's f32 mode at both calls of a serving request and
+              of a P2 request (its bound the route's own work: three TF32
+              products at the TF32 peak, the f32 FMA bound beside it; its
+              serving call split by launch from the serving profile);
+              I-L and C's bf16 mode at the --fused_train step's shape (I,
+              J, K, L and C also split by launch, from the profiled
               --fused_train step: tile pass, d_u product, wout's bf16
               pair, weight-gradient products, contraction, reductions); M,
               N and O at the shapes of phase 3b; kernel H pass by pass
@@ -398,22 +408,47 @@ def tail_args(block, ee):
 
 
 def check_edge_tail(args, k):
-    """Kernel C against its plain version (TF32 off): |err| <= 1e-5 +
-    1e-4 |plain|. The two sum the same f32 products in other orders (up to
-    1280 terms in conv_out) and take exp from different libraries."""
+    """Kernel C in f32 mode against its plain version (TF32 off): |err| <=
+    1e-5 + 1e-4 |plain|, and two launches bit-identical. At the serving
+    and P2 widths it runs on the tensor cores, each product as three TF32
+    products (hi hi + hi lo + lo hi, each operand's lo its rounding error),
+    which carry about 22 of an operand's bits; it sums in other orders
+    than the plain version and takes exp from another library."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
                                                         edge_tail_plain)
-    out = edge_tail(*args, k=k)
+    out, again = edge_tail(*args, k=k), edge_tail(*args, k=k)
     torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError("edge_tail: two launches differ")
     ref = edge_tail_plain(*args, k=k)
     err = (out - ref).abs()
-    if not bool(torch.isfinite(out).all()) or \
-            bool((err > 1e-5 + 1e-4 * ref.abs()).any()):
+    excess = (err - (1e-5 + 1e-4 * ref.abs())).max().item()
+    if not bool(torch.isfinite(out).all()) or excess > 0:
         raise AssertionError(f"edge_tail: max abs err {err.max().item()} "
                              f"on outputs up to {ref.abs().max().item()}")
     return {"max_abs_err": err.max().item(),
-            "max_abs_out": ref.abs().max().item()}
+            "max_abs_out": ref.abs().max().item(), "gate_excess": excess}
+
+
+# the hard inputs of kernel C's f32 mode: the serving edges offset by +10
+# (the centre half far from 0) and scaled by 10 (the relative part of the
+# gate binds), as tests/test_torch_edge_tail.py draws them
+TAIL_HARD = {"offset +10": (10.0, 1.0), "scaled x10": (0.0, 10.0)}
+
+
+def check_edge_tail_hard(tails: dict, k) -> dict:
+    """check_edge_tail on each call's edges moved as TAIL_HARD says."""
+    import torch
+    res = {}
+    for name, targs in tails.items():
+        for label, (offset, scale) in TAIL_HARD.items():
+            with torch.no_grad():
+                ee = (targs[0] * scale + offset).contiguous()
+            res[f"{name}, {label}"] = check_edge_tail((ee, *targs[1:]), k)
+            log(f"  edge_tail[{name}, {label}]: {res[f'{name}, {label}']}")
+            del ee
+    return res
 
 
 def bound(flops: float, nbytes: float, rate: float = F32_FLOPS):
@@ -432,13 +467,26 @@ TC_PARTS = {"tile": "tile pass", "du_gemm": "d_u product",
             "round": "bf16 rounding", "split": "wout's bf16 pair",
             "wg_gemm": "weight-gradient products",
             "tail_gemm": "contraction with wout", "sum": "reductions"}
-TC_PASSES = {"1": "J", "2": "K", "3": "L", "4": "C"}
+TC_PASSES = {"0": "I", "1": "J", "2": "K", "3": "L", "4": "C"}
 TC_OWN = {"du_gemm": "J", "round": "J", "split": "C", "tail_gemm": "C"}
 
 
+# the launches of kernel C in f32 mode on the tensor cores
+# (csrc/edgeblock_tf32.cu) by part
+TF_PARTS = {"tile": "tile pass", "transpose": "wout transposed",
+            "tail_gemm": "contraction with wout"}
+
+
+def tf_part(name: str):
+    """"C (f32): <part>" of a launch of kernel C's f32 mode on the tensor
+    cores, else None."""
+    m = re.search(r"\btf_(tile|transpose|tail_gemm)_kernel", name)
+    return f"C (f32): {TF_PARTS[m.group(1)]}" if m else None
+
+
 def tc_part(name: str):
-    """"<kernel>: <part>" of a kernel's launch if it is one of J's, K's, L's
-    or C's in bf16 mode, else None."""
+    """"<kernel>: <part>" of a kernel's launch if it is one of I's, J's,
+    K's, L's or C's in bf16 mode, else None."""
     m = re.search(r"\btc_(tile|du_gemm|round|split|wg_gemm|tail_gemm|sum)"
                   r"_kernel(<(\d+))?", name)
     if not m:
@@ -691,9 +739,9 @@ def check_wout_pair(a: dict, out, ref) -> dict:
 
 def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
     """I-L and kernel C against their plain versions on the same inputs
-    (TF32 off); I-L, and C in bf16 mode, bit-identical over two launches
-    (fixed-order sums, no float atomics), C's bf16 contraction also by
-    `check_wout_pair`. See `hold`."""
+    (TF32 off); each bit-identical over two launches (fixed-order sums, no
+    float atomics), C's bf16 contraction also by `check_wout_pair`. See
+    `hold`."""
     import torch
     res = {}
     for name, (fn, plain, args) in train_kernel_calls(a).items():
@@ -701,9 +749,8 @@ def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
         torch.cuda.synchronize()
         ref = plain(*args)
         as_list = lambda t: [t] if torch.is_tensor(t) else list(t)
-        twice = name != "edge_tail" or a["ee"].dtype == torch.bfloat16
         res[name] = hold(f"{name}[{label}]", as_list(out), as_list(ref),
-                         l2_tol, as_list(again) if twice else None)
+                         l2_tol, as_list(again))
         if name == "edge_tail" and a["ee"].dtype == torch.bfloat16:
             res["wout_pair"] = check_wout_pair(a, out, ref)
     return res
@@ -912,8 +959,8 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
     tr, res["fused_train"] = timed_training(
         Config(seed=seed, fused_train=True), TIMED_STEPS, WARMUP_STEPS,
         PER_STEP_FUSED, "--fused_train step", FUSED_STILL)
-    # the tensor-core launches of J, K, L (one call each) and C (two calls)
-    # in the profiled step, by part
+    # the tensor-core launches of I, C (two calls each), J, K and L (one
+    # call each) in the profiled step, by part
     prof = res["fused_train"]["profile"] = profile_call(
         lambda: tr.time_steps(1), "--fused_train step", tc_part)
     prof["tc_split_ms"] = {}
@@ -922,7 +969,7 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
         prof["tc_split_ms"].setdefault(kern, {})[part] = ms
     prof["tc_share"] = {kern: sum(parts.values()) / prof["wall_ms"]
                         for kern, parts in prof["tc_split_ms"].items()}
-    log("  kernels J, K, L and C's share of the profiled --fused_train "
+    log("  kernels I, J, K, L and C's share of the profiled --fused_train "
         "step: " + ", ".join(
             f"{kern} {sum(parts.values()):.3f} ms ({100 * share:.1f}% of "
             f"{prof['wall_ms']:.3f} ms wall, "
@@ -935,7 +982,7 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
         Config(seed=seed, fused_dphase=True), TIMED_STEPS, WARMUP_STEPS,
         PER_STEP_DPHASE, "--fused_dphase step")
     res["fused_dphase"]["profile"] = profile_call(
-        lambda: tr.time_steps(1), "--fused_dphase step")
+        lambda: tr.time_steps(1), "--fused_dphase step", tc_part)
     del tr
     res["small_step"] = check_small_steps(seed, step_seeds,
                                           dict(fused_train=True))
@@ -1462,13 +1509,11 @@ G_PASSES = {"knn_filter_kernel": "G: filter pass (C > 4)",
 
 
 def g_pass(name: str):
-    """"G: <pass>" of a launch of kernel G, "C" of kernel C's f32 mode
-    (csrc/edgeblock.cu), else None."""
+    """"G: <pass>" of a launch of kernel G, else None."""
     for kern, label in G_PASSES.items():
         if kern in name:
             return label
-    c_tail = re.search(r"\b(edge_rows|conv_out)_kernel", name)
-    return "C" if c_tail else None
+    return None
 
 
 def check_scatter_add(g, idx, n) -> dict:
@@ -1601,13 +1646,21 @@ def largen_serve_phase(seed: int) -> dict:
                              "path")
     B = REQUEST_16K
     # warm-up, recording the 64-channel features the request hands kernel G
-    seen = {}
-    real = dispatch.knn_blocked
+    # and the arguments of its two calls of kernel C
+    from sp_gan_tpu_torch.nn import fused_eval
+    seen, tails = {}, {}
+    real, real_tail = dispatch.knn_blocked, fused_eval.edge_tail
 
     def record(x, k):
         seen.setdefault(x.shape[-1], x.clone())
         return real(x, k)
-    with mock.patch.object(dispatch, "knn_blocked", record):
+
+    def record_tail(*targs, k, neg):
+        tails.setdefault(f"edge{len(tails) + 1}",
+                         tuple(t.clone() for t in targs))
+        return real_tail(*targs, k=k, neg=neg)
+    with mock.patch.object(dispatch, "knn_blocked", record), \
+            mock.patch.object(fused_eval, "edge_tail", record_tail):
         man.generate(B, seed=seed + 1000, batch=B)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1642,13 +1695,20 @@ def largen_serve_phase(seed: int) -> dict:
     if not (p99 <= 1e-3 and med <= 1.2e-4):
         raise AssertionError("cuda output disagrees with the cpu reference")
     features = check_knn_blocked(seen[64], cfg.k, "P2 features, ")
+    tail = {}
+    for name, targs in tails.items():
+        tail[name] = check_edge_tail(targs, cfg.k)
+        log(f"  edge_tail[{name} at P2, ee {list(targs[0].shape)}]: "
+            f"{tail[name]}")
     prof = profile_call(lambda: man.generate(B, seed=seed, batch=B),
-                        f"request of {B} shapes at N={cfg.np}", g_pass,
+                        f"request of {B} shapes at N={cfg.np}",
+                        lambda n: g_pass(n) or tf_part(n),
                         expect=tuple(G_PASSES)[:3])
     return {"ms_per_request": ms, "launches": launches,
             "cpu_check": {"max": float(err.max()), "p99": float(p99),
                           "median": float(med)},
-            "knn_blocked_features": features, "profile": prof}, seen[64]
+            "knn_blocked_features": features, "edge_tail": tail,
+            "profile": prof}, seen[64], tails
 
 
 def auction_pairs_clouds(n: int, clouds: int, seed: int):
@@ -2256,6 +2316,7 @@ def main() -> None:
             res_c[name] = check_edge_tail(targs, k)
             log(f"  edge_tail[{name}, ee {list(targs[0].shape)}]: "
                 f"{res_c[name]}")
+        res_c_hard = check_edge_tail_hard(tails, k)
     # kernel F at the N=8192 campaign's shape: EdgeConv2's input at bs=4
     camp = Config(**CAMPAIGN_N8192)
     x_f = torch.randn(camp.bs, camp.np, 64, generator=gen, device=dev)
@@ -2318,10 +2379,11 @@ def main() -> None:
     if not np.allclose(radius, 1.0, atol=1e-4):
         raise AssertionError("normalized clouds must reach radius 1")
     check_small_reference(args.seed)
-    prof = profile_call(lambda: man.generate(64, seed=args.seed),
-                        "request of 64 shapes")
+    serve_prof = profile_call(lambda: man.generate(64, seed=args.seed),
+                              "request of 64 shapes", tf_part)
     log(json.dumps({"serve": {"ms_per_request": serve_s * 1e3 / 2,
-                              "launches": launches, "profile": prof}}))
+                              "launches": launches,
+                              "profile": serve_prof}}))
     ph.end()
 
     # ---------------------------------------------------------------- 5
@@ -2368,7 +2430,7 @@ def main() -> None:
 
     # ---------------------------------------------------------------- 8
     ph.start("largen_serve")
-    serve16, x_p2 = largen_serve_phase(args.seed)
+    serve16, x_p2, tails_p2 = largen_serve_phase(args.seed)
     log(json.dumps({"largen_serve": serve16}))
     ph.end()
 
@@ -2477,37 +2539,58 @@ def main() -> None:
                          20),
         bound_ms=d_bound, bound_by=d_by, library_ms=None,
         shape=[Bt, N, k, C], path="train"))
-    # kernel C at both call sites of one request
-    calls = {}
-    for name, targs in tails.items():
+    # kernel C at both call sites of one request, and of one P2 request,
+    # all four on the tensor cores (their widths are ebt_tf_fits'). The
+    # bound counts the port's own work: three TF32 products of each
+    # multiply-add at the TF32 peak; beside it the function's f32
+    # multiply-adds at the f32 rate, the FMA design's bound. Bytes: ee and
+    # the weights read and out written once.
+    def tail_call(targs, reps):
         ee, w1, w2 = targs[0], targs[1], targs[3]
-        _, _, _, c2 = ee.shape
+        Bc, Nc, _, c2 = ee.shape
         f2, f = w1.shape[1], w2.shape[1]
-        flops = 2 * B * N * k * (c2 // 2 * f2 + f2 * f + c2 * f + f * f)
+        flops = 2 * Bc * Nc * k * (c2 // 2 * f2 + f2 * f + c2 * f + f * f)
         nbytes = 4 * (ee.numel() + sum(t.numel() for t in targs[1:])
-                      + B * N * f)
-        c_bound, c_by = bound(flops, nbytes)
-        calls[name] = dict(
-            ee=list(ee.shape), F2=f2, F=f,
-            ms=cuda_ms(lambda: edge_tail(*targs, k=k), 20),
-            plain_ms=cuda_ms(lambda: edge_tail_plain(*targs, k=k), 10),
-            bound_ms=c_bound, bound_by=c_by,
-            max_abs_err=res_c[name]["max_abs_err"])
+                      + Bc * Nc * f)
+        c_bound, c_by = bound(3 * flops, nbytes, TF32_FLOPS)
+        return dict(ee=list(ee.shape), F2=f2, F=f,
+                    ms=cuda_ms(lambda: edge_tail(*targs, k=k), reps),
+                    plain_ms=cuda_ms(lambda: edge_tail_plain(*targs, k=k),
+                                     max(reps // 2, 3)),
+                    bound_ms=c_bound, bound_by=c_by,
+                    old_bound_ms=bound(flops, nbytes)[0])
+    calls, calls_p2 = {}, {}
+    for name, targs in tails.items():
+        calls[name] = dict(tail_call(targs, 20),
+                           max_abs_err=res_c[name]["max_abs_err"])
         log(f"  edge_tail[{name}]: {calls[name]}")
+    for name, targs in tails_p2.items():
+        calls_p2[name] = dict(tail_call(targs, 10),
+                              max_abs_err=serve16["edge_tail"][name][
+                                  "max_abs_err"])
+        log(f"  edge_tail[{name} at P2]: {calls_p2[name]}")
+    c_split = {g: ms for g, ms in serve_prof["groups"].items()
+               if g.startswith("C")}
     rows.append(dict(
         name="edge_tail", route="cuda",
-        source="sp_gan_tpu_torch/csrc/edgeblock.cu",
+        source="sp_gan_tpu_torch/csrc/edgeblock_tf32.cu",
         replaces="sp_gan_tpu/ops/pallas/edgeblock.py:102 (edge_tail_pallas,"
                  " _edge_tail_kernel :28)",
         launches=launches["edge_tail"],
         max_abs_err=max(c["max_abs_err"] for c in calls.values()),
         max_err=max(c["max_abs_err"] for c in calls.values()),
+        hard_max_abs_err=max(r["max_abs_err"] for r in res_c_hard.values()),
         ms=sum(c["ms"] for c in calls.values()),
         plain_ms=sum(c["plain_ms"] for c in calls.values()),
         bound_ms=sum(c["bound_ms"] for c in calls.values()),
         bound_by=calls["edge2"]["bound_by"], library_ms=None,
+        old_bound_ms=sum(c["old_bound_ms"] for c in calls.values()),
+        ms_at_p2=sum(c["ms"] for c in calls_p2.values()),
+        bound_ms_at_p2=sum(c["bound_ms"] for c in calls_p2.values()),
+        launches_at_p2=serve16["launches"]["edge_tail"],
+        split_ms=c_split,
         per="one request: the edge1 and the edge2 call", calls=calls,
-        path="serve"))
+        calls_at_p2=calls_p2, hard=res_c_hard, path="serve"))
     # kernel E at both sizes, protocol regime (measured in phase 6); its
     # launches are those of the protocol's run at that size
     launches_e = {2048: met["launches"]["auction"],
@@ -2688,19 +2771,20 @@ def main() -> None:
         "edge_train_bwd3": "sp_gan_tpu/ops/pallas/edgeblock_train.py:471 "
                            "(edge_block_train_backward pass 3, "
                            "_bwd_pass3_kernel :328)"}
-    source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train.cu" for n in macs}
-    for name in ("edge_train_bwd1", "edge_train_bwd2", "edge_train_bwd3",
-                 "edge_tail"):   # bf16 mode
-        source[name] = "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu"
+    # bf16 mode, all five on the tensor cores at these widths
+    source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu" for n in macs}
     ft_launches = fused["fused_train"]["launches"]
     for name, (fn, plain, fargs) in train_kernel_calls(fused_in).items():
         f_bound, f_by = bound(2 * macs[name] * rows_f, moved[name],
                               BF16_FLOPS)
-        # J, K, L and C: the device ms of each part of their calls in the
-        # profiled --fused_train step (C: two calls), by launch
+        # the same products at the f32 rate, the FMA route's own bound
+        old_bound, _ = bound(2 * macs[name] * rows_f, moved[name])
+        # I, J, K, L and C: the device ms of each part of their calls in
+        # the profiled --fused_train step (I and C: two calls), by launch
         split = fused["fused_train"]["profile"]["tc_split_ms"].get(
-            {"edge_train_bwd1": "J", "edge_train_bwd2": "K",
-             "edge_train_bwd3": "L", "edge_tail": "C"}.get(name))
+            {"edge_train_stats2": "I", "edge_train_bwd1": "J",
+             "edge_train_bwd2": "K", "edge_train_bwd3": "L",
+             "edge_tail": "C"}.get(name))
         rows.append(dict(
             name=name, route="cuda", source=source[name],
             replaces=replaces[name], mode="bf16 edges",
@@ -2713,6 +2797,7 @@ def main() -> None:
             ms=cuda_ms(lambda: fn(*fargs), 10),
             plain_ms=cuda_ms(lambda: plain(*fargs), 3),
             bound_ms=f_bound, bound_by=f_by, library_ms=None,
+            old_bound_ms=old_bound,
             shape=list(ee_f.shape), path="--fused_train step",
             **({"split_ms": split,
                 "split_calls": PER_STEP_FUSED[name]} if split else {})))

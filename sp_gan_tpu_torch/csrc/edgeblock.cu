@@ -1,12 +1,15 @@
 // Kernel C: the EdgeBlock tail with BatchNorm folded into per-channel
 // affines, ee [B, N, k, 2C] f32 or bf16 -> out [B, N, F] f32. The serving
-// path folds eval BatchNorm into f32 edges; the fused training forward
-// (--fused_train, --fused_dphase) folds the batch statistics and hands it
-// bf16 edges under mixed_edge (bf16 mode, at the entry point below). bf16
-// mode runs on the tensor cores in edgeblock_train_tc.cu wherever its
-// layout fits (ebt_tc_fits(kEbtTail, ...): C a multiple of 4, F2 dividing
-// 256, F = 128, at the default widths C <= 224); the two kernels here are
-// the f32 serving mode and bf16 mode at the other widths.
+// path folds eval BatchNorm into f32 edges (f32 mode); the fused training
+// forward (--fused_train, --fused_dphase) folds the batch statistics and
+// hands it bf16 edges under mixed_edge (bf16 mode, at the entry point
+// below). Each mode runs on the tensor cores wherever its layout fits:
+// f32 mode in edgeblock_tf32.cu, every product as three TF32 products
+// (ebt_tf_fits: F2 dividing 128, F in {64, 128}; at F = 128, F2 = 64 and
+// k = 10, C <= 120, which takes both serving calls), bf16 mode in
+// edgeblock_train_tc.cu (ebt_tc_fits(kEbtTail, ...): C a multiple of 4,
+// F2 dividing 256, F = 128, at the default widths C <= 224). The two
+// kernels here are both modes at the other widths.
 //
 // Replaces the TPU kernel sp_gan_tpu/ops/pallas/edgeblock.py::
 // edge_tail_pallas (_edge_tail_kernel). Per point, with diff = ee[..., C:],
@@ -29,21 +32,20 @@
 //     product in 128-row tiles, 8 x F/16 outputs per thread, wout streamed
 //     through shared memory in slices of 8 rows.
 //
-// What bounds it on an H100: f32 operations. At EdgeConv2's serving shape
-// (ee [64, 2048, 10, 128], F2 = 64, F = 128) the function is 118 GFLOP,
-// 1.76 ms at 67 TFLOP/s without tensor cores, against 0.67 GB of input
-// (0.2 ms at 3.35 TB/s). The TPU kernel keeps v in VMEM; here v makes one
-// round trip through device memory (0.67 GB each way at EdgeConv2), the
-// price of letting the contraction take 128-point tiles, so that each wout
-// value fetched from L2 serves 128 points rather than the few whose edge
-// rows fit beside the weights in shared memory. Arithmetic is plain f32
-// FMA, no tensor cores, no TF32; bf16 mode here rounds the operands to
-// bf16 first and keeps the rounded v in the f32 scratch.
+// What bounds them on an H100: f32 operations, at 67 TFLOP/s without
+// tensor cores (1.76 ms for EdgeConv2's serving shape, ee [64, 2048, 10,
+// 128], 118 GFLOP, against 0.67 GB of input). v makes one round trip
+// through device memory, the price of letting the contraction take
+// 128-point tiles, so that each wout value fetched from L2 serves 128
+// points rather than the few whose edge rows fit beside the weights in
+// shared memory. Arithmetic is plain f32 FMA; bf16 mode here rounds the
+// operands to bf16 first and keeps the rounded v in the f32 scratch.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "edgeblock_tf32.cuh"
 #include "edgeblock_train_tc.cuh"
 
 namespace {
@@ -336,13 +338,16 @@ bool widths_ok(int B, int N, int C, int F2, int F, int k) {
 }  // namespace
 
 // Floats of the scratch spgan_edge_tail takes at these widths in the mode
-// `bf16` names, or a negative cudaError_t: on the tensor cores (bf16 mode
-// where ebt_tc_fits(kEbtTail, ...)) a bf16 v [B, N, k, F] and wout's bf16 pair, else
-// an f32 v [B, N, k, F].
+// `bf16` names, or a negative cudaError_t: on the tensor cores in f32 mode
+// (where ebt_tf_fits) an f32 v [B, N, k, F] and wout transposed, in bf16
+// mode (where ebt_tc_fits(kEbtTail, ...)) a bf16 v and wout's bf16 pair;
+// else an f32 v [B, N, k, F].
 extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
                                              int F, int k, int bf16) {
   if (!widths_ok(B, N, C, F2, F, k))
     return -(long long)cudaErrorInvalidValue;
+  if (!bf16 && ebt_tf_fits(C, F2, F, k))
+    return ebt_tf_scratch(B, N, C, F2, F, k);
   if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
     return ebt_tc_scratch(kEbtTail, B, N, C, F2, F, k);
   return (long long)B * N * k * F;
@@ -363,6 +368,10 @@ extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
 // exact in f32, so only the order of the f32 sums differs from the plain
 // version (on the tensor cores also wout's bf16 pair, within 2^-17 of
 // each product). The affines, leaky ReLU and softmax stay f32.
+//
+// f32 mode on the tensor cores splits each operand x into tf32 hi + lo and
+// takes each product as three TF32 products (hi hi + hi lo + lo hi, each
+// within about 2^-21 of the f32 product); elsewhere it runs f32 FMAs.
 extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
                                const void* w2, const void* a2, const void* wx,
                                const void* ax, const void* wout,
@@ -370,6 +379,15 @@ extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
                                int N, int C, int F2, int F, int k, float neg,
                                int bf16, void* stream) {
   if (!widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
+  if (!bf16 && ebt_tf_fits(C, F2, F, k))
+    return ebt_tf_tail(
+        static_cast<const float*>(ee), static_cast<const float*>(w1),
+        static_cast<const float*>(a1), static_cast<const float*>(w2),
+        static_cast<const float*>(a2), static_cast<const float*>(wx),
+        static_cast<const float*>(ax), static_cast<const float*>(wout),
+        static_cast<const float*>(bout), static_cast<float*>(out),
+        static_cast<float*>(vbuf), B, N, C, F2, F, k, neg,
+        static_cast<cudaStream_t>(stream));
   if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
     return ebt_tc_tail(
         ee, static_cast<const float*>(w1), static_cast<const float*>(a1),

@@ -45,10 +45,11 @@
 //  - reduce_kernel: the partials summed in slice (or block) order.
 // No float atomics: two launches on one card give bit-identical results.
 //
-// bf16 mode of J, K and L: edgeblock_train_tc.cu (tensor cores); the entry
-// points below hand a bf16 ee to it wherever its shared-memory layout fits
-// (ebt_tc_fits), else run the FMA path here. The rest here is I in both
-// modes, J, K and L in f32 mode, and J, K and L in bf16 mode at widths
+// bf16 mode of I, J, K and L: edgeblock_train_tc.cu (tensor cores); the
+// entry points below hand a bf16 ee to it wherever its shared-memory
+// layout fits (ebt_tc_fits), else run the FMA path here. The rest here is
+// the f32 mode of I, J, K and L (train_tile_kernel; its FMA order is what
+// chip_smoke.py's kernel_slopes re-derives) and their bf16 mode at widths
 // too wide for the tensor cores' layout.
 //
 // What bounds it on an H100: operations at the f32 rate, bytes at the bf16
@@ -60,8 +61,7 @@
 // 0.15 ms at 3.35 TB/s). These kernels run the products as f32 FMAs (in
 // bf16 mode on operands rounded to bf16), no tensor cores, and round-trip
 // the chain's intermediates that feed the weight gradients and d_u through
-// device memory: a first design that is right, not a fast one. In f32 mode
-// that FMA order is what chip_smoke.py's kernel_slopes re-derives.
+// device memory: a first design that is right, not a fast one.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -739,7 +739,7 @@ Args base_args(const void* ee, float* scratch, const Scratch& sc,
 // 1 <= k <= 32.
 extern "C" long long spgan_ebt_scratch(int pass, int B, int N, int C, int F2,
                                        int F, int k, int bf16) {
-  if (bf16 && pass != kStats && ebt_tc_fits(pass, C, F2, F, k))
+  if (bf16 && ebt_tc_fits(pass, C, F2, F, k))
     return ebt_tc_scratch(pass, B, N, C, F2, F, k);
   Scratch sc;
   TilePlan tp;
@@ -755,6 +755,13 @@ extern "C" int spgan_ebt_stats2(const void* ee, const void* w1,
                                 void* scratch, int B, int N, int C, int F2,
                                 int F, int k, float neg, int bf16,
                                 void* stream) {
+  if (bf16 && ebt_tc_fits(kStats, C, F2, F, k))
+    return ebt_tc_stats2(ee, static_cast<const float*>(w1),
+                         static_cast<const float*>(a1),
+                         static_cast<const float*>(w2),
+                         static_cast<float*>(out), static_cast<float*>(scratch),
+                         B, N, C, F2, F, k, neg,
+                         static_cast<cudaStream_t>(stream));
   Scratch sc;
   TilePlan tp;
   int err = scratch_plan(kStats, B, N, C, F2, F, k, &sc, &tp);

@@ -1,12 +1,15 @@
-// Kernels J, K and L and kernel C in bf16 mode, on the H100's tensor cores:
-// the three backward passes of the fused train-mode EdgeBlock and the
-// EdgeBlock tail of its forward, for a bf16 ee [B, N, k, 2C].
+// Kernels I, J, K and L and kernel C in bf16 mode, on the H100's tensor
+// cores: the statistics sweep and the three backward passes of the fused
+// train-mode EdgeBlock and the EdgeBlock tail of its forward, for a bf16
+// ee [B, N, k, 2C].
 //
 // Replace, in the JAX kernels' bf16 mode (cd = bfloat16), the TPU kernels
-//   J  backward pass 1 (sp_gan_tpu/ops/pallas/edgeblock_train.py,
-//      _bwd_pass1_kernel, pallas_call :450): sums [4, F] (S2a, S2b, Sxa,
-//      Sxb), d_wout [k, F, F], d_bout [F], and d_u [B, N, k, F] = d_out @
-//      wout[j]^T (f32, the input of K and L);
+//   I  the BN2 statistics (sp_gan_tpu/ops/pallas/edgeblock_train.py,
+//      _stats2_pallas, _stats2_kernel, pallas_call :152): [sum h2; sum
+//      h2^2] [2, F] over every edge row, h2 = y1 @ w2;
+//   J  backward pass 1 (_bwd_pass1_kernel, pallas_call :450): sums [4,
+//      F] (S2a, S2b, Sxa, Sxb), d_wout [k, F, F], d_bout [F], and d_u [B,
+//      N, k, F] = d_out @ wout[j]^T (f32, the input of K and L);
 //   K  backward pass 2 (_bwd_pass2_kernel, pallas_call :461): s1 [2, F2]
 //      (S1a, S1b), d_w2 [F2, F];
 //   L  backward pass 3 (_bwd_pass3_kernel, pallas_call :471): d_ee
@@ -49,6 +52,8 @@
 //    write the next product's operand as bf16, rounded where the plain
 //    version rounds:
 //      h1 = diff @ w1 -> y1 = bf16(lrelu(p1)) (K: also to the scratch)
+//      (I) h2 = y1 @ w2 -> the channel sums of h2 and h2^2 in registers;
+//        I loads only the diff half of each edge row and holds no wx
 //      h2 = y1 @ w2, hx = ee @ wx -> softmax over k; J: u = bf16(v w), C:
 //        its v, the same product, to the scratch; then (J, K, L) the top
 //        of the backward from d_u: J the channel sums in registers; K
@@ -62,8 +67,8 @@
 //    bf16 operands (exact: bf16 mode has rounded them already), split over
 //    slices of the contraction rows, each slice's partial product written
 //    by one block;
-//  - tc_sum_kernel: J's and K's channel sums over their blocks, and each
-//    weight gradient over its slices, in order;
+//  - tc_sum_kernel: I's, J's and K's channel sums over their blocks, and
+//    each weight gradient over its slices, in order;
 //  - (C) tc_tail_gemm_kernel: out = bout + v [B*N, k F] @ (hi + lo) in
 //    64-row tiles of the full width F = 128 (the width of EdgeConv2, the
 //    one block whose tail runs in bf16 mode), three steps of 32 rows of the depth
@@ -81,14 +86,17 @@
 // Shared memory of tc_tile_kernel, in bytes, Cp = C and F2p = F2 rounded up to
 // 16, rows padded by 8 bf16 or 8 f32 (ldmatrix and the staging stores free
 // of bank conflicts): the weights w1 Cp (F2p + 8) 2, w2 F2p (F + 8) 2, wx
-// 2Cp (F + 8) 2; two ee buffers Rp (2Cp + 8) 2 each; y1 (L: then d_h1) Rp
+// 2Cp (F + 8) 2 (not I); two ee buffers Rp (2Cp + 8) 2 each (I: Rp (Cp +
+// 8) 2, the diff half); y1 (L: then d_h1) Rp
 // (F2p + 8) 2; (K, L) d_h2 Rp (F + 8) 2; (L) d_hx Rp (F + 8) 2; (K, L) p1
 // Rp (F2p + 8) 4; staging h2 (then d_y1, d_diff) Rp (W2 + 8) 4 and hx (then
 // d_full) Rp (Wx + 8) 4, W2 = max(F, F2p, Cp) and Wx = max(F, 2Cp) for J
-// and L, W2 = max(F, F2p) and Wx = F for K and C; (J, K) 256 x 5 f32 for
-// the channel sums. TP is the most points whose layout fits (at most 160
-// rows). At the default training step (C = 64, F2 = 64,
-// F = 128, k = 10) the weights take 61,440 B; J takes TP = 8 (Rp = 80):
+// and L, W2 = max(F, F2p) and Wx = F for K and C (I: no hx); (I, J, K)
+// 256 x 5 f32 for the channel sums. TP is the most points whose layout
+// fits (at most 160 rows). At the default training step (C = 64, F2 = 64,
+// F = 128, k = 10) the weights take 61,440 B (I: 26,624); I takes TP = 16
+// (Rp = 160): ee 2 x 23,040, y1 23,040, staging 87,040, sums 5,120,
+// 187,904 B in all; J takes TP = 8 (Rp = 80):
 // ee 2 x 21,760, y1 11,520, staging 2 x 43,520, sums 5,120, 208,640 B in
 // all; K takes TP = 6 (Rp = 64): ee 2 x 17,408, y1 9,216, d_h2 17,408, p1
 // 18,432, staging 2 x 34,816, sums 5,120, 216,064 B; L takes TP = 6: as K
@@ -98,11 +106,12 @@
 // 32 x (F + 8)) bf16: 67,584 B at F = 128.
 //
 // What bounds it: at that step (ee [24, 2048, 10, 128] bf16, 491,520 edge
-// rows) J's products are 60.4 GFLOP, K's 44.3, L's 76.5 and C's 44.3
-// (0.045 to 0.077 ms at the bf16 tensor-core peak of 989 TFLOP/s); each
-// input read and each output written once, the f32 d_u [24, 2048, 10,
-// 128] that J writes and K and L read (252 MB) among them, J moves 0.40
-// GB, K 0.38, L 0.50 and C 0.15 (0.045 to 0.150 ms at 3.35 TB/s): bytes.
+// rows) I's products are 12.1 GFLOP, J's 60.4, K's 44.3, L's 76.5 and C's
+// 44.3 (0.012 to 0.077 ms at the bf16 tensor-core peak of 989 TFLOP/s);
+// each input read and each output written once, the f32 d_u [24, 2048,
+// 10, 128] that J writes and K and L read (252 MB) among them, I moves
+// 0.063 GB (the diff half of ee), J 0.40, K 0.38, L 0.50 and C 0.15
+// (0.019 to 0.150 ms at 3.35 TB/s): bytes.
 // The kernels also move the bf16 operands of the weight gradients (u, y1,
 // d_h2, d_h1, d_hx) and C's bf16 v (126 MB each way) through device
 // memory, and C multiplies by wout twice (hi and lo).
@@ -124,9 +133,9 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxRows = 160;  // edge rows a tile holds at most
-constexpr int kAcc = 5;        // per-thread channel sums (J 5, K 2)
+constexpr int kAcc = 5;        // per-thread channel sums (J 5, I and K 2)
 // the passes, as edgeblock_train.cu numbers them, and kernel C's tail
-constexpr int kJ = 1, kK = 2, kL = 3, kC = kEbtTail;
+constexpr int kI = kEbtStats, kJ = 1, kK = 2, kL = 3, kC = kEbtTail;
 constexpr int DU_M = 128, DU_N = 64;           // tc_du_gemm_kernel tile
 constexpr int WG_M = 64, WG_N = 64, WG_K = 32, WG_THREADS = 128;
 // tc_tail_gemm_kernel: TG_M rows of out a block at the full width TG_F (C
@@ -285,6 +294,8 @@ __host__ __device__ inline Layout layout(int pass, int C, int F2, int F,
   L.F2p = up16(F2);
   L.Rp = up16(TP * k);
   const int Cp = L.Cp, F2p = L.F2p, Rp = L.Rp;
+  // I reads only the diff half of ee and needs no wx and no hx
+  const int eew = pass == kI ? Cp : 2 * Cp;
   const bool bwd = pass == kK || pass == kL;  // d_y1 and BN1's backward
   // the staging widths: L's d_diff is Cp and its d_full 2Cp wide, and J
   // takes L's widths so that the two take the tensor cores at the same C;
@@ -298,11 +309,11 @@ __host__ __device__ inline Layout layout(int pass, int C, int F2, int F,
   L.w2 = o;
   o += F2p * (F + 8) * 2;
   L.wx = o;
-  o += 2 * Cp * (F + 8) * 2;
+  if (pass != kI) o += 2 * Cp * (F + 8) * 2;
   L.ee0 = o;
-  o += Rp * (2 * Cp + 8) * 2;
+  o += Rp * (eew + 8) * 2;
   L.ee1 = o;
-  o += Rp * (2 * Cp + 8) * 2;
+  o += Rp * (eew + 8) * 2;
   L.y1 = o;
   o += Rp * (F2p + 8) * 2;
   L.dh = o;
@@ -314,9 +325,9 @@ __host__ __device__ inline Layout layout(int pass, int C, int F2, int F,
   L.h2 = o;
   o += Rp * (w2s + 8) * 4;
   L.hx = o;
-  o += Rp * (wxs + 8) * 4;
+  if (pass != kI) o += Rp * (wxs + 8) * 4;
   L.red = o;
-  if (pass == kJ || pass == kK) o += kThreads * kAcc * 4;
+  if (pass == kI || pass == kJ || pass == kK) o += kThreads * kAcc * 4;
   L.total = o;
   return L;
 }
@@ -334,7 +345,8 @@ struct Args {
   bf16 *dh1, *dhx;                          // L: [M, F2], [M, F]
   bf16* dee;                                // L: d_ee [M, 2C]
   float* part;                              // J: [gridDim.x][5 F]; K:
-                                            // [gridDim.x][2 F2]
+                                            // [gridDim.x][2 F2]; I:
+                                            // [gridDim.x][2 F]
   long long P;                              // points, B * N
   int C, F2, F, k, TP;
   float neg, m;                             // m: edge rows B * N * k
@@ -342,14 +354,35 @@ struct Args {
 };
 
 // cp.async of the edge rows of `tile` into E: the centre half to columns
-// [0, C), the diff half to [Cp, Cp + C); the padding stays zero
+// [0, C), the diff half to [Cp, Cp + C); the padding stays zero. I takes
+// the diff half alone, to columns [0, C).
+template <int PASS>
 __device__ __forceinline__ void load_ee(const Args& a, bf16* E,
                                         long long tile) {
-  const int C = a.C, C2 = 2 * C, Cp = a.L.Cp, lee = 2 * Cp + 8;
+  const int C = a.C, C2 = 2 * C, Cp = a.L.Cp;
   const long long p0 = tile * a.TP;
   const int np = a.P - p0 < a.TP ? (int)(a.P - p0) : a.TP;
   const int rows = np * a.k;
   const bf16* src = a.ee + p0 * a.k * C2;
+  if (PASS == kI) {
+    const int lee = Cp + 8;
+    if (C % 8 == 0) {
+      const int per = C / 8;
+      for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+        const int r = i / per, c = (i - r * per) * 8;
+        cp_async16(E + r * lee + c, src + r * C2 + C + c);
+      }
+    } else {
+      const int per = C / 4;
+      for (int i = threadIdx.x; i < rows * per; i += kThreads) {
+        const int r = i / per, c = (i - r * per) * 4;
+        cp_async8(E + r * lee + c, src + r * C2 + C + c);
+      }
+    }
+    cp_async_commit();
+    return;
+  }
+  const int lee = 2 * Cp + 8;
   if (C % 8 == 0) {
     const int per = C2 / 8;
     for (int i = threadIdx.x; i < rows * per; i += kThreads) {
@@ -366,10 +399,11 @@ __device__ __forceinline__ void load_ee(const Args& a, bf16* E,
   cp_async_commit();
 }
 
-// the d_u rows (J: and the d_out rows) of `tile` into L2; C has none
+// the d_u rows (J: and the d_out rows) of `tile` into L2; I and C have
+// none
 __device__ __forceinline__ void prefetch_tile(const Args& a, int pass,
                                               long long tile) {
-  if (pass == kC) return;
+  if (pass == kI || pass == kC) return;
   const long long p0 = tile * a.TP;
   const int np = a.P - p0 < a.TP ? (int)(a.P - p0) : a.TP;
   prefetch_l2(a.du + p0 * a.k * a.F, 4LL * np * a.k * a.F);
@@ -384,7 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   const int k = KM == 10 ? KM : a.k;
   const int C = a.C, C2 = 2 * C, F2 = a.F2, F = a.F, TP = a.TP;
   const int Cp = L.Cp, F2p = L.F2p;
-  const int lee = 2 * Cp + 8, lw1 = F2p + 8, lwf = F + 8;  // bf16 strides
+  const int lee = (PASS == kI ? Cp : 2 * Cp) + 8;  // bf16 strides
+  const int lw1 = F2p + 8, lwf = F + 8;
   const int tid = threadIdx.x;
   const float neg = a.neg, m = a.m;
   bf16* W1 = reinterpret_cast<bf16*>(sm + L.w1);
@@ -415,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     const int r = i / F, c = i - r * F;
     W2[r * lwf + c] = __float2bfloat16_rn(a.w2[i]);
   }
-  for (int i = tid; i < C2 * F; i += kThreads) {
+  for (int i = tid; i < (PASS == kI ? 0 : C2 * F); i += kThreads) {
     const int r = i / F, c = i - r * F;
     WX[(r < C ? r : Cp + r - C) * lwf + c] = __float2bfloat16_rn(a.wx[i]);
   }
@@ -423,10 +458,15 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   // a thread keeps one channel cf of the F-wide stage and one channel c1
   // of the F2-wide stages (F and F2 divide kThreads), and their constants
   const int cf = tid % F, c1 = tid % F2;
-  const float s2 = a.a2[cf], sh2 = a.a2[F + cf];
-  const float sx = a.ax[cf], shx = a.ax[F + cf];
+  float s2 = 0.f, sh2 = 0.f, sx = 0.f, shx = 0.f;  // (J, K, L, C)
+  if (PASS != kI) {
+    s2 = a.a2[cf];
+    sh2 = a.a2[F + cf];
+    sx = a.ax[cf];
+    shx = a.ax[F + cf];
+  }
   float ig2 = 0.f, b2 = 0.f, igx = 0.f, bx = 0.f;  // (J, K, L)
-  if (PASS != kC) {
+  if (PASS != kI && PASS != kC) {
     ig2 = 1.f / a.gb2x[cf];
     b2 = a.gb2x[F + cf];
     igx = 1.f / a.gb2x[2 * F + cf];
@@ -452,7 +492,7 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   float acc[kAcc] = {0.f, 0.f, 0.f, 0.f, 0.f};
   long long tile = blockIdx.x;
   if (tile < tiles) {
-    load_ee(a, EE0, tile);
+    load_ee<PASS>(a, EE0, tile);
     prefetch_tile(a, PASS, tile);
   }
   for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
@@ -462,13 +502,14 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     cp_async_wait_all();
     __syncthreads();  // this tile's ee rows are in; the last tile is done
     if (tile + gridDim.x < tiles) {
-      load_ee(a, buf ? EE0 : EE1, tile + gridDim.x);
+      load_ee<PASS>(a, buf ? EE0 : EE1, tile + gridDim.x);
       prefetch_tile(a, PASS, tile + gridDim.x);
     }
     const bf16* E = buf ? EE1 : EE0;
 
     // h1 = diff @ w1; p1 and y1 = bf16(lrelu(p1)), the operand of @ w2
-    tile_mm<false>(E + Cp, lee, W1, lw1, H1, F2p + 8, Mr, F2p, Cp);
+    tile_mm<false>(PASS == kI ? E : E + Cp, lee, W1, lw1, H1, F2p + 8, Mr,
+                   F2p, Cp);
     __syncthreads();
     for (int row = tid / F2; row < R; row += kThreads / F2) {
       float* h = H1 + row * (F2p + 8) + c1;
@@ -479,10 +520,19 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
       if (PASS == kK) a.y1[(r0 + row) * F2 + c1] = y;
     }
     __syncthreads();
-    // h2 = y1 @ w2, hx = ee @ wx
+    // h2 = y1 @ w2, hx = ee @ wx (I: h2 alone, and its channel sums in
+    // registers)
     tile_mm<false>(Y1, lw1, W2, lwf, H2, F + 8, Mr, F, F2p);
-    tile_mm<false>(E, lee, WX, lwf, HX, F + 8, Mr, F, 2 * Cp);
+    if (PASS != kI) tile_mm<false>(E, lee, WX, lwf, HX, F + 8, Mr, F, 2 * Cp);
     __syncthreads();
+    if (PASS == kI) {
+      for (int row = tid / F; row < R; row += kThreads / F) {
+        const float h = H2[row * (F + 8) + cf];
+        acc[0] += h;
+        acc[1] += h * h;
+      }
+      continue;
+    }
 
     // the F-wide chain, one channel of one point per thread
     for (int pp = tid / F; pp < np; pp += kThreads / F) {
@@ -601,11 +651,11 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     }
   }
 
-  // J, K: the block's channel sums (J 5 over F channels, K 2 over F2),
-  // threads of one channel added in index order
-  if (PASS == kJ || PASS == kK) {
+  // I, J, K: the block's channel sums (I 2 and J 5 over F channels, K 2
+  // over F2), threads of one channel added in index order
+  if (PASS == kI || PASS == kJ || PASS == kK) {
     constexpr int nacc = PASS == kJ ? kAcc : 2;
-    const int width = PASS == kJ ? F : F2;
+    const int width = PASS == kK ? F2 : F;
     float* RED = reinterpret_cast<float*>(sm + L.red);
 #pragma unroll
     for (int q = 0; q < kAcc; ++q) RED[tid * kAcc + q] = acc[q];
@@ -934,6 +984,7 @@ void* tile_fn_k(int k) {
 
 void* tile_kernel_of(int pass, int k) {
   switch (pass) {
+    case kI: return tile_fn_k<kI>(k);
     case kJ: return tile_fn_k<kJ>(k);
     case kK: return tile_fn_k<kK>(k);
     case kL: return tile_fn_k<kL>(k);
@@ -1023,7 +1074,7 @@ long long al4(long long floats) { return (floats + 3) / 4 * 4; }
 
 // The tile size (the most points whose layout fits, at most kMaxRows edge
 // rows), grid (the blocks that fit on the card at once, at most one a
-// tile) and scratch (in floats) of a pass: J: part
+// tile) and scratch (in floats) of a pass: I: part; J: part
 // | slices | wout bf16 | d_out bf16 | u bf16; K: part | slices | y1 bf16 |
 // d_h2 bf16; L: slices | d_h1 bf16 | d_hx bf16; C: v bf16 | wout hi bf16 |
 // wout lo bf16.
@@ -1036,7 +1087,7 @@ struct Plan {
 };
 
 int plan(int pass, int B, int N, int C, int F2, int F, int k, Plan* p) {
-  if (!ebt_widths_ok(B, N, C, F2, F, k) || pass < kJ || pass > kC ||
+  if (!ebt_widths_ok(B, N, C, F2, F, k) || pass < kI || pass > kC ||
       (pass == kC && F != TG_F))
     return (int)cudaErrorInvalidValue;
   int limit = 0, per_sm = 0;
@@ -1056,7 +1107,10 @@ int plan(int pass, int B, int N, int C, int F2, int F, int k, Plan* p) {
   const long long most = (long long)p->sms * per_sm;
   p->grid = (int)(tiles < most ? tiles : most);
   long long o = 0;
-  if (pass == kJ) {
+  if (pass == kI) {
+    p->part = o;
+    o += al4((long long)p->grid * 2 * F);
+  } else if (pass == kJ) {
     p->s1 = split(k * F, F, P, p->sms);
     p->part = o;
     o += al4((long long)p->grid * kAcc * F);
@@ -1171,6 +1225,19 @@ long long ebt_tc_scratch(int pass, int B, int N, int C, int F2, int F,
   Plan p;
   const int err = plan(pass, B, N, C, F2, F, k, &p);
   return err ? -(long long)err : p.total;
+}
+
+int ebt_tc_stats2(const void* ee, const float* w1, const float* a1,
+                  const float* w2, float* out, float* scratch, int B, int N,
+                  int C, int F2, int F, int k, float neg, cudaStream_t s) {
+  Plan p;
+  int err = plan(kI, B, N, C, F2, F, k, &p);
+  if (err) return err;
+  Args a = base_args(ee, w1, a1, w2, nullptr, nullptr, nullptr, nullptr,
+                     nullptr, p, B, N, C, F2, F, k, neg);
+  a.part = scratch + p.part;
+  if ((err = launch_tile(kI, k, p, a, s))) return err;
+  return sum_slices<kI>(a.part, p.grid, 2 * F, 0, 2 * F, out, s);
 }
 
 int ebt_tc_bwd1(const void* ee, const float* dout, const float* w1,

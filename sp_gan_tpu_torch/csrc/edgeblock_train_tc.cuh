@@ -1,7 +1,8 @@
-// Kernels J, K, L and kernel C in bf16 mode on the tensor cores
-// (edgeblock_train_tc.cu), called by spgan_ebt_bwd1, spgan_ebt_bwd2 and
-// spgan_ebt_bwd3 (edgeblock_train.cu) and by spgan_edge_tail (edgeblock.cu)
-// for a bf16 ee; their f32 mode stays in those two files.
+// Kernels I, J, K, L and kernel C in bf16 mode on the tensor cores
+// (edgeblock_train_tc.cu), called by spgan_ebt_stats2, spgan_ebt_bwd1,
+// spgan_ebt_bwd2 and spgan_ebt_bwd3 (edgeblock_train.cu) and by
+// spgan_edge_tail (edgeblock.cu) for a bf16 ee; their f32 mode stays in
+// those two files (C's on the tensor cores in edgeblock_tf32.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,22 +14,31 @@ inline bool ebt_widths_ok(int B, int N, int C, int F2, int F, int k) {
          F2 > 0 && F2 % 4 == 0 && 256 % F2 == 0 && (F == 64 || F == 128);
 }
 
-// Kernel C's tail in bf16 mode, numbered after passes 1 (J), 2 (K) and 3
-// (L) for ebt_tc_fits and ebt_tc_scratch.
+// Kernel I (the statistics sweep) and kernel C's tail in bf16 mode,
+// numbered beside passes 1 (J), 2 (K) and 3 (L) for ebt_tc_fits and
+// ebt_tc_scratch, I as edgeblock_train.cu numbers it.
+constexpr int kEbtStats = 0;
 constexpr int kEbtTail = 4;
 
-// Whether the tensor-core pass 1 (J), 2 (K), 3 (L) or kEbtTail (C) takes
-// these widths: they are among ebt_widths_ok's (C's tail: at F = 128
-// only, the one width its contraction is built for), and its resident
+// Whether the tensor-core pass 0 (I), 1 (J), 2 (K), 3 (L) or kEbtTail (C)
+// takes these widths: they are among ebt_widths_ok's (C's tail: at F =
+// 128 only, the one width its contraction is built for), and its resident
 // weights and a tile of one point fit in a block's shared memory (at F =
 // 128, F2 = 64 and k = 10, C <= 192 for J and L, C <= 208 for K, C <= 224
-// for C). Other widths take the FMA paths of edgeblock_train.cu and
-// edgeblock.cu in bf16 mode too.
+// for C; I holds no wx and half of ee, and fits far wider). Other widths
+// take the FMA paths of edgeblock_train.cu and edgeblock.cu in bf16 mode
+// too.
 bool ebt_tc_fits(int pass, int C, int F2, int F, int k);
 
-// Floats of scratch that pass 1 (J), 2 (K), 3 (L) or kEbtTail (C: its bf16
-// v and wout's bf16 pair) takes in bf16 mode, or a negative cudaError_t.
+// Floats of scratch that pass 0 (I: its blocks' sums), 1 (J), 2 (K), 3 (L)
+// or kEbtTail (C: its bf16 v and wout's bf16 pair) takes in bf16 mode, or
+// a negative cudaError_t.
 long long ebt_tc_scratch(int pass, int B, int N, int C, int F2, int F, int k);
+
+// I in bf16 mode: the arguments and output of spgan_ebt_stats2.
+int ebt_tc_stats2(const void* ee, const float* w1, const float* a1,
+                  const float* w2, float* out, float* scratch, int B, int N,
+                  int C, int F2, int F, int k, float neg, cudaStream_t s);
 
 // J in bf16 mode: the arguments and outputs of spgan_ebt_bwd1.
 int ebt_tc_bwd1(const void* ee, const float* dout, const float* w1,

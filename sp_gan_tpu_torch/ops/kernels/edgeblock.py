@@ -21,14 +21,19 @@ to bf16 and the products summed in f32; wout stays f32, as the JAX
 kernel's bf16 x f32 dot promotes it.
 
 On an H100 at EdgeConv2's serving shape (ee [64, 2048, 10, 128], F = 128)
-the function is bound by f32 operations: 118 GFLOP against 0.67 GB of
-input. f32 mode runs on f32 FMAs (`csrc/edgeblock.cu`); bf16 mode runs on
-the tensor cores (`csrc/edgeblock_train_tc.cu`, with wout kept as a bf16
-pair hi + lo, about 16 of its bits) wherever C is a multiple of 4, F2
-divides 256 and the weights fit in shared memory (C <= 224 at F = 128,
-F2 = 64, k = 10), else on the FMA kernels too. The CUDA sources say how
-their passes are laid out; the scratch each call takes is sized for the
-path that runs.
+the function is bound by operations: 118 GFLOP against 0.67 GB of input.
+Both modes run on the tensor cores where their layouts fit, else on f32
+FMAs (`csrc/edgeblock.cu`). f32 mode (`csrc/edgeblock_tf32.cu`) takes
+every product of the chain and the contraction as three TF32 products,
+x = hi + lo with hi = tf32(x), lo = tf32(x - hi), a b = ah bh + ah bl +
+al bh, never one (a single TF32 product keeps about 11 bits and misses
+the f32 gate, `tests/test_torch_edge_tail.py`), wherever F2 divides 128
+and the weights fit in shared memory (C <= 120 at F = 128, F2 = 64,
+k = 10; both serving calls). bf16 mode (`csrc/edgeblock_train_tc.cu`,
+with wout kept as a bf16 pair hi + lo, about 16 of its bits) takes C a
+multiple of 4, F2 dividing 256 and C <= 224 at F = 128, F2 = 64, k = 10.
+The CUDA sources say how their passes are laid out; the scratch each call
+takes is sized for the path that runs.
 
 `edge_tail` launches the kernel for CUDA tensors and runs `edge_tail_plain`,
 the same function in plain PyTorch, for CPU tensors. `edge_tail.launches`

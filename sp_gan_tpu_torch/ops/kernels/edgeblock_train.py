@@ -24,11 +24,12 @@ wx [2C, F], wout [k, F, F], the affines a1 [2, F2], a2 and ax [2, F] (scale
 row, shift row), gb2x [4, F] (BN2 and BNx gamma, beta) and gb1 [2, F2].
 
 On an H100 the four are bound by bytes in bf16 mode (the CUDA sources
-have the counts and the design). In bf16 mode J, K and L run their
-products on the tensor cores (`csrc/edgeblock_train_tc.cu`) wherever the
-block's weights fit in shared memory (at F = 128, F2 = 64, k = 10: C <=
-192 for J and L, C <= 208 for K); I, the f32 mode and wider blocks run
-them as f32 FMAs (`csrc/edgeblock_train.cu`). The scratch each call
+have the counts and the design). In bf16 mode I, J, K and L run their
+products on the tensor cores (`csrc/edgeblock_train_tc.cu`; I reads only
+the diff half of ee) wherever the block's weights fit in shared memory
+(at F = 128, F2 = 64, k = 10: C <= 192 for J and L, C <= 208 for K, and
+wider for I); the f32 mode and wider blocks run them as f32 FMAs
+(`csrc/edgeblock_train.cu`). The scratch each call
 takes is sized for the path that runs. Each wrapper launches its kernel
 for CUDA tensors and runs its plain PyTorch version (`*_plain`, the same
 arithmetic) for CPU tensors; `fn.launches` counts kernel launches. The

@@ -365,7 +365,7 @@ def test_plain_j_l_match_jax_at_full_width(full_width, kernel):
             np.asarray(theirs[True][name], np.float32), exact) + 1e-6, name
 
 
-# bf16 cases of J, K, L and C on the card: (C, F2, F, k, B, N)
+# bf16 cases of I, J, K, L and C on the card: (C, F2, F, k, B, N)
 BF16_CASES = {
     "default widths": (64, 64, 128, 10, 2, 256),
     "k 20": (64, 64, 128, 20, 2, 128),
@@ -377,11 +377,12 @@ BF16_CASES = {
     "too wide for the tensor cores' layout": (256, 64, 128, 10, 1, 64),
     "C's FMA widths": (6, 12, 64, 10, 2, 128),
 }
-# the kernels a case runs where not all four take its widths: kernel C
+# the kernels a case runs where not all five take its widths: kernel C
 # refuses C = 256 (its FMA kernels' f32 weights do not fit in shared memory
-# either), J, K and L refuse C and F2 that C's FMA kernels take in bf16 mode
-# (C's tensor cores take F = 128 only; at F = 64 it runs its FMA kernels)
-BF16_KERNELS = {"too wide for the tensor cores' layout": "JKL",
+# either; I's tensor cores take it, holding no wx and half of ee), I, J, K
+# and L refuse C and F2 that C's FMA kernels take in bf16 mode (C's tensor
+# cores take F = 128 only; at F = 64 it runs its FMA kernels)
+BF16_KERNELS = {"too wide for the tensor cores' layout": "IJKL",
                 "C's FMA widths": "C"}
 # kernel C's contraction in bf16 mode (out - bout) against its plain
 # version's, in relative L2: wout carried as a bf16 pair keeps about 16
@@ -414,7 +415,7 @@ def tail_contraction_rel(out, ref, bout):
 
 
 @pytest.mark.parametrize(
-    "case", [c for c in BF16_CASES if "C" in BF16_KERNELS.get(c, "JKLC")])
+    "case", [c for c in BF16_CASES if "C" in BF16_KERNELS.get(c, "IJKLC")])
 def test_tail_pair_limit_tells_pair_from_single_bf16(case):
     """The card's limit on kernel C's bf16 contraction sees how wout is
     carried: on each case's inputs, the plain version with wout as its
@@ -476,24 +477,26 @@ class TestOnCard:
 
     @pytest.mark.parametrize("case", list(BF16_CASES))
     def test_bf16_j_l_match_plain_versions(self, case):
-        """Kernels J, K and L and kernel C in bf16 mode (the tensor cores)
-        against their plain versions on the card: each output within 5e-3
-        relative L2 (the sum orders differ, and where they straddle a bf16
-        rounding point an operand moves by a bf16 ulp), C's contraction
-        within TAIL_PAIR_TOL (it carries wout as a bf16 pair), and
-        bit-identical over two launches. The
-        cases take the default step's widths, k = 20, 7 and 32 (the
-        generic template, k bounded by 32), F = 64, a point count that
-        leaves each kernel a ragged last tile, C and F2 that the kernels
-        pad with zeros, a C whose weights do not fit in shared memory (J's,
-        K's and L's FMA paths in bf16 mode), and a C and F2 that only
-        kernel C takes (its FMA path in bf16 mode)."""
+        """Kernels I, J, K and L and kernel C in bf16 mode (the tensor
+        cores) against their plain versions on the card: each output
+        within 5e-3 relative L2 (the sum orders differ, and where they
+        straddle a bf16 rounding point an operand moves by a bf16 ulp),
+        C's contraction within TAIL_PAIR_TOL (it carries wout as a bf16
+        pair), and bit-identical over two launches. The cases take the
+        default step's widths, k = 20, 7 and 32 (the generic template, k
+        bounded by 32), F = 64, a point count that leaves each kernel a
+        ragged last tile, C and F2 that the kernels pad with zeros, a C
+        whose weights do not fit in shared memory (J's, K's and L's FMA
+        paths in bf16 mode; I's tensor cores still take it), and a C and
+        F2 that only kernel C takes (its FMA path in bf16 mode)."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA device (kernels have no CPU mode)")
         torch.backends.cuda.matmul.allow_tf32 = False
         a = bf16_case_args(case, "cuda")
         ee, chain, gb2x, gb1, wout, k = (
             a[n] for n in ("ee", "chain", "gb2x", "gb1", "wout", "k"))
+        i_args = (ee, *chain[:3], k)
+        i_ref = (kebt.edge_train_stats2_plain(*i_args),)
         j_args = (ee, a["d_out"], *chain, gb2x, wout, k)
         sums, _, _, d_u = j_ref = kebt.edge_train_bwd1_plain(*j_args)
         k_args = (ee, d_u, *chain, gb2x, sums, gb1, k)
@@ -503,11 +506,13 @@ class TestOnCard:
         c_args = (ee, *chain, wout, a["bout"], k)
         c_ref = (edge_tail_plain(*c_args),)
         for tag, fn, args, ref in (
+                ("I", lambda *a: (kebt.edge_train_stats2(*a),), i_args,
+                 i_ref),
                 ("J", kebt.edge_train_bwd1, j_args, j_ref),
                 ("K", kebt.edge_train_bwd2, k_args, k_ref),
                 ("L", kebt.edge_train_bwd3, l_args, l_ref),
                 ("C", lambda *a: (edge_tail(*a),), c_args, c_ref)):
-            if tag not in BF16_KERNELS.get(case, "JKLC"):
+            if tag not in BF16_KERNELS.get(case, "IJKLC"):
                 continue
             out, again = fn(*args), fn(*args)
             for n, (t, t2, z) in enumerate(zip(out, again, ref)):
@@ -515,7 +520,7 @@ class TestOnCard:
                 t, z = t.float(), z.float()
                 err = float((t - z).norm() / z.norm())
                 assert err <= 5e-3, f"{case}: {tag}[{n}] {err}"
-        if "C" in BF16_KERNELS.get(case, "JKLC"):
+        if "C" in BF16_KERNELS.get(case, "IJKLC"):
             err = tail_contraction_rel(edge_tail(*c_args), c_ref[0],
                                        a["bout"])
             assert err <= TAIL_PAIR_TOL, f"{case}: C's contraction {err}"
