@@ -8,7 +8,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 1. device   - needs torch.cuda; prints the card's name and power limit.
 2. build    - compiles the CUDA kernels (sp_gan_tpu_torch/csrc) with nvcc.
 3. kernels  - each kernel against its plain PyTorch version on the card at
-              the serving and training shapes, and the autograd edge op
+              the serving and training shapes; kernels A and B (the
+              selection engine of csrc/knn_filter.cuh) bit for bit and
+              twice alike, A also against kernel G, B in all eight forms,
+              also on hard inputs at N=2048 (an integer grid, a cloud far
+              from the origin, one point repeated, one point perturbed by
+              an ulp or two, and for B the packed quantum cloud); the
+              autograd edge op
               (kernel B forward, kernel D backward) against a plain
               autograd graph; kernel C's f32 mode (three TF32 products
               a product on the tensor cores) at both serving calls
@@ -121,7 +127,10 @@ Phases, in order; any failure raises and the script exits nonzero:
               (the profiler's device time of each of its kernels); kernel G
               on the template, normal draws and P2's own features, and
               its filter's margin swept from the wrapper's down to none on
-              the 64-channel inputs (none must break the offset cloud).
+              the 64-channel inputs (none must break the offset cloud);
+              kernels A and B with the pairs they fold exactly
+              (`refined`) and their bounds by route, B's margin swept
+              the same way in packed mode.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 `{"ok": true, "device": {...}}`. Needs no file outside the sources.
@@ -300,72 +309,175 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def check_knn(x, k):
-    """Kernel A against its plain version: indices equal, distances within
-    1e-5 relative (both run the same f32 operations, so they are expected
-    to be bit-identical)."""
+def check_knn(x, k, label: str = ""):
+    """Kernel A against its plain version and against kernel G (one code
+    path: csrc/knn.cu on csrc/knn_filter.cuh), and against
+    itself over two launches: indices and distances bit-equal (all compute
+    the same FMA-free f32 distances and order them alike; the tensor-core
+    filter above 4 channels only chooses which keys get that
+    computation)."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
+    from sp_gan_tpu_torch.ops.kernels.knn_blocked import knn_blocked
     idx, dist = knn(x, k)
+    idx2, dist2 = knn(x, k)
+    idx_g, dist_g = knn_blocked(x, k)
     torch.cuda.synchronize()
     idx_p, dist_p = knn_plain(x, k)
-    if not torch.equal(idx, idx_p):
-        raise AssertionError(
-            f"knn: {(idx != idx_p).sum().item()} indices differ")
-    err = (dist - dist_p).abs().max().item()
-    rel = ((dist - dist_p).abs() / dist_p.abs().clamp_min(1e-30)).max().item()
-    if rel > 1e-5:
-        raise AssertionError(f"knn: dist rel err {rel}")
-    return {"agree": 1.0, "max_abs_err": err}
+    tag = f"knn[{label}{list(x.shape)}, k={k}]"
+    res = {"vs_plain": int((idx != idx_p).sum()) + int((dist != dist_p).sum()),
+           "vs_g": int((idx != idx_g).sum()) + int((dist != dist_g).sum()),
+           "vs_again": int((idx != idx2).sum()) + int((dist != dist2).sum()),
+           "max_abs_err": (dist - dist_p).abs().max().item()}
+    log(f"  {tag}: {res}")
+    if res["vs_plain"] or res["vs_g"] or res["vs_again"]:
+        raise AssertionError(f"{tag}: not bit-equal ({res})")
+    return {"agree": 1.0, **res}
 
 
-def check_knn_edge(x, k, forms=None):
+def check_knn_edge(x, k, forms=None, label: str = ""):
     """Kernel B against its plain version in each (selection mode, output
-    type, diff_only) of `forms`, by default all eight. The contract of the
-    JAX package's packed test (tests/test_pallas.py, TestKnnEdgePacked):
-    index agreement >= 0.995, every disagreement a near-tie within
-    N * 2^-24 * 4 relative; where the indices agree the edge features must
-    be equal exactly."""
+    type, diff_only) of `forms`, by default all eight, and against itself
+    over two launches: indices and edge features bit-equal (both select on
+    the same FMA-free f32 distances; the tensor-core filter above 4
+    channels only chooses which keys get that computation, and both write
+    the edges with the same roundings)."""
     import itertools
 
     import torch
     from sp_gan_tpu_torch.ops.kernels.knn_edge import (knn_edge,
                                                        knn_edge_plain)
-    from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
-    n = x.shape[1]
-    d = None
-    worst = {"agree": 1.0, "max_abs_err": 0.0}
+    worst = {"agree": 1.0, "max_abs_err": 0.0, "vs_plain": 0, "vs_again": 0}
     for mode, cd, diff_only in forms or itertools.product(
             ("packed", "exact"), (torch.bfloat16, torch.float32),
             (True, False)):
         ee, idx = knn_edge(x, k, cd, diff_only, mode)
+        ee2, idx2 = knn_edge(x, k, cd, diff_only, mode)
         torch.cuda.synchronize()
         ee_p, idx_p = knn_edge_plain(x, k, cd, diff_only, mode)
-        same = idx == idx_p
-        agree = same.float().mean().item()
-        tag = (f"knn_edge[{mode}, {str(cd)[6:]}, diff_only={diff_only}, "
-               f"{list(x.shape)}]")
-        if agree < 0.995:
-            raise AssertionError(f"{tag}: index agreement {agree}")
-        if not bool(same.all()):
-            if d is None:
-                d = pairwise_sqdist(x, x)
-            b, q, j = torch.nonzero(~same, as_tuple=True)
-            de = d[b, q, idx_p[b, q, j].long()]
-            dk = d[b, q, idx[b, q, j].long()]
-            bound = n * 2.0 ** -24 * 4 * de.clamp_min(1e-6) + 1e-7
-            if bool(((dk - de).abs() > bound).any()):
-                raise AssertionError(f"{tag}: a non-near-tie flip")
-        rows = same[..., None].expand_as(ee)
-        diff = (ee.float() - ee_p.float()).abs()[rows]
-        err = diff.max().item() if diff.numel() else 0.0
-        if err != 0.0:
-            raise AssertionError(f"{tag}: edge features differ by "
-                                 f"{err} where indices agree")
-        log(f"  {tag}: agree {agree}, max_abs_err {err}")
-        worst["agree"] = min(worst["agree"], agree)
+        tag = (f"knn_edge[{label}{mode}, {str(cd)[6:]}, diff_only="
+               f"{diff_only}, {list(x.shape)}]")
+        vs_plain = int((idx != idx_p).sum()) + int((ee != ee_p).sum())
+        vs_again = int((idx != idx2).sum()) + int((ee != ee2).sum())
+        err = (ee.float() - ee_p.float()).abs().max().item()
+        log(f"  {tag}: {vs_plain} entries differ from the plain version, "
+            f"{vs_again} between two launches")
+        if vs_plain or vs_again:
+            raise AssertionError(f"{tag}: not bit-equal")
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
     return worst
+
+
+def quantum_cloud(n: int):
+    """[1, n, 16] on the card: point 1000 at e1, every other point at -e1 +
+    delta e2, so that every distance from point 1000 lies in one packed
+    quantum [4, 4 + 2^-10) at n = 2048 and its packed top-k are the lowest
+    columns, which its block walks last (tests/test_torch_knn_select.py
+    shows that a filter comparing with the k-th distance, not tau_q, drops
+    them)."""
+    import torch
+    x = torch.zeros(1, n, 16, device="cuda")
+    x[0, :, 0] = -1.0
+    delta2 = torch.full((n,), 0.5 * 2.0 ** -10, device="cuda")
+    delta2[896:1024] = 1e-6 * (1 + torch.arange(128, device="cuda") / 128)
+    delta2[:64] = 0.9 * 2.0 ** -10
+    x[0, :, 1] = delta2.sqrt()
+    x[0, 1000] = 0.0
+    x[0, 1000, 0] = 1.0
+    return x
+
+
+def knn_hard(seed: int, n: int, k: int):
+    """Kernels A and B on the inputs where a filter that broke its contract
+    would show, at the serving request's N: an integer grid round(4 randn)
+    (many exact ties), randn + 1000 (the margin then covers every
+    distance), one point repeated (every distance 0), one point perturbed
+    by an ulp or two (distances on both sides of 0; the packed key clamps
+    those below), and for B the quantum cloud. B in all eight forms, A at
+    C = 3 and C = 64. Draws from a generator of its own. Returns the
+    checks' results and the 64-channel inputs, by name."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(b, c):
+        return torch.randn(b, n, c, generator=gen, device="cuda")
+
+    def near(c):
+        point = (100 * r(1, c)[:, :1]).expand(2, n, c)
+        ulps = torch.randint(-2, 3, (2, n, c), generator=gen,
+                             device="cuda")
+        return (point + ulps * torch.finfo(torch.float32).eps
+                * point.abs()).contiguous()
+    cases = {"grid": torch.round(4 * r(4, 64)),
+             "offset": r(2, 64) + 1000,
+             "repeat": r(1, 64)[:, :1].expand(2, n, 64).contiguous(),
+             "near": near(64), "quantum": quantum_cloud(n)}
+    res = {"B": {label: check_knn_edge(x, k, label=label + ", ")
+                 for label, x in cases.items()},
+           "A": {label: check_knn(x, k, label + ", ")
+                 for label, x in (("grid", cases["grid"]),
+                                  ("grid3", torch.round(4 * r(4, 3))),
+                                  ("repeat3", r(1, 3)[:, :1]
+                                   .expand(2, n, 3).contiguous()),
+                                  ("near3", near(3)))}}
+    return res, cases
+
+
+# the margins of kernel B's filter that b_margin_sweep tries: the wrapper's
+# (2^-12), smaller ones down to 2^-24, and none
+B_SWEEP_MU = [2.0 ** -e for e in range(12, 25, 2)] + [0.0]
+
+
+def b_margin_sweep(inputs: dict, k: int) -> dict:
+    """Kernel B in packed mode (bf16 diffs, the training form) launched with
+    the filter's margin mu from B_SWEEP_MU (nu the wrapper's, 0 with mu =
+    0), each input against the plain version's indices: the entries that
+    differ at each mu, and the smallest mu at which every input, and at
+    every larger mu, stayed bit-equal. The control: with mu = nu = 0 the
+    cloud far from the origin ("offset") must differ."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.knn import FILTER_NU
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import _launch, knn_edge_plain
+    ref = {name: knn_edge_plain(x, k, torch.bfloat16, True, "packed")[1]
+           for name, x in inputs.items()}
+    differ = []
+    for mu in B_SWEEP_MU:
+        row = {}
+        for name, x in inputs.items():
+            idx = _launch(x, k, torch.bfloat16, True, "packed", mu,
+                          FILTER_NU if mu else 0.0)[1]
+            row[name] = int((idx != ref[name]).sum())
+        differ.append(row)
+        log(f"  knn_edge packed margin mu={mu:.4g}: indices differing from "
+            f"the plain version {row}")
+    smallest = None
+    for mu, row in zip(B_SWEEP_MU, differ):
+        if any(row.values()):
+            break
+        smallest = mu
+    log(f"  knn_edge: smallest margin exact on every input {smallest}")
+    if not differ[-1]["offset"]:
+        raise AssertionError("kernel B with no margin equals its plain "
+                             "version on the offset cloud: the check cannot "
+                             "see a margin that fails")
+    if any(differ[0].values()):
+        raise AssertionError("kernel B differs from its plain version at "
+                             "the wrapper's margin")
+    return {"mu": B_SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
+
+
+def select_bound(pairs: int, B: int, N: int, C: int, nbytes: float):
+    """(bound ms, what bounds it) of a selection of kernels A, B or G by
+    its route: above 4 channels the three TF32 products of every pair on
+    the tensor cores (channels padded to 16), and for every pair it folds
+    exactly (`pairs`, counted by the kernel) 2 C + 3 f32 operations that
+    are not FMAs; `nbytes` moved once."""
+    cp = -(-C // 16) * 16
+    t_ops = (pairs * (2 * C + 3) / F32_OPS
+             + (3 * 2 * B * N * N * cp / TF32_FLOPS if C > 4 else 0))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
 
 
 def check_small_reference(seed: int) -> None:
@@ -1408,10 +1520,11 @@ def check_knn_edge_window(x, k, window) -> dict:
 
 
 def check_knn_blocked(x, k, label: str = "") -> dict:
-    """Kernel G against kernel A at x's shape and against its plain version
-    on the first two clouds, and against itself over two launches: indices
-    and distances bit-equal (the three compute the same f32 distances and
-    order them alike; G's tensor-core filter only chooses which keys get
+    """Kernel G against kernel A at x's shape (one code path, with launch
+    counts of their own) and against its plain version on the
+    first two clouds, and against itself over two launches: indices and
+    distances bit-equal (the three compute the same f32 distances and
+    order them alike; the tensor-core filter only chooses which keys get
     that computation)."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.knn import knn
@@ -1502,7 +1615,7 @@ def g_margin_sweep(inputs: dict, k: int) -> dict:
     return {"mu": G_SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
 
 
-# kernel G's launches (csrc/knn_blocked.cu) by pass
+# kernel G's launches (csrc/knn.cu on csrc/knn_filter.cuh) by pass
 G_PASSES = {"knn_filter_kernel": "G: filter pass (C > 4)",
             "knn_exact_kernel": "G: exact pass (C <= 4)",
             "knn_norms_kernel": "G: norms", "knn_merge_kernel": "G: merge"}
@@ -2298,12 +2411,14 @@ def main() -> None:
         .expand(B, -1, -1).contiguous()
     x_b = torch.randn(B, cfg.np, 64, generator=gen, device=dev)
     res_a = check_knn(x_a, k)
-    log(f"  knn [{B}, {cfg.np}, 3] k={k}: {res_a}")
     res_b = check_knn_edge(x_b, k)
     # the training shape: EdgeConv2's input at bs=24
     x_t = torch.randn(cfg.bs, cfg.np, 64, generator=gen, device=dev)
     res_bt = check_knn_edge(x_t, k, [("packed", torch.bfloat16, True),
                                      ("exact", torch.bfloat16, True)])
+    # a generator of its own, so that the later phases draw what they drew
+    # before this check existed
+    res_ab_hard, x_ab_hard = knn_hard(args.seed + 19, cfg.np, k)
     _, idx_t = kernels.knn_edge(x_t, k, torch.bfloat16, True, "packed")
     res_d = check_scatter(idx_t, gen)
     res_op = check_edge_op(x_t, k, gen)
@@ -2454,10 +2569,16 @@ def main() -> None:
                                                        knn_edge_plain)
     N, C = cfg.np, x_b.shape[-1]
     rows = []
-    # kernel A at [64, 2048, 3]
+    # kernel A at [64, 2048, 3]: the CUDA-core pass folds every pair
+    refined = torch.zeros(1, dtype=torch.int64, device=dev)
+    knn(x_a, k, refined=refined)
+    a_pairs = int(refined.item())
     a_ms = cuda_ms(lambda: knn(x_a, k), 50)
     a_plain = cuda_ms(lambda: knn_plain(x_a, k), 10)
-    a_bound, a_by = bound(2 * B * N * N * 3, B * N * 3 * 4 + 2 * B * N * k * 4)
+    a_bound, a_by = select_bound(a_pairs, B, N, 3,
+                                 B * N * 3 * 4 + 2 * B * N * k * 4)
+    a_old_bound, _ = bound(2 * B * N * N * 3,
+                           B * N * 3 * 4 + 2 * B * N * k * 4)
     x_a1 = x_a[:1].contiguous()
     log(f"  knn at batch 1 [1, {N}, 3] (the unfused path): "
         f"{cuda_ms(lambda: knn(x_a1, k), 50):.4f} ms")
@@ -2468,14 +2589,37 @@ def main() -> None:
         launches=launches["knn"], agree=res_a["agree"],
         max_abs_err=res_a["max_abs_err"], max_err=res_a["max_abs_err"],
         ms=a_ms, plain_ms=a_plain, bound_ms=a_bound, bound_by=a_by,
-        library_ms=None, shape=[B, N, 3], path="serve"))
-    # kernel B at [64, 2048, 64] -> f32 [central, nbr - central], packed
+        library_ms=None, old_bound_ms=a_old_bound, refined_pairs=a_pairs,
+        refined_per_query=a_pairs / (B * N),
+        hard={n: {kk: r[kk] for kk in ("vs_plain", "vs_g", "vs_again")}
+              for n, r in res_ab_hard["A"].items()},
+        shape=[B, N, 3], path="serve"))
+    # kernel B at [64, 2048, 64] -> f32 [central, nbr - central], packed,
+    # and at the training shape [24, 2048, 64] -> bf16 diffs, packed: the
+    # filter's three TF32 products of every pair and the exact folds of the
+    # pairs it counts, beside the bytes (x read once, ee and idx written
+    # once)
     serve_b = dict(out_dtype=torch.float32, diff_only=False,
                    select_mode="packed")
-    b_ms = cuda_ms(lambda: knn_edge(x_b, k, **serve_b), 20)
-    b_plain = cuda_ms(lambda: knn_edge_plain(x_b, k, **serve_b), 5)
-    b_bound, b_by = bound(2 * B * N * N * C, B * N * C * 4
-                          + B * N * k * 2 * C * 4 + B * N * k * 4)
+    train_b = dict(out_dtype=torch.bfloat16, diff_only=True,
+                   select_mode="packed")
+    Bt = x_t.shape[0]
+    b_rows = {}
+    for label, xx, kw, ec, esize in (("serve", x_b, serve_b, 2 * C, 4),
+                                     ("train", x_t, train_b, C, 2)):
+        Bx = xx.shape[0]
+        refined.zero_()
+        knn_edge(xx, k, **kw, refined=refined)
+        pairs = int(refined.item())
+        nbytes = Bx * N * C * 4 + Bx * N * k * ec * esize + Bx * N * k * 4
+        b_bound, b_by = select_bound(pairs, Bx, N, C, nbytes)
+        b_rows[label] = dict(
+            ms=cuda_ms(lambda: knn_edge(xx, k, **kw), 20),
+            plain_ms=cuda_ms(lambda: knn_edge_plain(xx, k, **kw), 5),
+            bound_ms=b_bound, bound_by=b_by,
+            old_bound_ms=bound(2 * Bx * N * N * C, nbytes)[0],
+            refined_pairs=pairs, refined_per_query=pairs / (Bx * N))
+        log(f"  knn_edge[{label}, {list(xx.shape)}]: {b_rows[label]}")
     rows.append(dict(
         name="knn_edge", route="cuda",
         source="sp_gan_tpu_torch/csrc/knn_edge.cu",
@@ -2483,18 +2627,19 @@ def main() -> None:
                  "_knn_edge_kernel :177)",
         launches=launches["knn_edge"], agree=res_b["agree"],
         max_abs_err=res_b["max_abs_err"], max_err=res_b["max_abs_err"],
-        ms=b_ms, plain_ms=b_plain, bound_ms=b_bound, bound_by=b_by,
-        library_ms=None, shape=[B, N, C], path="serve"))
+        **b_rows["serve"], library_ms=None,
+        hard={n: {kk: r[kk] for kk in ("vs_plain", "vs_again")}
+              for n, r in res_ab_hard["B"].items()},
+        margin=b_margin_sweep({"offset": x_ab_hard["offset"],
+                               "grid": x_ab_hard["grid"],
+                               "near": x_ab_hard["near"],
+                               "quantum": x_ab_hard["quantum"],
+                               "randn": x_b[:4].contiguous()}, k),
+        shape=[B, N, C], path="serve"))
     for mode in ("exact", "packed"):
         for cd in (torch.float32, torch.bfloat16):
             ms = cuda_ms(lambda: knn_edge(x_b, k, cd, True, mode), 20)
             log(f"  knn_edge[{mode}, {str(cd)[6:]}, diff_only]: {ms:.3f} ms")
-    # kernel B at the training shape [24, 2048, 64] -> bf16 diffs, packed
-    Bt = x_t.shape[0]
-    train_b = dict(out_dtype=torch.bfloat16, diff_only=True,
-                   select_mode="packed")
-    tb_bound, tb_by = bound(2 * Bt * N * N * C, Bt * N * C * 4
-                            + Bt * N * k * C * 2 + Bt * N * k * 4)
     rows.append(dict(
         name="knn_edge", route="cuda",
         source="sp_gan_tpu_torch/csrc/knn_edge.cu",
@@ -2503,10 +2648,7 @@ def main() -> None:
         launches=train["launches"]["knn_edge"],
         launches_per_step=train["launches_per_step"]["knn_edge"],
         agree=res_bt["agree"], max_abs_err=res_bt["max_abs_err"],
-        max_err=res_bt["max_abs_err"],
-        ms=cuda_ms(lambda: knn_edge(x_t, k, **train_b), 20),
-        plain_ms=cuda_ms(lambda: knn_edge_plain(x_t, k, **train_b), 5),
-        bound_ms=tb_bound, bound_by=tb_by, library_ms=None,
+        max_err=res_bt["max_abs_err"], **b_rows["train"], library_ms=None,
         shape=[Bt, N, C], path="train"))
     # kernel D at the training shape: d_diff [24, 2048, 10, 64] bf16
     dd_t = torch.randn(Bt, N, k, C, generator=gen,
@@ -2650,14 +2792,10 @@ def main() -> None:
         refined = torch.zeros(1, dtype=torch.int64, device=dev)
         knn_blocked(xg, k, refined=refined)
         pairs = int(refined.item())
-        # the kernel's own work: above 4 channels the three TF32 products of
-        # every pair on the tensor cores, and for every pair it folds
-        # exactly 2 C + 3 f32 operations (multiply and add separate);
-        # its bytes: x read once, idx and dist written once
-        cp = -(-c // 16) * 16
-        t_ops = (pairs * (2 * c + 3) / F32_OPS
-                 + (3 * 2 * Bg * Ng * Ng * cp / TF32_FLOPS if c > 4 else 0))
-        t_bytes = (Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4) / HBM_BYTES_PER_S
+        # the kernel's own work by route (select_bound); its bytes: x read
+        # once, idx and dist written once
+        g_bound, g_by = select_bound(pairs, Bg, Ng, c,
+                                     Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4)
         old_bound, _ = bound(2 * Bg * Ng * Ng * c,
                              Bg * Ng * c * 4 + 2 * Bg * Ng * k * 4)
         g_calls[name] = dict(
@@ -2665,8 +2803,7 @@ def main() -> None:
             knn_ms=cuda_ms(lambda: knn(xg, k), 3),
             plain_ms=cuda_ms(lambda: knn_blocked_plain(xg, k), 1),
             refined_pairs=pairs, refined_per_query=pairs / (Bg * Ng),
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops > t_bytes else "bytes",
+            bound_ms=g_bound, bound_by=g_by,
             old_bound_ms=old_bound, mismatches=checked["vs_knn"])
         log(f"  knn_blocked[{name}]: {g_calls[name]}")
     margin = g_margin_sweep({"offset": x_g_hard["offset"],
@@ -2676,7 +2813,7 @@ def main() -> None:
     req = (g_calls["C=3"], g_calls["C=64"])
     rows.append(dict(
         name="knn_blocked", route="cuda",
-        source="sp_gan_tpu_torch/csrc/knn_blocked.cu",
+        source="sp_gan_tpu_torch/csrc/knn.cu",
         replaces="sp_gan_tpu/ops/pallas/knn.py:120 (knn_pallas_blocked, "
                  "_knn_blocked_kernel :58)",
         launches=serve16["launches"]["knn_blocked"],

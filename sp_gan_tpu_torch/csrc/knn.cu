@@ -1,75 +1,57 @@
-// Kernel A: exact self-kNN, idx [B, N, k] int32 and dist [B, N, k] f32.
+// Kernels A and G: exact self-kNN, idx [B, N, k] int32 and dist [B, N, k]
+// f32, bit-equal to knn_plain at any N.
 //
-// Replaces the TPU kernel sp_gan_tpu/ops/pallas/knn.py::knn_pallas
-// (_knn_kernel): squared distances of each query to every point of its
-// cloud, self masked to +inf, the k smallest in ascending order with ties
-// to the lower index (k rounds of min/argmin on the TPU; a running top-k in
-// registers here, which gives the same order).
+// Replaces the TPU kernels sp_gan_tpu/ops/pallas/knn.py::knn_pallas
+// (_knn_kernel, A) and knn_pallas_blocked (_knn_blocked_kernel, G, which
+// knn_pallas takes for N > 8192): squared distances of each query to every
+// point of its cloud, self masked to +inf, the k smallest in ascending
+// order with ties to the lower index. A and G are one code path, the
+// selection engine of knn_filter.cuh (its header has the design and the
+// proof): a CUDA-core fold of every pair at C <= 4, a TF32 tensor-core
+// filter in front of the exact f32 fold above; one running list a query,
+// walked from the block's own tile. The wrappers (ops/kernels/knn.py,
+// knn_blocked.py) route by N as the JAX package does, and count their
+// launches apart.
 //
-// What bounds it on an H100: per candidate key a thread spends a few
-// FLOPs on the distance and up to k compare-and-shift steps on its running
-// top-k, so the latency of that serial loop, not bytes, bounds it. At the
-// serving shape [64, 2048, 3], k=10 (the fused eval path runs EdgeConv1 at
-// the full batch) 1024 blocks of 128 queries cover the card. At the unfused
-// path's batch-1 shape [1, 2048, 3] only 16 blocks run, on 16 of the 132
-// SMs: 0.458 ms measured against a 0.4 us bound (chip_smoke.py on an H100,
-// 700 W). A warp per query, or keys split across threads with a top-k
-// merge, would fill the card there.
-#include "knn_common.cuh"
+// What bounds it on an H100: at EdgeConv1's calls (C = 3: the serving
+// request's [64, 2048, 3], P2's [16, 16384, 3]) the exact fold of every
+// pair, 9 f32 operations that are not FMAs a pair, 0.072 ms and 1.16 ms
+// at 33.5 Tops/s; at P2's EdgeConv2 call [16, 16384, 64] the three TF32
+// products, 1.65 TFLOP, 3.3 ms at 495 TFLOP/s. chip_smoke.py counts the
+// pairs each call folds exactly and bounds it by that count.
+#include "knn_filter.cuh"
 
-namespace {
-
-template <int CM, int KM>
-__global__ void __launch_bounds__(spgan::kQueries)
-    knn_kernel(const float* __restrict__ x, int32_t* __restrict__ idx,
-               float* __restrict__ dist, int N, int C, int k) {
-  __shared__ __align__(16) float sk[spgan::kTileKeys * CM];
-  __shared__ float skn[spgan::kTileKeys];
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * spgan::kQueries + threadIdx.x;
-  const bool valid = qi < N;
-  const float* xb = x + (size_t)b * N * C;
-  spgan::TopK<KM, false> top;
-  spgan::select_knn<CM, KM, false>(xb, N, C, qi, valid, 0, top, sk, skn, 0,
-                                   N);
-  if (!valid) return;
-  const size_t o = ((size_t)b * N + qi) * k;
-#pragma unroll
-  for (int t = 0; t < KM; ++t) {
-    if (t < k) {
-      idx[o + t] = top.idx[t];
-      dist[o + t] = spgan::unorderable(top.key[t]);
-    }
-  }
+// int32 words of scratch spgan_knn needs: the norms of the filter (B * N,
+// C > 4) and, with S > 1 key chunks, the partial lists.
+extern "C" long long spgan_knn_scratch(int B, int N, int C, int k) {
+  return spgan::select_scratch_words<spgan::ListOut>(B, N, C, k);
 }
 
-struct KnnLaunch {
-  const float* x;
-  int32_t* idx;
-  float* dist;
-  int B, N, C, k;
-  cudaStream_t stream;
-
-  template <int CM, int KM>
-  void operator()() const {
-    const dim3 grid((N + spgan::kQueries - 1) / spgan::kQueries, B);
-    knn_kernel<CM, KM><<<grid, spgan::kQueries, 0, stream>>>(x, idx, dist, N,
-                                                             C, k);
-  }
-};
-
-}  // namespace
-
-// x [B, N, C] f32 contiguous on the device; idx, dist [B, N, k]. Launches on
-// `stream` and returns the cudaError_t of the launch (0 on success).
-// Takes C <= 128 and 1 <= k <= min(32, N).
-extern "C" int spgan_knn(const void* x, void* idx, void* dist, int B, int N,
-                         int C, int k, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || k <= 0 || k > N)
+// x [B, N, C] f32 contiguous on the device; idx, dist [B, N, k]; scratch
+// of spgan_knn_scratch(B, N, C, k) int32, needing no initialisation;
+// refined null or one unsigned 64-bit counter, to which the call adds the
+// (query, key) pairs it folds exactly. mu and nu: the filter's margin
+// (knn_filter.cuh). Launches on `stream` and returns the first nonzero
+// cudaError_t (0 on success). Takes C <= 128, 1 <= k <= min(32, N) and
+// B <= 65535.
+extern "C" int spgan_knn(const void* x, void* scratch, void* idx, void* dist,
+                         void* refined, int B, int N, int C, int k, float mu,
+                         float nu, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || C > 128 || k <= 0 ||
+      k > N || k > 32)
     return (int)cudaErrorInvalidValue;
-  const KnnLaunch f{static_cast<const float*>(x), static_cast<int32_t*>(idx),
-                    static_cast<float*>(dist), B, N, C, k,
-                    static_cast<cudaStream_t>(stream)};
-  if (!spgan::dispatch_widths(C, k, f)) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const spgan::Select<spgan::ListOut> f{
+      {static_cast<int32_t*>(idx), static_cast<float*>(dist), k},
+      static_cast<const float*>(x),
+      static_cast<int32_t*>(scratch),
+      static_cast<unsigned long long*>(refined),
+      B,
+      N,
+      C,
+      k,
+      0,
+      mu,
+      nu,
+      static_cast<cudaStream_t>(stream)};
+  return f();
 }

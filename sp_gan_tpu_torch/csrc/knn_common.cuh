@@ -1,11 +1,13 @@
-// Shared pieces of the kNN kernels (knn.cu: A, knn_edge.cu: B,
-// knn_edge_window.cu: F, knn_blocked.cu: G): the f32 distance fold, the
-// running top-k kept in registers and the edge-row writer.
+// Shared pieces of the kNN kernels (knn.cu: A and G, knn_edge.cu: B, both
+// through the selection engine of knn_filter.cuh; knn_edge_window.cu: F;
+// chamfer.cu: N): the f32 distance fold, the running top-k kept in
+// registers and the edge-row writer.
 //
 // Layout: one thread owns one query point; a block holds kQueries queries
-// of one cloud and walks its keys (all N, a range of them, or a circular
-// band) in tiles of kTileKeys rows staged in shared memory. Every thread of a warp reads the same key
-// row at the same time, so the shared-memory reads are broadcasts.
+// of one cloud and walks its keys (a chunk of them, or a circular band) in
+// tiles of kTileKeys rows staged in shared memory. Every thread of a warp
+// reads the same key row at the same time, so the shared-memory reads are
+// broadcasts (the filter of knn_filter.cuh has its own layout).
 //
 // Arithmetic: the distance is (|q|^2 - 2 q.k) + |k|^2 with the dot products
 // folded over the channels left to right, each product and each partial sum
@@ -158,34 +160,6 @@ __device__ __forceinline__ int pack_key(float d, int low_mask, int j) {
   return (__float_as_int(dp) & ~low_mask) | j;
 }
 
-// Fills `top` with the K nearest of the keys [key0, key1) of query `qi`
-// (self at +inf) in the cloud `xb` [N, C]. All threads of the block must
-// call it (it synchronizes); `valid` is false for the padding threads past
-// N. `low_mask` is the packed mode's index mask, (1 << ceil(log2 N)) - 1.
-// `sk` holds kTileKeys * CM floats and `skn` kTileKeys floats of shared
-// memory.
-template <int CM, int K, bool PACKED>
-__device__ __forceinline__ void select_knn(const float* __restrict__ xb, int N,
-                                           int C, int qi, bool valid,
-                                           int low_mask, TopK<K, PACKED>& top,
-                                           float* sk, float* skn, int key0,
-                                           int key1) {
-  float q[CM];
-  const float qn = load_query<CM>(xb, C, qi, valid, q);
-  top.init();
-  for (int tile0 = key0; tile0 < key1; tile0 += kTileKeys) {
-    const int nt = min(kTileKeys, key1 - tile0);
-    stage_keys<CM>(xb, C, tile0, nt, RowsAsIs{}, sk, skn);
-    if (!valid) continue;
-    for (int t = 0; t < nt; ++t) {
-      const int j = tile0 + t;
-      float d = key_dist<CM>(q, qn, sk + t * CM, skn[t]);
-      if (j == qi) d = __int_as_float(0x7f800000);  // self -> +inf
-      top.push(PACKED ? pack_key(d, low_mask, j) : orderable(d), j);
-    }
-  }
-}
-
 // The banded selection of the block's queries q0 .. q0 + nq - 1 (one per
 // thread): the keys are the circular slice of rows q0 - W .. q0 + nq + W - 1
 // (mod N), and thread t's candidates are its band, slice positions
@@ -220,13 +194,73 @@ __device__ __forceinline__ void select_band(const float* __restrict__ xb,
   }
 }
 
+// write_edges by 4 channels a thread (C % 4 == 0, x and ee 16-byte
+// aligned): 16-byte loads of x, 16- or 8-byte stores, the same rounding of
+// each element.
+__device__ __forceinline__ void write_edges4(const float* __restrict__ xb,
+                                             void* __restrict__ ee,
+                                             const int* snbr, int C, int k,
+                                             int q0, int total4, size_t base,
+                                             bool diff_only, bool out_bf16) {
+  const int ec4 = (diff_only ? C : 2 * C) / 4, c4n = C / 4;
+  const int step = blockDim.x, drow = step / ec4, dc = step % ec4;
+  int row = threadIdx.x / ec4, c = threadIdx.x % ec4;
+  for (int e = threadIdx.x; e < total4; e += step) {
+    const bool is_central = !diff_only && c < c4n;
+    const int ch = is_central ? c : c - (ec4 - c4n);
+    const int qloc = row / k;
+    const float4 cen =
+        reinterpret_cast<const float4*>(xb + (size_t)(q0 + qloc) * C)[ch];
+    float4 v = cen;
+    if (!is_central) {
+      const float4 nb =
+          reinterpret_cast<const float4*>(xb + (size_t)snbr[row] * C)[ch];
+      if (out_bf16) {
+        v.x = __bfloat162float(__float2bfloat16_rn(__fsub_rn(
+            __bfloat162float(__float2bfloat16_rn(nb.x)),
+            __bfloat162float(__float2bfloat16_rn(cen.x)))));
+        v.y = __bfloat162float(__float2bfloat16_rn(__fsub_rn(
+            __bfloat162float(__float2bfloat16_rn(nb.y)),
+            __bfloat162float(__float2bfloat16_rn(cen.y)))));
+        v.z = __bfloat162float(__float2bfloat16_rn(__fsub_rn(
+            __bfloat162float(__float2bfloat16_rn(nb.z)),
+            __bfloat162float(__float2bfloat16_rn(cen.z)))));
+        v.w = __bfloat162float(__float2bfloat16_rn(__fsub_rn(
+            __bfloat162float(__float2bfloat16_rn(nb.w)),
+            __bfloat162float(__float2bfloat16_rn(cen.w)))));
+      } else {
+        v = make_float4(__fsub_rn(nb.x, cen.x), __fsub_rn(nb.y, cen.y),
+                        __fsub_rn(nb.z, cen.z), __fsub_rn(nb.w, cen.w));
+      }
+    }
+    if (out_bf16) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 w;
+      w.x = *reinterpret_cast<uint32_t*>(&lo);
+      w.y = *reinterpret_cast<uint32_t*>(&hi);
+      reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(ee) + base)[e] = w;
+    } else {
+      reinterpret_cast<float4*>(static_cast<float*>(ee) + base)[e] = v;
+    }
+    c += dc;
+    row += drow;
+    if (c >= ec4) {
+      c -= ec4;
+      ++row;
+    }
+  }
+}
+
 // Writes the edge rows of the block's queries q0 .. q0 + nq - 1 of cloud
 // `b`: ee [B, N, k, C] `nbr - central` (diff_only) or [B, N, k, 2C]
 // `[central, nbr - central]`, f32 or bf16, the neighbor of query slot
 // `qloc`, neighbor `t` at snbr[qloc * k + t] (shared memory). With bf16
 // output the diff is bf16(f32(bf16(nbr)) - f32(bf16(central))), the rounding
 // of the JAX kernels and of the XLA path. The block's rows are one
-// contiguous range of ee, written by consecutive threads.
+// contiguous range of ee, written by consecutive threads; each thread steps
+// its (row, channel) and (query, slot) by the block's stride, with no
+// division in the loop.
 __device__ __forceinline__ void write_edges(const float* __restrict__ xb,
                                             void* __restrict__ ee,
                                             const int* snbr, int b, int N,
@@ -235,10 +269,18 @@ __device__ __forceinline__ void write_edges(const float* __restrict__ xb,
   const int ec = diff_only ? C : 2 * C;
   const int total = nq * k * ec;  // at most 128 * 32 * 256
   const size_t base = ((size_t)b * N + q0) * k * ec;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int c = e % ec;
-    const int row = e / ec;  // = local query * k + neighbor slot
-    const int qloc = row / k;
+  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(ee) % 16 == 0) {
+    write_edges4(xb, ee, snbr, C, k, q0, total / 4, base, diff_only,
+                 out_bf16);
+    return;
+  }
+  const int step = blockDim.x, drow = step / ec, dc = step % ec;
+  const int dq = drow / k, ds = drow % k;
+  // element e = row * ec + c, row = qloc * k + slot (local query, neighbor)
+  int row = threadIdx.x / ec, c = threadIdx.x % ec;
+  int qloc = row / k, slot = row % k;
+  for (int e = threadIdx.x; e < total; e += step) {
     const bool is_central = !diff_only && c < C;
     const int ch = is_central ? c : c - (ec - C);
     const float cen = xb[(size_t)(q0 + qloc) * C + ch];
@@ -255,6 +297,19 @@ __device__ __forceinline__ void write_edges(const float* __restrict__ xb,
       float v = cen;
       if (!is_central) v = __fsub_rn(xb[(size_t)snbr[row] * C + ch], cen);
       static_cast<float*>(ee)[base + e] = v;
+    }
+    c += dc;
+    row += drow;
+    slot += ds;
+    qloc += dq;
+    if (c >= ec) {
+      c -= ec;
+      ++row;
+      ++slot;
+    }
+    if (slot >= k) {
+      slot -= k;
+      ++qloc;
     }
   }
 }

@@ -9,106 +9,63 @@
 //   packed - ascending int32 key: the bits of max(distance, 0) with the low
 //            ceil(log2 N) bits replaced by the column index, so distances
 //            within one quantum order by index (knn.py:225-258).
-// The TPU gathers the neighbor rows with one-hot matmuls on the MXU; here
-// each block writes its queries' edge rows straight from x, which stays in
-// L2. With bf16 output the diff is bf16(f32(bf16(nbr)) - f32(bf16(central))),
-// the rounding of the JAX kernel and of the XLA path.
+// The selection is kernels A and G's engine (knn_filter.cuh, which has the
+// design and the proof, the packed mode's threshold tau_q included): at C
+// <= 4 a CUDA-core fold of every pair, above a TF32 tensor-core filter in
+// front of the exact f32 fold, so the picks are the fold's in either
+// order. The selection kernel hands its lists to the merge pass, which
+// keeps many blocks an SM in flight (the filter two or three) and, once a
+// block's lists are whole, turns the TPU's one-hot gather on the MXU into
+// write_edges (knn_common.cuh): each block writes its queries' edge rows
+// straight from x, which stays in L2, by consecutive threads, 16 bytes a
+// load. With bf16 output the diff is bf16(f32(bf16(nbr)) -
+// f32(bf16(central))), the rounding of the JAX kernel and of the XLA path.
 //
-// What bounds it on an H100: at the serving shape [64, 2048, 64], k=10 the
-// distances are 2*64*2048^2*64 = 34.4 GFLOP of f32 arithmetic (0.51 ms at
-// 67 TFLOP/s), against 0.71 GB of input and output in the f32 concat form
-// that the fused eval path asks for (0.21 ms at 3.35 TB/s; 207 MB and 62 us
-// for bf16 diffs), so it is bound by f32 operations. It keeps them off the tensor cores on
-// purpose: selection needs the exact f32 distances. This first version
-// issues a separate multiply and add per channel (no FMA, to stay
-// bit-identical with its PyTorch twin) and one query per thread; more
-// queries per thread and key-tile prefetch are the next steps.
-#include "knn_common.cuh"
+// What bounds it on an H100: at the serving shape [64, 2048, 64], k=10,
+// f32 concat edges, the three TF32 products of the filter (3 * 2 * 64 *
+// 2048^2 * 64 = 103 GFLOP, 0.208 ms at 495 TFLOP/s) and the 0.71 GB of
+// input and output (0.212 ms at 3.35 TB/s), with the exact folds of the
+// candidates (counted on the card) beside them; at the training shape
+// [24, 2048, 64], bf16 diffs, the products (0.078 ms) over 85 MB of bytes.
+#include "knn_filter.cuh"
 
-namespace {
-
-template <int CM, int KM, bool PACKED>
-__global__ void __launch_bounds__(spgan::kQueries)
-    knn_edge_kernel(const float* __restrict__ x, void* __restrict__ ee,
-                    int32_t* __restrict__ idx, int N, int C, int k,
-                    int low_mask, bool diff_only, bool out_bf16) {
-  __shared__ __align__(16) float sbuf[spgan::smem_floats<CM, KM>()];
-  __shared__ float skn[spgan::kTileKeys];
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * spgan::kQueries;
-  const int qi = q0 + threadIdx.x;
-  const bool valid = qi < N;
-  const float* xb = x + (size_t)b * N * C;
-  spgan::TopK<KM, PACKED> top;
-  spgan::select_knn<CM, KM, PACKED>(xb, N, C, qi, valid, low_mask, top, sbuf,
-                                    skn, 0, N);
-
-  // the block's neighbor lists go to shared memory (reusing the key tile)
-  // so that the edge rows can be written by consecutive threads
-  int* snbr = reinterpret_cast<int*>(sbuf);
-  __syncthreads();  // every thread is done with the last key tile
-  if (valid) {
-    const size_t o = ((size_t)b * N + qi) * k;
-#pragma unroll
-    for (int t = 0; t < KM; ++t) {
-      if (t < k) {
-        int j = PACKED ? (top.key[t] & low_mask) : top.idx[t];
-        j = min(max(j, 0), N - 1);  // memory safety on NaN input only
-        snbr[threadIdx.x * k + t] = j;
-        idx[o + t] = j;
-      }
-    }
-  }
-  __syncthreads();
-  spgan::write_edges(xb, ee, snbr, b, N, C, k, q0,
-                     min(spgan::kQueries, N - q0), diff_only, out_bf16);
+// int32 words of scratch spgan_knn_edge needs: the norms of the filter (C
+// > 4) and the partial lists its merge pass reads.
+extern "C" long long spgan_knn_edge_scratch(int B, int N, int C, int k) {
+  return spgan::select_scratch_words<spgan::EdgeOut<false>>(B, N, C, k);
 }
 
-struct KnnEdgeLaunch {
-  const float* x;
-  void* ee;
-  int32_t* idx;
-  int B, N, C, k, low_mask;
-  bool diff_only, out_bf16, packed;
-  cudaStream_t stream;
-
-  template <int CM, int KM>
-  void operator()() const {
-    const dim3 grid((N + spgan::kQueries - 1) / spgan::kQueries, B);
-    if (packed)
-      knn_edge_kernel<CM, KM, true><<<grid, spgan::kQueries, 0, stream>>>(
-          x, ee, idx, N, C, k, low_mask, diff_only, out_bf16);
-    else
-      knn_edge_kernel<CM, KM, false><<<grid, spgan::kQueries, 0, stream>>>(
-          x, ee, idx, N, C, k, low_mask, diff_only, out_bf16);
-  }
-};
-
-}  // namespace
-
 // x [B, N, C] f32 contiguous on the device; ee [B, N, k, C or 2C] in f32
-// or bf16 (out_bf16); idx [B, N, k] int32. Launches on `stream` and returns
-// the cudaError_t of the launch (0 on success). Takes C <= 128,
-// 1 <= k <= min(32, N) and N <= 2^30.
-extern "C" int spgan_knn_edge(const void* x, void* ee, void* idx, int B,
-                              int N, int C, int k, int diff_only, int packed,
-                              int out_bf16, void* stream) {
-  if (B <= 0 || N <= 0 || C <= 0 || k <= 0 || k > N || N > (1 << 30))
+// or bf16 (out_bf16); idx [B, N, k] int32; scratch of
+// spgan_knn_edge_scratch(B, N, C, k) int32, needing no initialisation;
+// refined null or one unsigned 64-bit counter, to which the call adds the
+// (query, key) pairs it folds exactly; mu and nu the filter's margin.
+// Launches on `stream` and returns the first nonzero cudaError_t (0 on
+// success). Takes C <= 128, 1 <= k <= min(32, N), B <= 65535 and N <=
+// 2^30.
+extern "C" int spgan_knn_edge(const void* x, void* scratch, void* ee,
+                              void* idx, void* refined, int B, int N, int C,
+                              int k, int diff_only, int packed, int out_bf16,
+                              float mu, float nu, void* stream) {
+  if (B <= 0 || B > 65535 || N <= 0 || N > (1 << 30) || C <= 0 || C > 128 ||
+      k <= 0 || k > N || k > 32)
     return (int)cudaErrorInvalidValue;
   int bits = 1;
   while ((1 << bits) < N) ++bits;  // ceil(log2 N), at least 1
-  const KnnEdgeLaunch f{static_cast<const float*>(x),
-                        ee,
-                        static_cast<int32_t*>(idx),
-                        B,
-                        N,
-                        C,
-                        k,
-                        (1 << bits) - 1,
-                        diff_only != 0,
-                        out_bf16 != 0,
-                        packed != 0,
-                        static_cast<cudaStream_t>(stream)};
-  if (!spgan::dispatch_widths(C, k, f)) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const int low_mask = (1 << bits) - 1;
+  const float* xf = static_cast<const float*>(x);
+  int32_t* words = static_cast<int32_t*>(scratch);
+  int32_t* out_idx = static_cast<int32_t*>(idx);
+  unsigned long long* count = static_cast<unsigned long long*>(refined);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (packed) {
+    const spgan::Select<spgan::EdgeOut<true>> f{
+        {xf, ee, out_idx, C, k, low_mask, diff_only != 0, out_bf16 != 0},
+        xf, words, count, B, N, C, k, low_mask, mu, nu, st};
+    return f();
+  }
+  const spgan::Select<spgan::EdgeOut<false>> f{
+      {xf, ee, out_idx, C, k, low_mask, diff_only != 0, out_bf16 != 0},
+      xf, words, count, B, N, C, k, low_mask, mu, nu, st};
+  return f();
 }

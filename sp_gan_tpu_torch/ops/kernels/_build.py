@@ -41,21 +41,22 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS     # what the library's hash covers
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t (or,
-# for spgan_knn_blocked_scratch, spgan_edge_tail_scratch, spgan_ebt_scratch
-# and spgan_csr_scratch, a count of floats or int32 as a long long,
-# RESTYPES)
+# for spgan_knn_scratch, spgan_knn_edge_scratch, spgan_edge_tail_scratch,
+# spgan_ebt_scratch and spgan_csr_scratch, a count of floats or int32 as a
+# long long, RESTYPES)
 SIGNATURES = {
-    # x, idx, dist, B, N, C, k, stream
-    "spgan_knn": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # x, ee, idx, B, N, C, k, diff_only, packed, out_bf16, stream
-    "spgan_knn_edge": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # B, N, C, k -> int32 of scratch (long long)
+    "spgan_knn_scratch": (_I,) * 4,
+    # x, scratch, idx, dist, refined, B, N, C, k, mu, nu, stream
+    "spgan_knn": (_P,) * 5 + (_I,) * 4 + (_F, _F, _P),
+    # B, N, C, k -> int32 of scratch (long long)
+    "spgan_knn_edge_scratch": (_I,) * 4,
+    # x, scratch, ee, idx, refined, B, N, C, k, diff_only, packed, out_bf16,
+    # mu, nu, stream
+    "spgan_knn_edge": (_P,) * 5 + (_I,) * 7 + (_F, _F, _P),
     # x, ee, idx, B, N, C, k, W, low_mask, diff_only, packed, out_bf16,
     # stream
     "spgan_knn_edge_window": (_P, _P, _P) + (_I,) * 9 + (_P,),
-    # B, N, C, k -> int32 of scratch (long long)
-    "spgan_knn_blocked_scratch": (_I,) * 4,
-    # x, scratch, idx, dist, refined, B, N, C, k, mu, nu, stream
-    "spgan_knn_blocked": (_P,) * 5 + (_I,) * 4 + (_F, _F, _P),
     # B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
     "spgan_edge_tail_scratch": (_I,) * 7,
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, scratch, out, B, N, C, F2, F,
@@ -92,7 +93,8 @@ SIGNATURES = {
     "spgan_auction": (_P,) * 4 + (_I,) * 5 + (_P, _L, _P, _P),
 }
 
-RESTYPES = {"spgan_knn_blocked_scratch": ctypes.c_longlong,
+RESTYPES = {"spgan_knn_scratch": ctypes.c_longlong,
+            "spgan_knn_edge_scratch": ctypes.c_longlong,
             "spgan_edge_tail_scratch": ctypes.c_longlong,
             "spgan_ebt_scratch": ctypes.c_longlong,
             "spgan_csr_scratch": ctypes.c_longlong}

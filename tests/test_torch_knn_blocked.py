@@ -104,7 +104,7 @@ class TestRoute:
 
 
 # ------------------------------------------------------------------ filter
-# Kernel G's tensor-core filter (csrc/knn_blocked.cu), emulated in plain
+# Kernel G's tensor-core filter (csrc/knn_filter.cuh), emulated in plain
 # PyTorch: the inputs it must get right, at a small N, and the rule that
 # decides which keys get the exact fold.
 
