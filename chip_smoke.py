@@ -423,58 +423,68 @@ def knn_hard(seed: int, n: int, k: int):
     return res, cases
 
 
-# the margins of kernel B's filter that b_margin_sweep tries: the wrapper's
-# (2^-12), smaller ones down to 2^-24, and none
-B_SWEEP_MU = [2.0 ** -e for e in range(12, 25, 2)] + [0.0]
+# the margins of the filter (kernels B and F) that margin_sweep tries: the
+# wrappers' (2^-12), smaller ones down to 2^-24, and none
+SWEEP_MU = [2.0 ** -e for e in range(12, 25, 2)] + [0.0]
 
 
-def b_margin_sweep(inputs: dict, k: int) -> dict:
-    """Kernel B in packed mode (bf16 diffs, the training form) launched with
-    the filter's margin mu from B_SWEEP_MU (nu the wrapper's, 0 with mu =
-    0), each input against the plain version's indices: the entries that
+def margin_sweep(name: str, inputs: dict, launch, plain) -> dict:
+    """A selection kernel on the engine's filter (B or F) launched with the
+    filter's margin mu from SWEEP_MU (nu the wrapper's, 0 with mu = 0),
+    `launch(x, mu, nu)` and `plain(x)` giving its and its plain version's
+    indices, each input against the plain version's: the entries that
     differ at each mu, and the smallest mu at which every input, and at
     every larger mu, stayed bit-equal. The control: with mu = nu = 0 the
     cloud far from the origin ("offset") must differ."""
-    import torch
     from sp_gan_tpu_torch.ops.kernels.knn import FILTER_NU
-    from sp_gan_tpu_torch.ops.kernels.knn_edge import _launch, knn_edge_plain
-    ref = {name: knn_edge_plain(x, k, torch.bfloat16, True, "packed")[1]
-           for name, x in inputs.items()}
+    ref = {label: plain(x) for label, x in inputs.items()}
     differ = []
-    for mu in B_SWEEP_MU:
-        row = {}
-        for name, x in inputs.items():
-            idx = _launch(x, k, torch.bfloat16, True, "packed", mu,
-                          FILTER_NU if mu else 0.0)[1]
-            row[name] = int((idx != ref[name]).sum())
+    for mu in SWEEP_MU:
+        row = {label: int((launch(x, mu, FILTER_NU if mu else 0.0)
+                           != ref[label]).sum())
+               for label, x in inputs.items()}
         differ.append(row)
-        log(f"  knn_edge packed margin mu={mu:.4g}: indices differing from "
+        log(f"  {name} packed margin mu={mu:.4g}: indices differing from "
             f"the plain version {row}")
     smallest = None
-    for mu, row in zip(B_SWEEP_MU, differ):
+    for mu, row in zip(SWEEP_MU, differ):
         if any(row.values()):
             break
         smallest = mu
-    log(f"  knn_edge: smallest margin exact on every input {smallest}")
+    log(f"  {name}: smallest margin exact on every input {smallest}")
     if not differ[-1]["offset"]:
-        raise AssertionError("kernel B with no margin equals its plain "
+        raise AssertionError(f"{name} with no margin equals its plain "
                              "version on the offset cloud: the check cannot "
                              "see a margin that fails")
     if any(differ[0].values()):
-        raise AssertionError("kernel B differs from its plain version at "
+        raise AssertionError(f"{name} differs from its plain version at "
                              "the wrapper's margin")
-    return {"mu": B_SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
+    return {"mu": SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
 
 
-def select_bound(pairs: int, B: int, N: int, C: int, nbytes: float):
-    """(bound ms, what bounds it) of a selection of kernels A, B or G by
+def b_margin_sweep(inputs: dict, k: int) -> dict:
+    """Kernel B in packed mode (bf16 diffs, the training form) through
+    `margin_sweep`."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import _launch, knn_edge_plain
+    form = (torch.bfloat16, True, "packed")
+    return margin_sweep(
+        "knn_edge", inputs, lambda x, mu, nu: _launch(x, k, *form, mu, nu)[1],
+        lambda x: knn_edge_plain(x, k, *form)[1])
+
+
+def select_bound(pairs: int, B: int, N: int, C: int, nbytes: float,
+                 keys: int = None):
+    """(bound ms, what bounds it) of a selection of kernels A, B, G or F by
     its route: above 4 channels the three TF32 products of every pair on
-    the tensor cores (channels padded to 16), and for every pair it folds
-    exactly (`pairs`, counted by the kernel) 2 C + 3 f32 operations that
-    are not FMAs; `nbytes` moved once."""
+    the tensor cores (channels padded to 16), each query against `keys`
+    keys (N, or F's band of 2 W + 1), and for every pair it folds exactly
+    (`pairs`, counted by the kernel) 2 C + 3 f32 operations that are not
+    FMAs; `nbytes` moved once."""
     cp = -(-C // 16) * 16
+    keys = N if keys is None else keys
     t_ops = (pairs * (2 * C + 3) / F32_OPS
-             + (3 * 2 * B * N * N * cp / TF32_FLOPS if C > 4 else 0))
+             + (3 * 2 * B * N * keys * cp / TF32_FLOPS if C > 4 else 0))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
@@ -674,37 +684,94 @@ def profile_call(fn, label: str, group=None, expect=()) -> dict:
     return res
 
 
-def check_scatter(idx, gen) -> dict:
-    """Kernel D against its plain version at idx's shape with C=64, in bf16
-    and f32. Two launches must be bit-identical, and the kernel within
-    1e-6 max|d_x| of the plain version run on CPU copies of the same
-    inputs, which sums in the kernel's order (ascending source, central
-    sum last). The plain version on the card (index_add_ with atomics, in
-    no fixed order) is logged beside it."""
+def diff_bwd_reference(d_diff, idx):
+    """Kernel D's function on CPU copies, entries of idx outside [0, N)
+    dropped (their rows zeroed and sent to target 0: +0.0 changes no f32
+    sum that starts at +0.0), every row's central sum kept; where idx is in
+    range it is `scatter_diff_bwd_plain`, which sums in the kernel's order
+    (ascending source, central sum last)."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_add_plain,
+                                                      scatter_diff_bwd_plain)
+    g, idx = d_diff.cpu().float(), idx.cpu()
+    B, N, k, C = g.shape
+    oob = (idx < 0) | (idx >= N)
+    if not oob.any():
+        return scatter_diff_bwd_plain(g, idx)
+    central = g[:, :, 0]
+    for j in range(1, k):
+        central = central + g[:, :, j]
+    return scatter_add_plain(
+        g.masked_fill(oob[..., None], 0.0).reshape(B, N * k, C),
+        idx.masked_fill(oob, 0).reshape(B, N * k), N) - central
+
+
+def hold_diff_bwd(tag: str, dd, idx) -> float:
+    """Kernel D bit-equal (torch.equal) to `diff_bwd_reference` and to
+    itself over two launches; returns the largest |d_x| difference from
+    the plain version on the card (index_add_ with atomics, in no fixed
+    order), logged beside it, where idx is in range."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.scatter import (scatter_diff_bwd,
                                                       scatter_diff_bwd_plain)
+    a, b = scatter_diff_bwd(dd, idx), scatter_diff_bwd(dd, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{tag}: two launches differ")
+    if not torch.equal(a.cpu(), diff_bwd_reference(dd, idx)):
+        raise AssertionError(f"{tag}: not bit-equal to the plain version "
+                             "on the cpu")
+    N = idx.shape[1]
+    card = ((a - scatter_diff_bwd_plain(dd, idx)).abs().max().item()
+            if bool(((idx >= 0) & (idx < N)).all()) else None)
+    log(f"  {tag}: bit-equal to the plain version on the cpu and over two "
+        f"launches; {card} from the plain version on the card")
+    return card
+
+
+def check_scatter(idx, gen) -> dict:
+    """Kernel D against its plain version at idx's shape with C=64, in bf16
+    and f32 (`hold_diff_bwd`): bit-equal to the plain version run on CPU
+    copies of the same inputs and to itself over two launches."""
+    import torch
     B, N, k = idx.shape
-    worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
         dd = torch.randn(B, N, k, 64, generator=gen, device=idx.device).to(dt)
-        a, b = scatter_diff_bwd(dd, idx), scatter_diff_bwd(dd, idx)
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"scatter_diff_bwd[{dt}]: two launches "
-                                 "differ")
-        ref = scatter_diff_bwd_plain(dd.cpu(), idx.cpu())
-        err = (a.cpu() - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        card = (a - scatter_diff_bwd_plain(dd, idx)).abs().max().item()
-        log(f"  scatter_diff_bwd[{str(dt)[6:]}, {list(dd.shape)}]: "
-            f"max_abs_err {err} vs the plain version on the cpu (limit "
-            f"{1e-6 * scale:.3g}), {card} vs the plain version on the card; "
-            "bit-identical over two launches")
-        if not err <= 1e-6 * scale:
-            raise AssertionError(f"scatter_diff_bwd[{dt}]: error {err}")
-        worst = max(worst, err)
-    return {"max_abs_err": worst, "deterministic": True}
+        hold_diff_bwd(f"scatter_diff_bwd[{str(dt)[6:]}, {list(dd.shape)}]",
+                      dd, idx)
+    return {"max_abs_err": 0.0, "deterministic": True}
+
+
+def check_scatter_hard(gen) -> dict:
+    """Kernel D on an idx that reaches its edge cases: [2, 2048, 10] with
+    targets drawn from the first 1024 (the rest get no source), cloud 0's
+    first 9000 sources on target 5 (in-degree over 9000), every 97th entry
+    out of range (-1, N, 2^31 - 1, -2^31); d_diff in f32 and bf16 at C =
+    3, 64 and 128, and a neighbour half at a row stride of 2C. Bit-equal
+    to `diff_bwd_reference`, twice alike."""
+    import torch
+    B, N, k = 2, 2048, 10
+    dev = gen.device
+    idx = torch.randint(0, N // 2, (B, N * k), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[0, :9000] = 5
+    bad = torch.tensor([-1, N, 2 ** 31 - 1, -2 ** 31], dtype=torch.int32,
+                       device=dev)
+    idx[:, ::97] = bad[torch.arange(idx[:, ::97].numel(), device=dev)
+                       % 4].reshape(B, -1)
+    idx = idx.reshape(B, N, k)
+    res = []
+    for C in (3, 64, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            dd = torch.randn(B, N, k, C, generator=gen, device=dev).to(dt)
+            hold_diff_bwd(f"scatter_diff_bwd hard[{str(dt)[6:]}, C={C}]", dd,
+                          idx)
+            res.append(f"{str(dt)[6:]}/C={C}")
+    half = torch.randn(B, N, k, 128, generator=gen, device=dev)[..., 64:]
+    hold_diff_bwd("scatter_diff_bwd hard[float32, half of 128]", half, idx)
+    return {"bit_equal": res + ["float32/half of 128"],
+            "in_degree_max": int((idx[0] == 5).sum()),
+            "out_of_range": int(((idx < 0) | (idx >= N)).sum())}
 
 
 def check_edge_op(x, k, gen) -> dict:
@@ -1489,34 +1556,75 @@ def train_phase(seed: int, step_seeds: int, cfg_kw=None, expected=PER_STEP,
     return {**res, "small_step": small, "profile": prof}
 
 
-def check_knn_edge_window(x, k, window) -> dict:
-    """Kernel F against its plain version on the card, in the P1 form
-    (packed, bf16 diffs) and two others: indices and edges bit-equal (the
-    two run the same f32 operations and roundings)."""
+def check_knn_edge_window(x, k, window, forms=None, label: str = "") -> dict:
+    """Kernel F against its plain version on the card in each (selection
+    mode, output type, diff_only) of `forms`, by default the P1 form
+    (packed, bf16 diffs) and two others, and against itself over two
+    launches: indices and edges bit-equal (the tensor-core filter above 4
+    channels only chooses which band keys get the exact f32 fold, and both
+    write the edges with the same roundings)."""
     import torch
     from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (
         knn_edge_window, knn_edge_window_plain)
-    worst = {"agree": 1.0, "max_abs_err": 0.0}
-    for mode, cd, diff_only in (("packed", torch.bfloat16, True),
-                                ("exact", torch.bfloat16, True),
-                                ("packed", torch.float32, False)):
-        ee, idx = knn_edge_window(x, k, window, cd, diff_only=diff_only,
-                                  select_mode=mode)
+    worst = {"agree": 1.0, "max_abs_err": 0.0, "vs_plain": 0, "vs_again": 0}
+    for mode, cd, diff_only in forms or (("packed", torch.bfloat16, True),
+                                         ("exact", torch.bfloat16, True),
+                                         ("packed", torch.float32, False)):
+        kw = dict(out_dtype=cd, diff_only=diff_only, select_mode=mode)
+        ee, idx = knn_edge_window(x, k, window, **kw)
+        ee2, idx2 = knn_edge_window(x, k, window, **kw)
         torch.cuda.synchronize()
-        ee_p, idx_p = knn_edge_window_plain(x, k, window, cd,
-                                            diff_only=diff_only,
-                                            select_mode=mode)
-        tag = (f"knn_edge_window[{mode}, {str(cd)[6:]}, diff_only="
-               f"{diff_only}, {list(x.shape)}, W={window}]")
+        ee_p, idx_p = knn_edge_window_plain(x, k, window, **kw)
+        tag = (f"knn_edge_window[{label}{mode}, {str(cd)[6:]}, diff_only="
+               f"{diff_only}, {list(x.shape)}, window={window}]")
         bad_idx = int((idx != idx_p).sum())
+        vs_plain = bad_idx + int((ee != ee_p).sum())
+        vs_again = int((idx != idx2).sum()) + int((ee != ee2).sum())
         err = (ee.float() - ee_p.float()).abs().max().item()
-        log(f"  {tag}: {bad_idx} indices differ, max_abs_err {err}")
-        if bad_idx or err != 0.0:
-            raise AssertionError(f"{tag}: not bit-equal to the plain "
-                                 "version")
+        log(f"  {tag}: {vs_plain} entries differ from the plain version, "
+            f"{vs_again} between two launches")
+        if vs_plain or vs_again:
+            raise AssertionError(f"{tag}: not bit-equal")
         worst["agree"] = min(worst["agree"], 1 - bad_idx / idx.numel())
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
     return worst
+
+
+def quantum_band_cloud(n: int, copies: int):
+    """[copies, n, 16] on the card, each the cloud laid along the band of
+    query 1000 at W = 512 (F's low mask at n = 2048 is 2^11 - 1): the
+    query at e1, every other point at -e1 + delta e2, so that its band
+    distances lie in one packed quantum [4, 4 + 2^-10) and its packed
+    top-k are the lowest band positions, rows 488 .. 497, which its block
+    walks last, after its own queries' rows (896 .. 1023, delta^2 ~ 1e-6).
+    Enough copies make the slice one chunk, as P1's
+    (tests/test_torch_knn_select.py shows that a filter comparing with the
+    k-th distance, not tau_q, drops them)."""
+    import torch
+    x = torch.zeros(1, n, 16, device="cuda")
+    x[0, :, 0] = -1.0
+    delta2 = torch.full((n,), 0.5 * 2.0 ** -10, device="cuda")
+    delta2[896:1024] = 1e-6 * (1 + torch.arange(128, device="cuda") / 128)
+    delta2[488:498] = 0.9 * 2.0 ** -10
+    x[0, :, 1] = delta2.sqrt()
+    x[0, 1000] = 0.0
+    x[0, 1000, 0] = 1.0
+    return x.repeat(copies, 1, 1)
+
+
+def f_margin_sweep(inputs: dict, k: int, window: int) -> dict:
+    """Kernel F in packed mode (bf16 diffs, P1's form) through
+    `margin_sweep`."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (
+        _launch, knn_edge_window_plain)
+    return margin_sweep(
+        "knn_edge_window", inputs,
+        lambda x, mu, nu: _launch(x, k, window, torch.bfloat16, 256, True,
+                                  "packed", mu, nu)[1],
+        lambda x: knn_edge_window_plain(x, k, window, torch.bfloat16,
+                                        diff_only=True,
+                                        select_mode="packed")[1])
 
 
 def check_knn_blocked(x, k, label: str = "") -> dict:
@@ -1707,12 +1815,7 @@ def scatter_pass_figures(g, idx, n) -> dict:
     events, median of 50) and the rest of it, the wrapper's host time and
     the gaps between the passes; and the in-degrees of idx (max, p99 and
     mean over the targets of every cloud)."""
-    import torch
     from sp_gan_tpu_torch.ops.kernels.scatter import scatter_add
-    B = idx.shape[0]
-    ok = (idx >= 0) & (idx < n)
-    tgt = (idx.long() + n * torch.arange(B, device=idx.device)[:, None])[ok]
-    deg = torch.bincount(tgt, minlength=B * n).float()
     prof = profile_call(lambda: [scatter_add(g, idx, n) for _ in range(10)],
                         "kernel H x10 (device time by pass)")
     # each pass's mean over the launches the profiler recorded (it may
@@ -1724,11 +1827,54 @@ def scatter_pass_figures(g, idx, n) -> dict:
                         / max(1, sum(r["count"] for r in got)))
     launch = cuda_ms(lambda: scatter_add(g, idx, n), 50)
     res = {"pass_device_ms": passes, "launch_ms": launch,
-           "rest_ms": launch - sum(passes.values()), "in_degree": {
-               "max": int(deg.max()), "p99": float(torch.quantile(deg, 0.99)),
-               "mean": float(deg.mean())}}
+           "rest_ms": launch - sum(passes.values()),
+           "in_degree": in_degrees(idx, n)}
     log(f"  kernel H's passes at g {list(g.shape)}, n={n} (device time a "
         "launch): " + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+        + f"; the launch {launch:.4f} ms, of which {res['rest_ms']:.4f} ms "
+        f"host and gaps; in-degree {res['in_degree']}")
+    return res
+
+
+def in_degrees(idx, n: int) -> dict:
+    """Max, p99 and mean in-degree of idx [B, S...] over the n targets of
+    every cloud (entries outside [0, n) left out)."""
+    import torch
+    B = idx.shape[0]
+    ix = idx.reshape(B, -1)
+    ok = (ix >= 0) & (ix < n)
+    tgt = (ix.long() + n * torch.arange(B, device=idx.device)[:, None])[ok]
+    deg = torch.bincount(tgt, minlength=B * n).float()
+    return {"max": int(deg.max()), "p99": float(torch.quantile(deg, 0.99)),
+            "mean": float(deg.mean())}
+
+
+def diff_pass_figures(dd, idx, label: str) -> dict:
+    """Kernel D's launch taken apart at one of its calls: the device time
+    of each kernel it launches (its four CSR passes: hist, place, sort,
+    sum), a mean over ten launches under torch.profiler; the launch's own
+    time (CUDA events, median of 50) and the rest of it, the wrapper's host
+    time and the gaps between its kernels; and the in-degrees of idx."""
+    from sp_gan_tpu_torch.ops.kernels.scatter import scatter_diff_bwd
+    prof = profile_call(lambda: [scatter_diff_bwd(dd, idx)
+                                 for _ in range(10)],
+                        f"kernel D x10 at {label} (device time by kernel)",
+                        expect=("sum_kernel",))
+    # each kernel's mean over the launches the profiler recorded (it may
+    # miss some of the ten)
+    passes = {}
+    for r in prof["top"]:
+        m = re.search(r"\w+_kernel\b", r["name"])
+        name = m.group(0) if m else r["name"][:60]
+        passes[name] = passes.get(name, 0.0) + r["ms"] / max(1, r["count"])
+    launch = cuda_ms(lambda: scatter_diff_bwd(dd, idx), 50)
+    res = {"shape": list(dd.shape), "row_stride": dd.stride(2),
+           "dtype": str(dd.dtype)[6:], "pass_device_ms": passes,
+           "launch_ms": launch, "rest_ms": launch - sum(passes.values()),
+           "in_degree": in_degrees(idx, idx.shape[1])}
+    log(f"  kernel D at {label}, d_diff {list(dd.shape)} (row stride "
+        f"{dd.stride(2)}): device time a launch " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in passes.items())
         + f"; the launch {launch:.4f} ms, of which {res['rest_ms']:.4f} ms "
         f"host and gaps; in-degree {res['in_degree']}")
     return res
@@ -2436,6 +2582,17 @@ def main() -> None:
     camp = Config(**CAMPAIGN_N8192)
     x_f = torch.randn(camp.bs, camp.np, 64, generator=gen, device=dev)
     res_f = check_knn_edge_window(x_f, camp.k, camp.knn_window)
+    # kernel F on the hard inputs at N=2048 (W = 512), in all eight forms
+    import itertools
+    x_f_hard = {**x_ab_hard, "quantum band": quantum_band_cloud(cfg.np, 16)}
+    res_f_hard = {label: check_knn_edge_window(
+        xx, camp.k, camp.knn_window, list(itertools.product(
+            ("packed", "exact"), (torch.bfloat16, torch.float32),
+            (True, False))), label + ", ")
+        for label, xx in x_f_hard.items()}
+    # kernel D on the hard index list, a generator of its own
+    res_d_hard = check_scatter_hard(
+        torch.Generator(device=dev).manual_seed(args.seed + 23))
     # kernel G at N=16384, a request of 16: EdgeConv1's template, EdgeConv2's
     # features
     x_g = {3: torch.as_tensor(sphere_template(SERVE_16K), device=dev)[None]
@@ -2667,6 +2824,33 @@ def main() -> None:
         return out.reshape(Bt, N, C) - g.sum(2)
     log(f"  index_add_ + central sum at d_diff {list(dd_t.shape)}: "
         f"{cuda_ms(index_add_central, 20):.4f} ms")
+    # kernel D at its three calls: the default step's d_diff (above), F1's
+    # neighbour half of d_ee [24, 2048, 10, 128] (row stride 128) on
+    # kernel B's concat indices, P1's d_diff [4, 8192, 10, 64] on kernel
+    # F's indices; each held bit for bit, timed and taken apart by kernel;
+    # bound: d_diff read once (its C of each row), idx read and d_x written
+    # once, 2 k + 1 f32 adds an output element
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    idx_f1 = kernels.knn_edge(x_t, k, torch.bfloat16, False, "packed")[1]
+    idx_p1 = kernels.knn_edge_window(x_f, k, camp.knn_window, torch.bfloat16,
+                                     diff_only=True, select_mode="packed")[1]
+    d_calls = {
+        "default step": (dd_t, idx_t),
+        "F1 neighbour half": (torch.randn(
+            Bt, N, k, 2 * C, generator=dgen,
+            device=dev).to(torch.bfloat16)[..., C:], idx_f1),
+        "P1": (torch.randn(*x_f.shape[:2], k, x_f.shape[2], generator=dgen,
+                           device=dev).to(torch.bfloat16), idx_p1)}
+    d_figs = {}
+    for label, (dd, ix) in d_calls.items():
+        hold_diff_bwd(f"scatter_diff_bwd[{label}]", dd, ix)
+        Bd, Nd, kd, Cd = dd.shape
+        d_figs[label] = dict(
+            diff_pass_figures(dd, ix, label), **dict(zip(
+                ("bound_ms", "bound_by"),
+                bound(Bd * Nd * Cd * (2 * kd + 1),
+                      dd.numel() * dd.element_size() + ix.numel() * 4
+                      + Bd * Nd * Cd * 4, F32_OPS))))
     rows.append(dict(
         name="scatter_diff_bwd", route="cuda",
         source="sp_gan_tpu_torch/csrc/scatter.cu",
@@ -2680,6 +2864,7 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: kernels.scatter_diff_bwd_plain(dd_t, idx_t),
                          20),
         bound_ms=d_bound, bound_by=d_by, library_ms=None,
+        calls=d_figs, hard=res_d_hard,
         shape=[Bt, N, k, C], path="train"))
     # kernel C at both call sites of one request, and of one P2 request,
     # all four on the tensor cores (their widths are ebt_tf_fits'). The
@@ -2760,8 +2945,19 @@ def main() -> None:
     Bf, Nf, Cf = x_f.shape
     W, _ = window_geometry(Nf, k, camp.knn_window)
     p1 = dict(out_dtype=torch.bfloat16, diff_only=True, select_mode="packed")
-    f_bound, f_by = bound(2 * Bf * Nf * 2 * W * Cf, Bf * Nf * Cf * 4
-                          + Bf * Nf * k * Cf * 2 + Bf * Nf * k * 4)
+    # by route (select_bound): the filter's TF32 products over each query's
+    # band of 2 W + 1 keys and the exact folds the call counts; beside it
+    # the f32 FMA bound of the band (old_bound_ms)
+    f_bytes = Bf * Nf * Cf * 4 + Bf * Nf * k * Cf * 2 + Bf * Nf * k * 4
+    refined.zero_()
+    knn_edge_window(x_f, k, camp.knn_window, **p1, refined=refined)
+    f_pairs = int(refined.item())
+    f_bound, f_by = select_bound(f_pairs, Bf, Nf, Cf, f_bytes, 2 * W + 1)
+    f_margin = f_margin_sweep({
+        "offset": (x_f + 1000).contiguous(), "grid": x_ab_hard["grid"],
+        "near": x_ab_hard["near"],
+        "quantum band": x_f_hard["quantum band"], "randn": x_f},
+        k, camp.knn_window)
     rows.append(dict(
         name="knn_edge_window", route="cuda",
         source="sp_gan_tpu_torch/csrc/knn_edge_window.cu",
@@ -2776,6 +2972,11 @@ def main() -> None:
         plain_ms=cuda_ms(lambda: knn_edge_window_plain(
             x_f, k, camp.knn_window, **p1), 3),
         bound_ms=f_bound, bound_by=f_by, library_ms=None,
+        old_bound_ms=bound(2 * Bf * Nf * 2 * W * Cf, f_bytes)[0],
+        refined_pairs=f_pairs, refined_per_query=f_pairs / (Bf * Nf),
+        hard={n: {kk: r[kk] for kk in ("vs_plain", "vs_again")}
+              for n, r in res_f_hard.items()},
+        margin=f_margin,
         shape=[Bf, Nf, Cf], window=W, path="N=8192 approx training"))
     # kernel G at both call sites of a request of 16 at N=16384, kernel A
     # at the same shapes beside it: EdgeConv1's call on the template,

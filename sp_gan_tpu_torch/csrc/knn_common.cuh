@@ -1,5 +1,6 @@
 // Shared pieces of the kNN kernels (knn.cu: A and G, knn_edge.cu: B, both
-// through the selection engine of knn_filter.cuh; knn_edge_window.cu: F;
+// through the selection engine of knn_filter.cuh; knn_edge_window.cu: F,
+// through that engine above 4 channels and select_band at or below;
 // chamfer.cu: N): the f32 distance fold, the running top-k kept in
 // registers and the edge-row writer.
 //

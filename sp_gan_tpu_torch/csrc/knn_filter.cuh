@@ -1,10 +1,12 @@
-// The exact self-kNN selection engine of kernels A and G (knn.cu) and B
-// (knn_edge.cu): one running list a query over a chunk of keys, walked
-// from the block's own tile; above 4 channels a TF32 tensor-core filter
-// in front of the exact f32 fold decides which keys get folded. Every
-// pick and every distance is the fold's (knn_common.cuh): the result is
-// bit-equal to the plain versions (ops/pairwise.py, ops/kernels/knn.py,
-// ops/kernels/knn_edge.py) in both selection orders:
+// The exact self-kNN selection engine of kernels A and G (knn.cu), B
+// (knn_edge.cu) and, above 4 channels, F (knn_edge_window.cu, on a band):
+// one running list a query over a chunk of keys, walked from the block's
+// own tile; above 4 channels a TF32 tensor-core filter in front of the
+// exact f32 fold decides which keys get folded. Every pick and every
+// distance is the fold's (knn_common.cuh): the result is bit-equal to the
+// plain versions (ops/pairwise.py, ops/kernels/knn.py,
+// ops/kernels/knn_edge.py, ops/approx_knn.band_select) in both selection
+// orders:
 //
 //   exact  - (distance, index) ascending, the order of k rounds of argmin
 //            with ties to the lower index (TopK<K, false>);
@@ -12,7 +14,18 @@
 //            2^ceil(log2 N) - 1, j the column (pack_key, TopK<K, true>).
 //
 // What a call does with the lists is the sink's (`Out`): ListOut writes
-// idx and dist (A, G), EdgeOut writes idx and the edge rows (B).
+// idx and dist (A, G), EdgeOut writes idx and the edge rows (B; F with
+// BAND, below).
+//
+// The band (kernel F, Out::kBand). Query i's candidates are the rows i + o
+// mod N, 0 < |o| <= W, with 2 W < N, and its column is the band position p
+// = o + W, not the index; the packed key's low mask is the caller's (F's:
+// the JAX kernel's, 2^b - 1 >= 2 W). A block of queries q0 .. q0 + nq - 1
+// works in key coordinates r, the positions of its circular slice, rows
+// q0 - W + r mod N (r < nq + 2 W): query t's band is r = t .. t + 2 W,
+// itself at r = t + W, and p = r - t. The slice takes the chunks' place
+// (key_split on band_keys), and the walk starts at the tile holding r = W,
+// the block's first query.
 //
 // Two selection kernels, chosen by the width C:
 //
@@ -23,16 +36,17 @@
 //     knn_norms_kernel has folded every point's |x|^2 once. It takes C at
 //     run time, so every width above 4 goes through one kernel.
 //
-// Split. A block holds kSelQ = 128 queries of one cloud. The keys are cut
-// into S chunks only as far as filling the card needs: S = ceil(fill / (B
-// * ceil(N / 128))), at least 1 and at most ceil(N / 64), each chunk a
-// multiple of 64 keys; fill = 1024 blocks for the exact kernel (small
-// shared memory, many blocks an SM) and 256 for the filter (two blocks an
-// SM). At P2 ([16, 16384, C]), the serving request [64, 2048, C] and the
-// training step [24, 2048, C] that is S = 1; at B = 1 and N = 2048, S = 32
-// (C <= 4) or 16. Splitting the serving request's keys in two, or the
-// training step's in six, read slower on the H100: each chunk's first
-// tile costs exact folds, and each split a merge.
+// Split. A block holds kSelQ = 128 queries of one cloud. The keys (N, or a
+// band's slice of up to 128 + 2 W) are cut into S chunks only as far as
+// filling the card needs: S = ceil(fill / (B * ceil(N / 128))), at least 1
+// and at most ceil(keys / 64), each chunk a multiple of 64 keys; fill =
+// 1024 blocks for the exact kernel (small shared memory, many blocks an
+// SM) and 256 for the filter (two blocks an SM). At P2 ([16, 16384, C]),
+// the serving request [64, 2048, C], the training step [24, 2048, C] and
+// P1's band ([4, 8192, C], 256 blocks) that is S = 1; at B = 1 and N =
+// 2048, S = 32 (C <= 4) or 16. Splitting the serving request's keys in
+// two, or the training step's in six, read slower on the H100: each
+// chunk's first tile costs exact folds, and each split a merge.
 // With S = 1 the selection kernel of A and G writes idx and dist itself;
 // otherwise, and always for B, it writes each query's k entries of each
 // chunk to scratch and knn_merge_kernel pushes the S * k partial entries
@@ -110,6 +124,19 @@
 // tau0 is such a threshold too: at least k keys have d <= tau0, so the
 // list's final k-th entry (exact) or key (packed, whose high bits are
 // those of a distance <= tau0) comes no later than theirs.
+//
+// On the band each step holds as it stands, with p for j and the band for
+// the chunk's keys. The band mask acts before any push (keys outside a
+// query's band are never pushed) and in first_bound (their estimates are
+// +inf), so the list, tau, tau_q and tau0 see candidates only, and tau0
+// bounds at least k of them. A query's band holds 2 W + 1 distinct slice
+// positions, hence distinct p and, as 2 W < N, distinct rows: no candidate
+// is pushed twice, and both orders stay total over the band. In packed
+// mode p <= 2 W <= low, so p sits in the key's low bits as j does and the
+// argument for tau_q is unchanged under F's mask. The filter's per-pair
+// bound below does not depend on which keys are compared, so the margin
+// stays FILTER_MU, FILTER_NU. The query itself is kept and pushed at +inf,
+// as the plain version (band_sqdist) ranks it.
 //
 // Where the filter can drop j at all, tau is finite and qn, kn < 2^125,
 // so 2 |acc| and 2 |c~| stay below 2^127 and no step overflows; a dropped
@@ -194,16 +221,25 @@ struct Split {
   int S, chunk;
 };
 
-Split key_split(int B, int N, int C) {
+// The split of a block's `keys` (N, or the band's slice, band_keys) into
+// S chunks.
+Split key_split(int B, int N, int C, int keys) {
   const long long fill = C > kFilterAbove ? kFillFilter : kFillExact;
   const long long qblocks = (long long)B * ((N + kSelQ - 1) / kSelQ);
   long long S = (fill + qblocks - 1) / qblocks;
   S = S < 1 ? 1 : S;
-  const long long most = (N + kT - 1) / kT;
+  const long long most = (keys + kT - 1) / kT;
   S = S > most ? most : S;
-  int chunk = (int)((N + S - 1) / S);
+  int chunk = (int)((keys + S - 1) / S);
   chunk = (chunk + kT - 1) / kT * kT;
-  return {(N + chunk - 1) / chunk, chunk};
+  return {(keys + chunk - 1) / chunk, chunk};
+}
+
+// Keys of a block of queries: the cloud's N rows, or with a band of
+// half-width W > 0 (kernel F) the most a block's circular slice holds,
+// min(kSelQ, N) + 2 W.
+__host__ __device__ __forceinline__ int band_keys(int N, int W) {
+  return W > 0 ? (N < kSelQ ? N : kSelQ) + 2 * W : N;
 }
 
 // Whether a selection ends in knn_merge_kernel: with S > 1 key chunks,
@@ -216,11 +252,12 @@ bool merges(const Split& sp) {
 }
 
 // int32 words of scratch a selection needs: the norms of the filter (B *
-// N, C > 4) and, where it merges, the partial lists (2 * B * N * S * k).
+// N, C > 4) and, where it merges, the partial lists (2 * B * N * S * k);
+// W the band's half-width (kernel F) or 0.
 template <class Out>
-long long select_scratch_words(int B, int N, int C, int k) {
+long long select_scratch_words(int B, int N, int C, int k, int W = 0) {
   if (B <= 0 || N <= 0 || k <= 0) return 0;
-  const Split sp = key_split(B, N, C);
+  const Split sp = key_split(B, N, C, band_keys(N, W));
   const long long rows = (long long)B * N;
   return (C > kFilterAbove ? rows : 0) +
          (merges<Out>(sp) ? 2 * rows * sp.S * k : 0);
@@ -230,6 +267,7 @@ long long select_scratch_words(int B, int N, int C, int k) {
 struct ListOut {
   static constexpr bool kPacked = false;
   static constexpr bool kEdges = false;
+  static constexpr bool kBand = false;
   int32_t* idx;
   float* dist;
   int k;
@@ -251,19 +289,22 @@ struct ListOut {
   }
 };
 
-// The sink of kernel B: idx [B, N, k] and the edge rows of the block's
-// queries (write_edges), written by consecutive threads once the block's
-// lists sit in shared memory (`smem`, kSelQ * k ints). Only the merge
-// kernel calls it.
-template <bool PACKED>
+// The sink of kernels B and F: idx [B, N, k] and the edge rows of the
+// block's queries (write_edges), written by consecutive threads once the
+// block's lists sit in shared memory (`smem`, kSelQ * k ints). Only the
+// merge kernel calls it. BAND (kernel F): the lists hold band positions p,
+// and the query's neighbour is row qi - W + p, mod N.
+template <bool PACKED, bool BAND = false>
 struct EdgeOut {
   static constexpr bool kPacked = PACKED;
   static constexpr bool kEdges = true;
+  static constexpr bool kBand = BAND;
   const float* x;
   void* ee;
   int32_t* idx;
   int C, k, low_mask;
   bool diff_only, out_bf16;
+  int W;  // the band's half-width (BAND)
 
   template <int KM>
   __device__ __forceinline__ void finish(const TopK<KM, PACKED>& top, int b,
@@ -277,7 +318,12 @@ struct EdgeOut {
       for (int t = 0; t < KM; ++t) {
         if (t < k) {
           int j = PACKED ? (top.key[t] & low_mask) : top.idx[t];
-          j = min(max(j, 0), N - 1);  // memory safety on NaN input only
+          if constexpr (BAND) {
+            j = q0 + threadIdx.x - W + min(max(j, 0), 2 * W);
+            j = j < 0 ? j + N : (j >= N ? j - N : j);
+          } else {
+            j = min(max(j, 0), N - 1);  // memory safety on NaN input only
+          }
           snbr[threadIdx.x * k + t] = j;
           idx[o + t] = j;
         }
@@ -456,28 +502,39 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// rows [r0, r0 + n) of the cloud xb [N, C] into dst [rows, ld], channels
-// zero-padded to Cp and rows past n zero; 16 bytes a copy where `vec`
-// (C % 4 == 0 and x 16-byte aligned)
+// rows row_of(r0 + r), r < n, of the cloud xb [N, C] into dst [rows, ld],
+// channels zero-padded to Cp and rows past n zero; 16 bytes a copy where
+// `vec` (C % 4 == 0 and x 16-byte aligned)
+template <class RowOf>
 __device__ __forceinline__ void stage_rows(float* dst, const float* xb,
                                            int r0, int n, int rows, int C,
-                                           int Cp, int ld, bool vec) {
+                                           int Cp, int ld, bool vec,
+                                           const RowOf& row_of) {
   if (vec) {
     const int per = Cp / 4;
     for (int e = threadIdx.x; e < rows * per; e += kSelQ) {
       const int r = e / per, c = (e % per) * 4;
       const bool full = r < n && c < C;
-      cp_async(dst + r * ld + c, full ? xb + (size_t)(r0 + r) * C + c : xb,
-               16, full);
+      cp_async(dst + r * ld + c,
+               full ? xb + (size_t)row_of(r0 + r) * C + c : xb, 16, full);
     }
   } else {
     for (int e = threadIdx.x; e < rows * Cp; e += kSelQ) {
       const int r = e / Cp, c = e % Cp;
       const bool full = r < n && c < C;
-      cp_async(dst + r * ld + c, full ? xb + (size_t)(r0 + r) * C + c : xb, 4,
-               full);
+      cp_async(dst + r * ld + c,
+               full ? xb + (size_t)row_of(r0 + r) * C + c : xb, 4, full);
     }
   }
+}
+
+// The bits j of [lo, hi) within a 64-key tile
+__device__ __forceinline__ unsigned long long range_bits(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 64);
+  if (hi <= lo) return 0ull;
+  const unsigned long long upto = hi == 64 ? ~0ull : (1ull << hi) - 1ull;
+  return upto & ~((1ull << lo) - 1ull);
 }
 
 // v rounded to tf32 to nearest, ties away from zero, as cvt.rna does,
@@ -529,14 +586,15 @@ int filter_smem_bytes(int C, int FT) {
 // exceeds it: tau0 serves as tau (exact) and, packed, gives tau_q as the
 // k-th key does, since those keys' packed keys are at most bits(max(tau0,
 // 0)) | low. rrb gets mu qn + (tau + nu) of each row, rounded up, or +inf
-// where a row keeps every key.
-template <int FT, int KM, bool PACKED>
+// where a row keeps every key. BAND: only the columns within W of a row's
+// own (its band) count, so the keys bounded are candidates.
+template <int FT, int KM, bool PACKED, bool BAND>
 __device__ __forceinline__ void first_bound(const float (&acc)[2][FT / 8][4],
                                             const float (&rqn)[2][2],
                                             const float* su, int wq0,
                                             int tile0, int t4, int g, int k,
                                             int low_mask, float mu, float nu,
-                                            float (&rrb)[2][2]) {
+                                            int W, float (&rrb)[2][2]) {
   constexpr int M = (KM + 3) / 4;
   const unsigned all = 0xffffffffu;
 #pragma unroll
@@ -555,7 +613,8 @@ __device__ __forceinline__ void first_bound(const float (&acc)[2][FT / 8][4],
           float u = __fadd_ru(__fmaf_ru(-2.f, acc[m][n][h * 2 + e],
                                         rqn[m][h]),
                               su[col]);
-          u = (col == self || !(u < kInf)) ? kInf : u;  // NaN too
+          const bool out = col == self || (BAND && abs(col - self) > W);
+          u = (out || !(u < kInf)) ? kInf : u;  // NaN too
 #pragma unroll
           for (int i = 0; i < M; ++i) {  // insert u, keep the M smallest
             const float lo = fminf(low[i], u);
@@ -598,14 +657,24 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
   float* sw = sb + 2 * FT * Cp;   // [FT] (mu kn - kn) / 2, rounded up
   float* su = sw + FT;            // [FT] kn + mu kn, rounded up
   const int b = blockIdx.z, s = blockIdx.y, q0 = blockIdx.x * kSelQ;
-  const int key0 = s * chunk, key1 = min(N, key0 + chunk);
-  const int tiles = (key1 - key0 + FT - 1) / FT;
-  const int first = first_tile(q0, key0, key1, FT);
+  // Keys in key coordinates: the cloud's rows, or (kernel F) the positions
+  // r of the block's circular slice, rows q0 - W + r mod N, where query t's
+  // band is r = t .. t + 2 W and its column p = r - t. qk0 is the block's
+  // first query in key coordinates.
+  int W = 0;
+  if constexpr (Out::kBand) W = out.W;
+  const int keys = Out::kBand ? min(kSelQ, N - q0) + 2 * W : N;
+  const int qk0 = Out::kBand ? W : q0;
+  const int key0 = s * chunk, key1 = min(keys, key0 + chunk);
+  const int tiles = key1 > key0 ? (key1 - key0 + FT - 1) / FT : 0;
+  const int first = first_tile(qk0, key0, key1, FT);
   const float* xb = x + (size_t)b * N * C;
   const float* nb = norms + (size_t)b * N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const unsigned all = 0xffffffffu;
+  const RowsCircular slice{q0 - W, N};
+  auto row_of = [&](int r) { return Out::kBand ? slice(r) : r; };
 
   auto tile_of = [&](int it) {
     const int ti = first + it < tiles ? first + it : first + it - tiles;
@@ -614,13 +683,14 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
   auto stage_tile = [&](int it) {
     const int tile0 = tile_of(it), buf = it & 1;
     const int n = min(FT, key1 - tile0);
-    stage_rows(sk + buf * FT * ld, xb, tile0, n, FT, C, Cp, ld, vec);
+    stage_rows(sk + buf * FT * ld, xb, tile0, n, FT, C, Cp, ld, vec, row_of);
     if (threadIdx.x < FT)
       cp_async(skn + buf * FT + threadIdx.x,
-               (int)threadIdx.x < n ? nb + tile0 + threadIdx.x : nb, 4,
-               (int)threadIdx.x < n);
+               (int)threadIdx.x < n ? nb + row_of(tile0 + threadIdx.x) : nb,
+               4, (int)threadIdx.x < n);
   };
-  stage_rows(sq, xb, q0, min(kSelQ, N - q0), kSelQ, C, Cp, ld, vec);
+  stage_rows(sq, xb, q0, min(kSelQ, N - q0), kSelQ, C, Cp, ld, vec,
+             RowsAsIs{});
   stage_tile(0);
   cp_async_commit();
 
@@ -686,7 +756,12 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
     const float* Q = sq + warp * 32 * ld;
     const float4* bh = reinterpret_cast<const float4*>(sb);
     const float4* bl = reinterpret_cast<const float4*>(sb + FT * Cp);
-    for (int p = 0; p < NP; ++p) {
+    // the band: a warp whose queries' bands miss the tile (positions 32
+    // warp .. 32 warp + 31 + 2 W) has no candidate in it, and skips it
+    const bool near = !Out::kBand ||
+                      (tile0 <= warp * 32 + 31 + 2 * W &&
+                       tile0 + FT > warp * 32);
+    for (int p = 0; near && p < NP; ++p) {
       uint32_t qh[2][2][4], ql[2][2][4];  // [k-step of the pair][m-tile]
 #pragma unroll
       for (int sub = 0; sub < 2; ++sub) {
@@ -727,8 +802,8 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
     // each n-tile
     float rrb[2][2];
     if (it == 0) {
-      first_bound<FT, KM, P>(acc, rqn, su, q0 + warp * 32, tile0, t4, g, k,
-                         low_mask, mu, nu, rrb);
+      first_bound<FT, KM, P, Out::kBand>(acc, rqn, su, qk0 + warp * 32, tile0,
+                                         t4, g, k, low_mask, mu, nu, W, rrb);
     } else {
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -769,8 +844,12 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
       }
     }
     if (nt < 64) mine &= (1ull << nt) - 1ull;
-    const int sj = qi - tile0;
+    if constexpr (Out::kBand)  // the query's band, positions t .. t + 2 W
+      mine &= range_bits(threadIdx.x - tile0, threadIdx.x + 2 * W + 1 - tile0);
+    const int sj = qk0 + threadIdx.x - tile0;
     if (sj >= 0 && sj < nt) mine |= 1ull << sj;  // self
+    // the list's column of key tile0 + j: its index, or its band position
+    const int col0 = tile0 - (Out::kBand ? (int)threadIdx.x : 0);
 
     // the exact fold of the candidates, in ascending key order
     if (valid) {
@@ -792,7 +871,7 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
         float d = __fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, a)),
                             skn[buf * FT + j]);
         if (j == sj) d = kInf;  // self
-        top.push(select_key<P>(d, low_mask, tile0 + j), tile0 + j);
+        top.push(select_key<P>(d, low_mask, col0 + j), col0 + j);
       }
       const float tau = list_tau(top, k, low_mask);
       rb = (fabsf(tau) < kInf && qn < kHuge)
@@ -845,11 +924,14 @@ struct Select {
   int B, N, C, k, low_mask;
   float mu, nu;
   cudaStream_t stream;
+  int W;  // the band's half-width (kernel F), else 0
+
+  Split split() const { return key_split(B, N, C, band_keys(N, W)); }
 
   template <int FT, int KM>
   int filter(dim3 grid, const float* norms, int32_t* part_key,
              int32_t* part_idx) const {
-    const Split sp = key_split(B, N, C);
+    const Split sp = split();
     const int bytes = filter_smem_bytes(C, FT);
     const cudaError_t e = cudaFuncSetAttribute(
         knn_filter_kernel<FT, KM, Out>,
@@ -864,16 +946,19 @@ struct Select {
 
   template <int KM>
   int run() const {
-    const Split sp = key_split(B, N, C);
+    const Split sp = split();
     const long long rows = (long long)B * N;
     float* norms = reinterpret_cast<float*>(scratch);
     int32_t* part_key = scratch + (C > kFilterAbove ? rows : 0);
     int32_t* part_idx = part_key + rows * sp.S * k;
     const dim3 grid((N + kSelQ - 1) / kSelQ, sp.S, B);
     if (C <= kFilterAbove) {
-      knn_exact_kernel<KM, Out><<<grid, kSelQ, 0, stream>>>(
-          x, out, part_key, part_idx, refined, N, C, k, sp.S, sp.chunk,
-          low_mask);
+      // kernel F takes its CUDA-core pass (select_band) at these widths
+      if constexpr (Out::kBand) return (int)cudaErrorInvalidValue;
+      else
+        knn_exact_kernel<KM, Out><<<grid, kSelQ, 0, stream>>>(
+            x, out, part_key, part_idx, refined, N, C, k, sp.S, sp.chunk,
+            low_mask);
     } else {
       knn_norms_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
           x, norms, rows, C);
@@ -883,8 +968,12 @@ struct Select {
           cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return (int)e;
       const long long blocks = (long long)grid.x * grid.y * grid.z;
-      const int r = blocks <= (long long)kFewBlocksPerSm * sms
-                        ? filter<32, KM>(grid, norms, part_key, part_idx)
+      // the band's grid takes tiles of 32 only where tiles of 64 (two
+      // blocks an SM) would spread it over two waves: P1's 256 blocks fit
+      // one wave of 64 and read faster so on an H100
+      const bool few = blocks <= (long long)kFewBlocksPerSm * sms &&
+                       (!Out::kBand || blocks > 2LL * sms);
+      const int r = few ? filter<32, KM>(grid, norms, part_key, part_idx)
                         : filter<64, KM>(grid, norms, part_key, part_idx);
       if (r != 0) return r;
     }

@@ -32,8 +32,11 @@
 // bytes bound it.
 //
 // Kernel D (spgan_scatter_diff_bwd): backward of the diff-only edge op
-// (kernel B or F with diff_only).
-// d_diff [B, N, k, C] in f32 or bf16 and idx [B, N, k] int32 ->
+// (kernel B or F with diff_only), and of the neighbor half of the concat
+// edges (EdgeConcat hands it d_ee[..., C:] in place, rows at a stride of
+// 2C).
+// d_diff [B, N, k, C] (rows at any stride >= C) in f32 or bf16 and idx
+// [B, N, k] int32 ->
 //   d_x[b, p, :] = sum_{(q, j): idx[b, q, j] = p} d_diff[b, q, j, :]
 //                  - sum_j d_diff[b, p, j, :]
 // in f32, accumulated in f32. Replaces the TPU kernel
@@ -43,7 +46,19 @@
 // sources s = q * k + j (n = N, S = N k) plus the central term. At the
 // training shape d_diff [24, 2048, 10, 64] bf16 the function moves 62.9 MB
 // of d_diff, 2.0 MB of idx and 12.6 MB of d_x (77.5 MB, 23 us at 3.35
-// TB/s) for 66 MFLOP of adds: bytes.
+// TB/s) for 66 MFLOP of adds: bytes. At D's calls (the default step and
+// F1: 24 clouds of 2048 targets and 20480 sources; P1: 4 of 8192 and
+// 81920) the four passes take 0.132 ms of device time at the default call
+// and 0.097 at P1, the sum pass 0.111 and 0.079 of it, each row read
+// twice (as an in-edge, as an own row) at about 1.1 TB/s (H100 80GB HBM3,
+// 700 W). Four designs written for these shapes were measured on that
+// card (PERF.md), and none was faster at both calls: a block per 128
+// targets that scans its cloud's idx and groups its in-edges in shared
+// memory in one launch (0.124-0.130 and 0.099-0.117 ms), the same on the
+// bucket lists of passes 1 and 2 (0.139 and 0.089), blocks of 32 targets
+// (0.127 and 0.099), and the central sums streamed first by a kernel of
+// their own (0.149 and 0.121). D keeps the four passes; its rows may lie
+// at any stride, so F1's neighbor half is read in place, with no copy.
 //
 // The work is O(S C) per cloud: a stable counting sort of the sources by
 // target (two digits, most significant first) gives each target its
@@ -606,20 +621,21 @@ extern "C" long long spgan_csr_scratch(int B, int n, long long S) {
   return scratch_ints(B, n, S);
 }
 
-// d_diff [B, N, k, C] f32 or bf16 (dd_bf16) and idx [B, N, k] int32,
-// contiguous on the device; d_x [B, N, C] f32. `scratch` holds
+// The C values of source row s (s = (b N + q) k + j) at d_diff + s * stride
+// (stride >= C elements), f32 or bf16 (dd_bf16); idx [B, N, k] int32
+// contiguous; d_x [B, N, C] f32; all on the device. `scratch` holds
 // spgan_csr_scratch(B, N, N k) int32; nothing in it needs initialising.
 // Entries of idx outside [0, N) are ignored. Launches on `stream` and
 // returns the first nonzero cudaError_t (0 on success). Takes C <= 128.
 extern "C" int spgan_scatter_diff_bwd(const void* d_diff, const void* idx,
                                       void* d_x, void* scratch, int B, int N,
-                                      int k, int C, int dd_bf16,
+                                      int k, int C, int stride, int dd_bf16,
                                       void* stream) {
-  if (B <= 0 || N <= 0 || k <= 0 || C <= 0 || C > kMaxC ||
+  if (B <= 0 || N <= 0 || k <= 0 || C <= 0 || C > kMaxC || stride < C ||
       (int64_t)N * k >= INT_MAX)
     return (int)cudaErrorInvalidValue;
   return csr_scatter(d_diff, idx, d_x, scratch, B, N, (int64_t)N * k, C, 0,
-                     C, dd_bf16 != 0, k, kSubtractOwn,
+                     stride, dd_bf16 != 0, k, kSubtractOwn,
                      static_cast<cudaStream_t>(stream));
 }
 

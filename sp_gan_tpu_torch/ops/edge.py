@@ -109,7 +109,8 @@ class EdgeConcat(torch.autograd.Function):
     neighbor half scatters through the indices. The scatter is kernel D on
     the neighbor half (which subtracts that half's own sum over k in f32,
     added back here). As in JAX, the central sum, the scatter and their
-    sum are each in the edges' type before the cast to x's. With
+    sum are each in the edges' type before the cast to x's. Kernel D reads
+    the neighbor half in place, at its row stride of 2C. With
     SPGAN_EDGE_BWD=pallas and N % 8 == 0 the backward is instead the JAX
     branch that calls `edge_scatter_bwd_pallas` (`sp_gan_tpu/ops/edge.py:
     147-155`): kernel M, f32 sums whatever the edges' type, cast to x's
@@ -129,10 +130,11 @@ class EdgeConcat(torch.autograd.Function):
         if edge_bwd_mode() == "pallas" and d_ee.shape[1] % 8 == 0:
             return (edge_scatter_bwd(d_ee.contiguous(), idx).to(ctx.dtype),
                     None, None)
+        d_ee = d_ee.contiguous()
         C = d_ee.shape[-1] // 2
-        d_nbr = d_ee[..., C:]
+        d_nbr = d_ee[..., C:]   # rows at a stride of 2C, which D reads
         d_central = (d_ee[..., :C] - d_nbr).sum(dim=2)
-        scattered = (scatter_diff_bwd(d_nbr.contiguous(), idx)
+        scattered = (scatter_diff_bwd(d_nbr, idx)
                      + d_nbr.float().sum(dim=2)).to(d_ee.dtype)
         return (d_central + scattered).to(ctx.dtype), None, None
 

@@ -41,9 +41,10 @@ NVCC_FLAGS = COMPILE_FLAGS + LINK_FLAGS     # what the library's hash covers
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 # C signatures of csrc/*.cu; every function returns its cudaError_t (or,
-# for spgan_knn_scratch, spgan_knn_edge_scratch, spgan_edge_tail_scratch,
-# spgan_ebt_scratch and spgan_csr_scratch, a count of floats or int32 as a
-# long long, RESTYPES)
+# for spgan_knn_scratch, spgan_knn_edge_scratch,
+# spgan_knn_edge_window_scratch, spgan_edge_tail_scratch, spgan_ebt_scratch
+# and spgan_csr_scratch, a count of floats or int32 as a long long,
+# RESTYPES)
 SIGNATURES = {
     # B, N, C, k -> int32 of scratch (long long)
     "spgan_knn_scratch": (_I,) * 4,
@@ -54,9 +55,11 @@ SIGNATURES = {
     # x, scratch, ee, idx, refined, B, N, C, k, diff_only, packed, out_bf16,
     # mu, nu, stream
     "spgan_knn_edge": (_P,) * 5 + (_I,) * 7 + (_F, _F, _P),
-    # x, ee, idx, B, N, C, k, W, low_mask, diff_only, packed, out_bf16,
-    # stream
-    "spgan_knn_edge_window": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    # B, N, C, k, W -> int32 of scratch (long long)
+    "spgan_knn_edge_window_scratch": (_I,) * 5,
+    # x, scratch, ee, idx, refined, B, N, C, k, W, low_mask, diff_only,
+    # packed, out_bf16, mu, nu, stream
+    "spgan_knn_edge_window": (_P,) * 5 + (_I,) * 9 + (_F, _F, _P),
     # B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
     "spgan_edge_tail_scratch": (_I,) * 7,
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, scratch, out, B, N, C, F2, F,
@@ -75,8 +78,8 @@ SIGNATURES = {
     # ee, d_u, w1, a1, w2, a2, wx, ax, gb2x, s2, gb1, s1, d_ee, d_w1, d_wx,
     # scratch, B, N, C, F2, F, k, neg, bf16, stream
     "spgan_ebt_bwd3": (_P,) * 16 + (_I,) * 6 + (_F, _I, _P),
-    # d_diff, idx, d_x, scratch, B, N, k, C, dd_bf16, stream
-    "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # d_diff, idx, d_x, scratch, B, N, k, C, row stride, dd_bf16, stream
+    "spgan_scatter_diff_bwd": (_P,) * 4 + (_I,) * 6 + (_P,),
     # g, idx, out, scratch, B, S, n, F, g_bf16, stream
     "spgan_scatter_add": (_P,) * 4 + (_I,) * 5 + (_P,),
     # B, n, S -> int32 of scratch of D, H and M (long long)
@@ -95,6 +98,7 @@ SIGNATURES = {
 
 RESTYPES = {"spgan_knn_scratch": ctypes.c_longlong,
             "spgan_knn_edge_scratch": ctypes.c_longlong,
+            "spgan_knn_edge_window_scratch": ctypes.c_longlong,
             "spgan_edge_tail_scratch": ctypes.c_longlong,
             "spgan_ebt_scratch": ctypes.c_longlong,
             "spgan_csr_scratch": ctypes.c_longlong}

@@ -27,6 +27,8 @@ as [B, N, C] f32, accumulated in f32. The kernel inverts the neighbor
 lists into a CSR by target and sums each target's in-edges in ascending
 source order, the central sum last: deterministic, with no float atomics
 (the CUDA source has the passes and the bound).
+d_diff's rows may lie at any stride (`row_stride`), so the neighbor half
+`d_ee[..., C:]` of the concat edges goes in without a copy.
 
 `scatter_diff_bwd` launches the kernel for CUDA tensors and runs
 `scatter_diff_bwd_plain`, the same sums in the same order in plain
@@ -52,6 +54,8 @@ counts kernel launches.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from sp_gan_tpu_torch.ops.kernels import _build
@@ -61,9 +65,11 @@ MAX_TARGETS = 1 << 19       # targets a cloud the CSR passes take
 GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(d_diff: torch.Tensor, idx: torch.Tensor, halves: int = 1) -> None:
+def _check(d_diff: torch.Tensor, idx: torch.Tensor, halves: int = 1,
+           strided: bool = False) -> Optional[int]:
     """d_diff [B, N, k, halves * C] and idx [B, N, k] as the kernels take
-    them."""
+    them: both contiguous, or with `strided` d_diff's rows at one stride,
+    which it returns (`row_stride`)."""
     if d_diff.dim() != 4 or d_diff.shape[-1] % halves:
         raise ValueError(f"d_diff must be [B, N, k, {halves}C], got "
                          f"{tuple(d_diff.shape)}")
@@ -76,14 +82,34 @@ def _check(d_diff: torch.Tensor, idx: torch.Tensor, halves: int = 1) -> None:
                         f"got {d_diff.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if not (d_diff.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("d_diff and idx must be contiguous")
+    rs = row_stride(d_diff) if strided else None
+    if not idx.is_contiguous() or not (
+            rs is not None if strided else d_diff.is_contiguous()):
+        raise ValueError("idx must be contiguous, and d_diff contiguous"
+                         + (" or its rows at one stride" if strided else ""))
     if idx.device != d_diff.device:
         raise ValueError(f"idx is on {idx.device}, d_diff on "
                          f"{d_diff.device}")
     if not 1 <= C <= MAX_C or min(B, N, k) < 1:
         raise ValueError(f"need C in 1..{MAX_C} and B, N, k >= 1, got "
                          f"{tuple(d_diff.shape)}")
+    return rs
+
+
+def row_stride(d: torch.Tensor) -> Optional[int]:
+    """The stride of the rows of d [B, N, k, C] when every row's C values
+    are contiguous and row s = (b N + q) k + j starts at s * stride, as in
+    a contiguous tensor (C) or the half d_ee[..., C:] of one (2C); else
+    None."""
+    B, N, k, C = d.shape
+    rs = d.stride(2)
+    if (C > 1 and d.stride(3) != 1) or rs < C:
+        return None
+    for dim, size in ((1, k), (0, N)):
+        if d.shape[dim] > 1 and d.stride(dim) != size * rs:
+            return None
+        rs *= size
+    return d.stride(2)
 
 
 # one-hot bytes above which the JAX package's gather backward leaves the
@@ -206,15 +232,16 @@ def scatter_diff_bwd_plain(d_diff: torch.Tensor,
 
 
 def scatter_diff_bwd(d_diff: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(d_diff [B, N, k, C] f32/bf16, idx [B, N, k] int32) -> d_x [B, N, C]
-    f32, see the module docstring. Kernel D on CUDA,
-    `scatter_diff_bwd_plain` on the CPU."""
-    _check(d_diff, idx)
+    """(d_diff [B, N, k, C] f32/bf16, its rows contiguous or at one stride
+    (`row_stride`), idx [B, N, k] int32) -> d_x [B, N, C] f32, see the
+    module docstring. Kernel D on CUDA, `scatter_diff_bwd_plain` on the
+    CPU."""
+    stride = _check(d_diff, idx, strided=True)
     if d_diff.device.type == "cpu":
         return scatter_diff_bwd_plain(d_diff, idx)
     B, N, k, C = d_diff.shape
     d_x = _launch("spgan_scatter_diff_bwd", d_diff, idx, N, N * k, C,
-                  (B, N, k, C))
+                  (B, N, k, C, stride))
     scatter_diff_bwd.launches += 1
     return d_x
 

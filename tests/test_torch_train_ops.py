@@ -422,5 +422,6 @@ class TestOnCard:
             dd = torch.from_numpy(_np((2, 300, 10, 64), seed=35)).cuda().to(dt)
             a, b = scatter_diff_bwd(dd, idx), scatter_diff_bwd(dd, idx)
             assert torch.equal(a, b)
+            # the plain version on the CPU sums in the kernel's order
             ref = scatter_diff_bwd_plain(dd.cpu(), idx.cpu())
-            assert (a.cpu() - ref).abs().max() <= 1e-6 * ref.abs().max()
+            assert torch.equal(a.cpu(), ref)

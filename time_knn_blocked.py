@@ -1,5 +1,5 @@
-"""Times the port's exact kNN kernels on the card, each on the same saved
-inputs, and the paths that run them end to end:
+"""Times the port's kNN kernels and kernel D on the card, each on the same
+saved inputs, and the paths that run them end to end:
 
 - kernel G (`sp_gan_tpu_torch/ops/kernels/knn_blocked.py`), with kernel A
   beside it, at the two kNN calls of a P2 request (16 shapes at N = 16384,
@@ -14,14 +14,23 @@ inputs, and the paths that run them end to end:
   serve", f32 concat edges of [64, 2048, 64]) and at the default training
   step's first call ("B train", bf16 diffs of [24, 2048, 64]), each on the
   features and with the arguments the path hands it;
+- kernel F (`knn_edge_window.py`) at the N=8192 approx campaign's (P1)
+  step's first call ("F P1", bf16 diffs of [4, 8192, 64] at W = 512);
+- kernel D (`scatter.py::scatter_diff_bwd`) at its three calls: the
+  default step's ("D default", d_diff [24, 2048, 10, 64]), F1's ("D F1",
+  the neighbour half of d_ee [24, 2048, 10, 128]: handed over at its row
+  stride where the checkout's kernel D takes one, `row_stride`, else as
+  the contiguous copy the checkout's path makes, the copy timed with it;
+  "D F1 copy" times D on the copy in both) and P1's ("D P1", [4, 8192,
+  10, 64] on kernel F's indices);
 - a serving request (64 shapes at `Config()`, the median of 10 after a
-  warm-up) through `Manipulator.generate`, and the default and
-  --fused_train (F1) steps through `Trainer.time_steps` (3 warm-up steps,
-  then three runs of 20 timed steps: their median, and each run), weights
-  and codes from a fixed seed; and each one's device-busy ms (the
-  profiler's device time over 5 requests or steps, divided by 5).
+  warm-up) through `Manipulator.generate`, and the default, --fused_train
+  (F1) and P1 steps through `Trainer.time_steps` (3 warm-up steps, then
+  three runs of 20 timed steps: their median, and each run), weights and
+  codes from a fixed seed; and each one's device-busy ms (the profiler's
+  device time over 5 requests or steps, divided by 5).
 
-The inputs are recorded from `Manipulator.generate` and a `Trainer` step
+The inputs are recorded from `Manipulator.generate` and `Trainer` steps
 (seeded weights, codes and batches). Every kernel's outputs are held to the
 saving run's bit for bit, and G's to kernel A's, so a checkout that picks
 other neighbours is caught. To compare two checkouts on one card, make the
@@ -50,6 +59,9 @@ from unittest import mock
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, B, K = 16384, 16, 10
 SEED = 0
+# the N=8192 approx campaign's step (P1), as chip_smoke.py runs it
+CAMPAIGN_N8192 = dict(np=8192, bs=4, nk=20, knn_mode="approx",
+                      knn_window=512, ema=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -152,35 +164,80 @@ def edge_calls(run) -> list:
     return calls
 
 
+def window_calls(run) -> list:
+    """(x, k, window, out_dtype, diff_only, select_mode) of each kernel F
+    call that `run()` makes, x cloned."""
+    from sp_gan_tpu_torch.ops import edge
+    calls, real = [], edge.knn_edge_window
+
+    def record(x, k, window, out_dtype=None, tq=256, diff_only=False,
+               select_mode="exact"):
+        calls.append((x.clone(), k, window, out_dtype, diff_only,
+                      select_mode))
+        return real(x, k, window, out_dtype, tq, diff_only, select_mode)
+    with mock.patch.object(edge, "knn_edge_window", record):
+        run()
+    return calls
+
+
+def diff_calls(run) -> list:
+    """(d_diff, idx) of each kernel D call that `run()` makes, copied
+    (d_diff contiguous)."""
+    from sp_gan_tpu_torch.ops import edge
+    calls, real = [], edge.scatter_diff_bwd
+
+    def record(d, idx):
+        calls.append((d.contiguous().clone(), idx.clone()))
+        return real(d, idx)
+    with mock.patch.object(edge, "scatter_diff_bwd", record):
+        run()
+    return calls
+
+
+def trainer(**kw):
+    """A Trainer of Config(seed=SEED, **kw) on synthetic data."""
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
+    cfg = Config(seed=SEED, **kw)
+    return Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda",
+                   logs=False)
+
+
 def path_inputs() -> dict:
-    """Kernel A's and B's inputs at a serving request and at the default
-    training step, as those paths hand them over."""
+    """Kernel A's, B's, F's and D's inputs at a serving request and at the
+    default, F1 and P1 training steps, as those paths hand them over."""
     import torch
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.data.sphere import sphere_template
     from sp_gan_tpu_torch.manipulate import Manipulator
     from sp_gan_tpu_torch.nn.generator import Generator
-    from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
     cfg = Config()
     man = Manipulator(cfg, Generator(cfg, seed=SEED), device="cuda")
     serve = edge_calls(lambda: man.generate(64, seed=SEED + 1000, batch=64))
-    tr = Trainer(Config(seed=SEED), dataset=synthetic_dataset(cfg),
-                 device="cuda", logs=False)
-    train = edge_calls(lambda: tr.time_steps(1))
-    del man, tr
+    del man
+    tr = trainer()
+    train = []
+    d_default = diff_calls(lambda: train.extend(edge_calls(
+        lambda: tr.time_steps(1))))
+    d_f1 = diff_calls(lambda: trainer(fused_train=True).time_steps(1))
+    tr = trainer(**CAMPAIGN_N8192)
+    p1 = []
+    d_p1 = diff_calls(lambda: p1.extend(window_calls(
+        lambda: tr.time_steps(1))))
+    del tr
     return {"A serve": torch.as_tensor(sphere_template(cfg.np),
                                        device="cuda")[None]
             .expand(64, -1, -1).contiguous(),
-            "B serve": serve[0], "B train": train[0]}
+            "B serve": serve[0], "B train": train[0], "F P1": p1[0],
+            "D default": d_default[0], "D F1": d_f1[0], "D P1": d_p1[0]}
 
 
 def end_to_end() -> dict:
-    """ms of a serving request and of a default and an F1 step (host
+    """ms of a serving request and of a default, an F1 and a P1 step (host
     clock), and their device-busy ms."""
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.manipulate import Manipulator
     from sp_gan_tpu_torch.nn.generator import Generator
-    from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
     res = {}
     cfg = Config()
     man = Manipulator(cfg, Generator(cfg, seed=SEED), device="cuda")
@@ -189,10 +246,9 @@ def end_to_end() -> dict:
     res["serve request, device"] = device_ms(req)
     del man
     for label, kw in (("default step", {}),
-                      ("F1 step", dict(fused_train=True))):
-        cfg = Config(seed=SEED, **kw)
-        tr = Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda",
-                     logs=False)
+                      ("F1 step", dict(fused_train=True)),
+                      ("P1 step", CAMPAIGN_N8192)):
+        tr = trainer(**kw)
         runs = [tr.time_steps(20, 3 if i == 0 else 0)["ms_per_step"]
                 for i in range(3)]
         res[label] = statistics.median(runs)
@@ -221,16 +277,23 @@ def main() -> None:
     from sp_gan_tpu_torch.ops.kernels import _build
     from sp_gan_tpu_torch.ops.kernels.knn import knn
     from sp_gan_tpu_torch.ops.kernels.knn_blocked import knn_blocked
+    from sp_gan_tpu_torch.ops.kernels import scatter
     from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
+    from sp_gan_tpu_torch.ops.kernels.knn_edge_window import knn_edge_window
     _build.library()
     if args.load:
         inputs = torch.load(args.load)
     else:
         inputs = {**p2_inputs(), **path_inputs()}
         if args.save:
-            torch.save({n: (v.cpu() if torch.is_tensor(v)
-                            else (v[0].cpu(),) + tuple(v[1:]))
-                        for n, v in inputs.items()}, args.save)
+            torch.save({n: (v.cpu() if torch.is_tensor(v) else tuple(
+                t.cpu() if torch.is_tensor(t) else t for t in v))
+                for n, v in inputs.items()}, args.save)
+    # D F1's neighbour half: in place at its row stride where this
+    # checkout's kernel D takes one, else the contiguous copy its path makes
+    strided = hasattr(scatter, "row_stride")
+    if "D F1" in inputs:
+        inputs["D F1 copy"] = inputs["D F1"]
     calls, outs = {}, {}
     for name, v in inputs.items():
         if name.startswith("B"):
@@ -239,6 +302,29 @@ def main() -> None:
             fn = lambda: knn_edge(x, k, cd, diff_only, mode)
             calls[name] = dict(shape=list(x.shape), out_dtype=str(cd),
                                diff_only=diff_only, select_mode=mode)
+        elif name.startswith("F"):
+            x, k, window, cd, diff_only, mode = v
+            x = x.cuda()
+            fn = lambda: knn_edge_window(x, k, window, cd,
+                                         diff_only=diff_only,
+                                         select_mode=mode)
+            calls[name] = dict(shape=list(x.shape), window=window,
+                               out_dtype=str(cd), diff_only=diff_only,
+                               select_mode=mode)
+        elif name.startswith("D"):
+            x, idx = v[0].cuda(), v[1].cuda()
+            calls[name] = dict(shape=list(x.shape), dtype=str(x.dtype))
+            if name == "D F1":
+                C = x.shape[-1]
+                full = torch.cat([torch.zeros_like(x), x], -1)
+                half = full[..., C:] if strided else None
+                fn = ((lambda: (scatter.scatter_diff_bwd(half, idx),))
+                      if strided else
+                      (lambda: (scatter.scatter_diff_bwd(
+                          full[..., C:].contiguous(), idx),)))
+                calls[name]["row_stride"] = 2 * C if strided else C
+            else:
+                fn = lambda: (scatter.scatter_diff_bwd(x, idx),)
         else:
             x, k = v.cuda(), K
             fn = lambda: (knn_blocked if name.startswith("G") else knn)(x, k)
