@@ -36,10 +36,14 @@ Phases, in order; any failure raises and the script exits nonzero:
               backward) with kernel N bit-equal to its plain version and
               the gradients bit-equal to the plain backward on the CPU,
               and at [24, 2048, 3] the dense route with no launch; kernel
-              O through auction(mode="jacobi"|"packed") at [4, 2048, 2048]
-              in the metric regime, bit-equal to its plain version
-              (assignments, rounds, bidders) and within N * eps of kernel
-              E's cost.
+              N also on hard inputs (duplicated points, a grid, x = y, a
+              repeated point) and at C = 8 with N != M, bit-equal and
+              twice alike; kernel O through auction(mode="jacobi"|"packed")
+              at [4, 2048, 2048] in the metric regime, bit-equal to its
+              plain version (assignments, rounds, bidders), twice alike
+              and within N * eps of kernel E's cost, and on hard inputs:
+              kernel E's tie-heavy pairs, [2, 256, 258] (scalar loads)
+              and [40, 256, 256] (B * 4 above the SMs: no cluster).
 4. serve    - the full-width generator (Config() defaults; weights drawn
               from --seed, or read from --ckpt) serves two requests of 64
               shapes through Manipulator.generate, which takes the fused
@@ -307,6 +311,23 @@ def cuda_ms(fn, reps: int) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def cuda_ms_back_to_back(fn, reps: int) -> float:
+    """Milliseconds of `fn()` on the device when calls follow each other:
+    CUDA events around `reps` calls (after one warm-up), divided by
+    `reps`, so that the wrapper's host time hides behind the card's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def check_knn(x, k, label: str = ""):
@@ -2403,8 +2424,9 @@ def check_jacobi_auction(d, regime) -> dict:
     on the card: assignments, rounds and bidders bit-equal (the same f32
     and int32 operations). A pair whose cap was not spent must be a
     bijection; each pair's matched cost within N * eps of kernel E's on
-    the same d (both solve to within N * eps of the optimum). Returns,
-    per mode, the readings and the plain version's wall time."""
+    the same d (both solve to within N * eps of the optimum); two
+    launches alike. Returns, per mode, the readings and the plain
+    version's wall time."""
     import torch
     from sp_gan_tpu_torch.ops import kernels
     eps, iters, phases = regime
@@ -2425,6 +2447,10 @@ def check_jacobi_auction(d, regime) -> dict:
         launches = kernels.launch_counts()
         if launches != per(jacobi_auction=1):
             raise AssertionError(f"{tag}: launches {launches}")
+        again = kernels.auction(d, eps, iters, phases, mode=mode)
+        if not all(torch.equal(x, y) for x, y in zip((asg, rounds, bids),
+                                                      again)):
+            raise AssertionError(f"{tag}: two launches differ")
         t = time.perf_counter()
         asg_p, rounds_p, bids_p = kernels.jacobi_auction_plain(
             d, eps, iters, phases, mode=mode)
@@ -2443,7 +2469,8 @@ def check_jacobi_auction(d, regime) -> dict:
                 raise AssertionError(f"{tag}: pair {b} converged without a "
                                      "bijection")
         gap = (cost(asg) - e_cost).abs().tolist()
-        log(f"  {tag}: bit-equal to the plain version; rounds "
+        log(f"  {tag}: bit-equal to the plain version and twice alike; "
+            f"rounds "
             f"{rounds.tolist()} (cap {iters}, spent {spent}), bidders "
             f"{bids.tolist()}; cost minus kernel E's {gap} (limit "
             f"{N * eps}); plain version {plain_ms:.0f} ms")
@@ -2457,16 +2484,111 @@ def check_jacobi_auction(d, regime) -> dict:
     return out
 
 
+def hold_jacobi_auction(d, regime, label: str) -> dict:
+    """Kernel O in both modes on d: assignments, rounds and bidders
+    bit-equal to its plain version and twice alike."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    out = {}
+    for mode in ("jacobi", "packed"):
+        tag = f"auction[{mode}, {label}{list(d.shape)}, {regime}]"
+        got = kernels.jacobi_auction(d, *regime, mode=mode)
+        again = kernels.jacobi_auction(d, *regime, mode=mode)
+        want = kernels.jacobi_auction_plain(d, *regime, mode=mode)
+        mismatches = int((got[0] != want[0]).sum())
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(
+                f"{tag}: {mismatches} assignments, rounds "
+                f"{got[1].tolist()} vs {want[1].tolist()}, bidders "
+                f"{got[2].tolist()} vs {want[2].tolist()} differ from the "
+                "plain version")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"{tag}: two launches differ")
+        log(f"  {tag}: bit-equal to the plain version and twice alike; "
+            f"rounds {got[1].tolist()[:8]}, bidders {got[2].tolist()[:8]}"
+            f"{' ...' if d.shape[0] > 8 else ''}")
+        out[mode] = {"rounds": got[1].tolist(), "bidders": got[2].tolist(),
+                     "mismatches": mismatches}
+    return out
+
+
+def check_jacobi_auction_hard(seed: int) -> dict:
+    """Kernel O (`hold_jacobi_auction`) on inputs that reach its edge
+    cases: `check_auction_hard`'s tie-heavy pairs (clouds on a coarse
+    grid) at [2, 2048, 2048] in the training regime and [2, 1024, 1024] in
+    the protocol regime; [2, 256, 258] (M not a multiple of 4: scalar
+    loads, one block a pair) and [40, 256, 256] (B * 4 above the card's
+    132 SMs: no cluster), in the protocol regime."""
+    from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
+    import torch
+    res = {}
+    for n, regime in ((2048, TRAIN_REGIME), (1024, PROTOCOL)):
+        pcs = torch.round(auction_pairs_clouds(n, 4, seed + 31) * 4) / 4
+        d = pairwise_sqdist(pcs[:2], pcs[2:])
+        res[f"ties/{n}"] = hold_jacobi_auction(d, regime, "ties ")
+    pcs = auction_pairs_clouds(258, 4, seed + 37)
+    d = pairwise_sqdist(pcs[:2, :256].contiguous(), pcs[2:])
+    res["[2, 256, 258]"] = hold_jacobi_auction(d, PROTOCOL, "scalar ")
+    res["[40, 256, 256]"] = hold_jacobi_auction(
+        auction_pairs(256, 40, seed + 41), PROTOCOL, "no cluster ")
+    return res
+
+
+def check_chamfer_hard(seed: int) -> dict:
+    """Kernel N on inputs with many equal distances, N and M not multiples
+    of its tiles: duplicated points, an integer grid, x = y, one point
+    repeated; and at C = 8 with N != M. All four outputs bit-equal to the
+    plain version and twice alike."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    g = torch.Generator(device="cuda").manual_seed(seed + 43)
+    x, y = chamfer_clouds(2, 1000, seed + 47)
+    dup_x, dup_y = x.clone(), y[:, :700].clone()
+    dup_x[:, 500:] = dup_x[:, :500]
+    dup_y[:, 350:] = dup_y[:, :350]
+    grid = torch.randint(-6, 7, (2, 1500, 3), generator=g, device="cuda",
+                         dtype=torch.int64).float() * 0.125
+    rep_x, rep_y = x.clone(), y[:, :513].clone()
+    rep_x[:, 100:900] = rep_x[:, 7:8]
+    rep_y[:, 30:400] = rep_y[:, 3:4]
+    cases = {"duplicated": (dup_x, dup_y),
+             "grid": (grid[:, :900].contiguous(), grid[:, 900:].contiguous()),
+             "x=y": (x, x.clone()), "repeated": (rep_x, rep_y),
+             "C=8, N != M": (torch.randn(3, 700, 8, generator=g,
+                                         device="cuda"),
+                             torch.randn(3, 333, 8, generator=g,
+                                         device="cuda"))}
+    res = {}
+    for name, (a, b) in cases.items():
+        got, again = kernels.chamfer_nn(a, b), kernels.chamfer_nn(a, b)
+        want = kernels.chamfer_nn_plain(a, b)
+        diff = [int((u != v).sum()) for u, v in zip(got, want)]
+        if any(diff):
+            raise AssertionError(f"chamfer_nn[{name}]: (d1, i1, d2, i2) "
+                                 f"differ from the plain version in {diff}")
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"chamfer_nn[{name}]: two launches differ")
+        log(f"  chamfer_nn[{name}, {list(a.shape)}, {list(b.shape)}]: "
+            "bit-equal to the plain version and twice alike")
+        res[name] = {"shape": [list(a.shape), list(b.shape)],
+                     "mismatches": diff}
+    return res
+
+
 def last_kernels_phase(seed: int, idx_t, gen) -> dict:
     """Kernels M, N and O against their plain versions at the shapes of
     their paths (see `check_edge_scatter_bwd`, `check_chamfer`,
-    `check_jacobi_auction`; O at [4, 2048, 2048] in the metric regime).
-    Returns the readings and the inputs for the timings."""
+    `check_jacobi_auction`; O at [4, 2048, 2048] in the metric regime) and
+    N and O on hard inputs (`check_chamfer_hard`,
+    `check_jacobi_auction_hard`). Returns the readings and the inputs for
+    the timings."""
     res, ins = {}, {}
     res["edge_scatter_bwd"], ins["d_ee"] = check_edge_scatter_bwd(idx_t, gen)
     res["chamfer"], ins["clouds"] = check_chamfer(seed, gen)
+    res["chamfer_hard"] = check_chamfer_hard(seed)
     ins["d"] = auction_pairs(2048, 4, seed + 11)
     res["jacobi_auction"] = check_jacobi_auction(ins["d"], PROTOCOL)
+    res["jacobi_auction_hard"] = check_jacobi_auction_hard(seed)
     return res, ins
 
 
@@ -3187,6 +3309,8 @@ def main() -> None:
         launches=last["chamfer"]["launches"]["chamfer_nn"],
         max_abs_err=0.0, max_err=0.0,
         ms=cuda_ms(lambda: kernels.chamfer_nn(xc, yc), 20),
+        ms_back_to_back=cuda_ms_back_to_back(
+            lambda: kernels.chamfer_nn(xc, yc), 20),
         plain_ms=cuda_ms(lambda: kernels.chamfer_nn_plain(xc, yc), 5),
         bound_ms=n_bound, bound_by=n_by, library_ms=None,
         shape=[Bc, Nc, Mc, Cc], path="ops.dispatch.chamfer_directed"))
@@ -3197,14 +3321,20 @@ def main() -> None:
                        ("packed", "_auction_kernel_packed :47")):
         o = last["jacobi_auction"][mode]
         o_bound, o_by = auction_bound(d_o, o["bidders"])
+        o_ms = cuda_ms(lambda: kernels.auction(d_o, *PROTOCOL, mode=mode), 3)
+        o_us = 1e3 * o_ms / max(o["rounds"])
+        log(f"  kernel O[{mode}] at {list(d_o.shape)}: {o_us:.3f} us a round "
+            f"of the pair with the most rounds ({max(o['rounds'])}); kernel "
+            f"E at [4, 2048]: {met[2048]['us_per_round']:.3f} us a "
+            "block-round")
         rows.append(dict(
             name=f"jacobi_auction[{mode}]", route="cuda",
             source="sp_gan_tpu_torch/csrc/auction_jacobi.cu",
             replaces=f"sp_gan_tpu/ops/pallas/auction.py:510 "
                      f"(auction_assignment_pallas {mode}, {body})",
             launches=o["launches"], max_abs_err=0.0, max_err=0.0,
-            ms=cuda_ms(lambda: kernels.auction(d_o, *PROTOCOL, mode=mode),
-                       3),
+            ms=o_ms, us_per_round=o_us,
+            e_us_per_block_round=met[2048]["us_per_round"],
             plain_ms=o["plain_ms"], bound_ms=o_bound, bound_by=o_by,
             library_ms=None, rounds=o["rounds"], bidders=o["bidders"],
             regime="eps 0.002, 10000 iterations, 4 phases",

@@ -36,7 +36,8 @@
 //          row, several rows in flight per group, every load issued before
 //          any value is used; each lane keeps (best, index, second) of its
 //          columns (top2_take), the warp merges them by shuffles and lane
-//          0 writes the warp's partial to shared memory.
+//          0 writes the warp's partial to shared memory (spgan::scan_rows
+//          in auction_common.cuh, which kernel O runs too).
 //   B1     __syncthreads.
 //   pick   when nu <= 32 one warp, under __syncwarp only: lane u merges
 //          row u's G partials (top2_merge is exact and order-free) into the
@@ -87,8 +88,6 @@
 // read; each row read again comes from device memory (a pair's d is 16 MB
 // at N = 2048), so with the card full of pairs the rounds share its 3.35
 // TB/s.
-#include <cooperative_groups.h>
-
 #include "auction_common.cuh"
 
 namespace {
@@ -96,117 +95,10 @@ namespace {
 using spgan::kMaxPhases;
 using spgan::PhaseEps;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = spgan::kAuctionWarps;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxW = 64;
-constexpr int kSlots = 4;  // float4 column slots a lane holds of a row tile
-
-// The scan of one round: rows u = grp, grp + RG, ... of the block's nu
-// unassigned rows, kRows of them in flight per group of G warps; lane gl
-// of its group takes the float4 slots base + gl + 32 G k (k < kSlots) of
-// each tile of 128 G slots of the block's `slots` slots, in ascending
-// order. Writes each row's G partials to slots crank * G + wg, in the
-// shared memory of each of the cluster's kCS blocks.
-template <bool kVec, int kRows, int kCS>
-__device__ __forceinline__ void scan_rows(
-    const float* __restrict__ dp, const float* price, const int32_t* urow,
-    int rows0, int nu, int M, int base, int slots, int G, int crank,
-    int warp, int lane,
-    float (*part_b)[kWarps], int (*part_i)[kWarps], float (*part_s)[kWarps],
-    bool timed, long long& t_cols, long long& t_parts) {
-  const int RG = kWarps / G, grp = warp / G, wg = warp - grp * G;
-  const int GL = 32 * G, gl = wg * 32 + lane;
-  const int tiles = (slots + GL * kSlots - 1) / (GL * kSlots);
-  const float4* price4 = reinterpret_cast<const float4*>(price);
-  for (int u0 = grp; u0 < nu; u0 += RG * kRows) {
-    float b[kRows], s[kRows];
-    int bi[kRows];
-    const float* rp[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      b[r] = -INFINITY;
-      s[r] = spgan::kNeg;
-      bi[r] = 0x7fffffff;
-      const int u = u0 + r * RG;
-      rp[r] = u < nu ? dp + (size_t)(rows0 + urow[u]) * M : nullptr;
-    }
-    for (int tile = 0; tile < tiles; ++tile) {
-      const int c0 = tile * GL * kSlots + gl;
-      float4 v[kRows][kSlots];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-        for (int k = 0; k < kSlots; ++k) {
-          const int c = base + c0 + k * GL;
-          v[r][k] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (rp[r] != nullptr && c0 + k * GL < slots) {
-            if (kVec) {
-              v[r][k] = __ldg(reinterpret_cast<const float4*>(rp[r]) + c);
-            } else {
-              const int m = 4 * c;
-              v[r][k].x = __ldg(rp[r] + m);
-              if (m + 1 < M) v[r][k].y = __ldg(rp[r] + m + 1);
-              if (m + 2 < M) v[r][k].z = __ldg(rp[r] + m + 2);
-              if (m + 3 < M) v[r][k].w = __ldg(rp[r] + m + 3);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if (c0 + k * GL >= slots) continue;
-        const int c = base + c0 + k * GL;
-        const int m = 4 * c;
-        float4 p;
-        if (kVec) {
-          p = price4[c];
-        } else {
-          p.x = price[m];
-          p.y = m + 1 < M ? price[m + 1] : 0.f;
-          p.z = m + 2 < M ? price[m + 2] : 0.f;
-          p.w = m + 3 < M ? price[m + 3] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (rp[r] == nullptr) continue;
-          spgan::top2_take(b[r], bi[r], s[r], v[r][k].x, p.x, m);
-          if (kVec || m + 1 < M)
-            spgan::top2_take(b[r], bi[r], s[r], v[r][k].y, p.y, m + 1);
-          if (kVec || m + 2 < M)
-            spgan::top2_take(b[r], bi[r], s[r], v[r][k].z, p.z, m + 2);
-          if (kVec || m + 3 < M)
-            spgan::top2_take(b[r], bi[r], s[r], v[r][k].w, p.w, m + 3);
-        }
-      }
-    }
-    if (timed) t_cols = clock64();  // the columns are done
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int u = u0 + r * RG;
-      if (u >= nu) continue;  // uniform over the warp
-      spgan::warp_top2(b[r], bi[r], s[r]);
-      if (lane == 0) {
-        const int slot = crank * G + wg;
-#pragma unroll
-        for (int c = 0; c < kCS; ++c) {
-          float* pb = &part_b[u][slot];
-          int* pi = &part_i[u][slot];
-          float* ps = &part_s[u][slot];
-          if constexpr (kCS > 1) {
-            auto cluster = cooperative_groups::this_cluster();
-            pb = cluster.map_shared_rank(pb, c);
-            pi = cluster.map_shared_rank(pi, c);
-            ps = cluster.map_shared_rank(ps, c);
-          }
-          *pb = b[r];
-          *pi = bi[r];
-          *ps = s[r];
-        }
-      }
-    }
-    if (timed) t_parts = clock64();  // the partials are written
-  }
-}
+using spgan::kSlots;
 
 template <bool kVec, int kRows, int kMinBlocks, int kCS>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -284,13 +176,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   // thread u < nu: row u's bid (item, value) from its kCS * G partials
   auto merge = [&](int u, float eps_p, int& item, float& val) {
-    float b = part_b[par][u][0], s = part_s[par][u][0];
-    int bi = part_i[par][u][0];
-#pragma unroll
-    for (int g = 1; g < kWarps; ++g)
-      if (g < kCS * G)
-        spgan::top2_merge(b, bi, s, part_b[par][u][g], part_i[par][u][g],
-                          part_s[par][u][g]);
+    float b, s;
+    int bi;
+    spgan::top2_of_parts(part_b[par][u], part_i[par][u], part_s[par][u],
+                         kCS * G, b, bi, s);
     item = bi;
     val = __fadd_rn(__fsub_rn(b, s), eps_p);
   };
@@ -335,10 +224,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     while (s_go) {
       const int j = s_j, rows0 = j * w, nu = s_nu;
       if (timed) t0 = clock64();
-      scan_rows<kVec, kRows, kCS>(dp, price, urow, rows0, nu, M, base, slots,
-                                  G, crank, warp, lane, part_b[par],
-                                  part_i[par],
-                             part_s[par], timed, t_cols, t_parts);
+      // the scan: each row's partial of warp wg of its group to slot
+      // crank * G + wg, in the shared memory of each of the cluster's blocks
+      spgan::scan_rows<spgan::Top2, kVec, kRows>(
+          dp, price, nu, M, base, slots, G, warp, lane, spgan::Top2{},
+          [&](int u) { return rows0 + urow[u]; },
+          [&](int u, int wg, const spgan::Top2& a) {
+            const int slot = crank * G + wg;
+            spgan::store_all<kCS>(&part_b[par][u][slot], a.b);
+            spgan::store_all<kCS>(&part_i[par][u][slot], a.i);
+            spgan::store_all<kCS>(&part_s[par][u][slot], a.s);
+          },
+          timed, t_cols, t_parts);
       if constexpr (kCS > 1)
         cooperative_groups::this_cluster().sync();  // B1, cluster-wide
       else

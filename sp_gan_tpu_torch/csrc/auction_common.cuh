@@ -1,18 +1,23 @@
 // Shared pieces of the EMD auction kernels (auction.cu: E, block
 // Gauss-Seidel; auction_jacobi.cu: O, Jacobi and packed): the phase eps
-// table, a row's best and second value, and the forced final pass. Every
-// rounded operation is an explicit __fsub_rn / __fadd_rn in the order of
-// the plain versions in ops/kernels/auction.py and auction_jacobi.py.
+// table, a row's best and second value, the round engine's row scan and
+// the forced final pass. Every rounded operation is an explicit
+// __fsub_rn / __fadd_rn in the order of the plain versions in
+// ops/kernels/auction.py and auction_jacobi.py.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace spgan {
 
 constexpr int kMaxPhases = 16;
 constexpr float kNeg = -1e30f;  // the JAX kernel's _NEG
+constexpr int kAuctionWarps = 16;  // warps of a block of kernels E and O
+constexpr int kSlots = 4;  // float4 column slots a lane holds of a row tile
 
 // eps of each phase, f32, passed by value
 struct PhaseEps {
@@ -33,38 +38,10 @@ __device__ __forceinline__ void top2_merge(float& b, int& i, float& s,
   }
 }
 
-// One warp's scan of a row of d [M]: best = max_m(-d[m] - price[m]), the
-// lowest m on ties, and second = the max over every other column with -1e30
-// as the floor; lane l takes columns l, l + 32, ... and the lanes merge by
-// shuffles, so every lane returns the row's result.
-__device__ __forceinline__ void row_top2(const float* __restrict__ row,
-                                         const float* price, int M, int lane,
-                                         float& b, int& bi, float& s) {
-  b = -INFINITY;
-  s = kNeg;
-  bi = 0x7fffffff;
-#pragma unroll 4
-  for (int m = lane; m < M; m += 32) {
-    const float v = __fsub_rn(-__ldg(row + m), price[m]);
-    if (v > b) {
-      s = fmaxf(s, b);
-      b = v;
-      bi = m;
-    } else {
-      s = fmaxf(s, v);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float b2 = __shfl_xor_sync(0xffffffffu, b, off);
-    const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    top2_merge(b, bi, s, b2, i2, s2);
-  }
-}
-
-// One column into a running (best, index of best, second): the same
-// result as row_top2's branch, without it. Columns must come in ascending
-// order, so that a tie keeps the lower index.
+// One column into a running (best, index of best, second), v = -d - price:
+// if v > best the old best becomes a candidate for second, else v does,
+// without a branch. Columns must come in ascending order, so that a tie
+// keeps the lower index.
 __device__ __forceinline__ void top2_take(float& b, int& bi, float& s,
                                           float dv, float pv, int m) {
   const float v = __fsub_rn(-dv, pv);
@@ -83,6 +60,170 @@ __device__ __forceinline__ void warp_top2(float& b, int& bi, float& s) {
     const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
     const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
     top2_merge(b, bi, s, b2, i2, s2);
+  }
+}
+
+// max(x, 0) that keeps NaN, as jnp.maximum and torch.where do
+__device__ __forceinline__ float clamp0(float x) { return x < 0.f ? 0.f : x; }
+
+// A row's (best, index, second) from its n partials pb, pi, ps [n],
+// merged by top2_merge (exact and order-free).
+__device__ __forceinline__ void top2_of_parts(const float* pb, const int* pi,
+                                              const float* ps, int n,
+                                              float& b, int& bi, float& s) {
+  b = pb[0];
+  bi = pi[0];
+  s = ps[0];
+#pragma unroll
+  for (int g = 1; g < kAuctionWarps; ++g)
+    if (g < n) top2_merge(b, bi, s, pb[g], pi[g], ps[g]);
+}
+
+// What a lane keeps of its columns of a bidding row, and how a warp merges
+// it. Top2 (kernel E, kernel O's jacobi mode): best = max(-d - price), the
+// lowest column on ties, and second = the max over the other columns
+// (kNeg as the floor). Min2 (kernel O's packed mode): the two smallest
+// packed values (the bits of max(d + price, 0) with the column in the low
+// bits, `hi` masking them off); columns differ in their low bits, so the
+// values are distinct. Both results are those of the row whatever the
+// split of its columns over lanes, warps and blocks, and whatever the
+// order of the merges.
+struct Top2 {
+  float b, s;
+  int i;
+  __device__ __forceinline__ void init() {
+    b = -INFINITY;
+    s = kNeg;
+    i = INT_MAX;
+  }
+  __device__ __forceinline__ void take(float dv, float pv, int m) {
+    top2_take(b, i, s, dv, pv, m);
+  }
+  __device__ __forceinline__ void warp_merge() { warp_top2(b, i, s); }
+};
+
+struct Min2 {
+  int m1, m2, hi;
+  __device__ __forceinline__ void init() {
+    m1 = INT_MAX;
+    m2 = INT_MAX;
+  }
+  __device__ __forceinline__ void take(float dv, float pv, int m) {
+    const float u = clamp0(__fadd_rn(dv, pv));
+    const int pk = (__float_as_int(u) & hi) | m;
+    m2 = min(m2, max(m1, pk));
+    m1 = min(m1, pk);
+  }
+  __device__ __forceinline__ void merge(int o1, int o2) {
+    m2 = min(max(m1, o1), min(m2, o2));
+    m1 = min(m1, o1);
+  }
+  __device__ __forceinline__ void warp_merge() {
+    for (int off = 16; off > 0; off >>= 1) {
+      const int o1 = __shfl_xor_sync(0xffffffffu, m1, off);
+      const int o2 = __shfl_xor_sync(0xffffffffu, m2, off);
+      merge(o1, o2);
+    }
+  }
+};
+
+// *p = v in the shared memory of each of the cluster's kCS blocks (the
+// block's own for kCS = 1): stores that need no answer.
+template <int kCS, class T>
+__device__ __forceinline__ void store_all(T* p, T v) {
+  if constexpr (kCS > 1) {
+    auto cluster = cooperative_groups::this_cluster();
+#pragma unroll
+    for (int c = 0; c < kCS; ++c) *cluster.map_shared_rank(p, c) = v;
+  } else {
+    *p = v;
+  }
+}
+
+// The round engine's scan: rows u = grp, grp + RG, ... of the nu bidding
+// rows (row_of(u) their row of d), kRows of them in flight per group of G
+// warps; lane gl of its group takes the float4 slots base + gl + 32 G k
+// (k < kSlots) of each tile of 128 G slots of the block's `slots` slots,
+// in ascending order, every load issued before any value is used, and
+// keeps an Acc of its columns. The warp merges its lanes and lane 0 hands
+// the warp's partial to store(u, wg, acc), wg the warp's place in its
+// group. M not a multiple of 4, or a d not 16-byte aligned (!kVec), takes
+// scalar loads.
+template <class Acc, bool kVec, int kRows, class RowOf, class Store>
+__device__ __forceinline__ void scan_rows(
+    const float* __restrict__ dp, const float* price, int nu, int M,
+    int base, int slots, int G, int warp, int lane, const Acc& proto,
+    const RowOf& row_of, const Store& store, bool timed, long long& t_cols,
+    long long& t_parts) {
+  const int RG = kAuctionWarps / G, grp = warp / G, wg = warp - grp * G;
+  const int GL = 32 * G, gl = wg * 32 + lane;
+  const int tiles = (slots + GL * kSlots - 1) / (GL * kSlots);
+  const float4* price4 = reinterpret_cast<const float4*>(price);
+  for (int u0 = grp; u0 < nu; u0 += RG * kRows) {
+    Acc a[kRows];
+    const float* rp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      a[r] = proto;
+      a[r].init();
+      const int u = u0 + r * RG;
+      rp[r] = u < nu ? dp + (size_t)row_of(u) * M : nullptr;
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int c0 = tile * GL * kSlots + gl;
+      float4 v[kRows][kSlots];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          const int c = base + c0 + k * GL;
+          v[r][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (rp[r] != nullptr && c0 + k * GL < slots) {
+            if (kVec) {
+              v[r][k] = __ldg(reinterpret_cast<const float4*>(rp[r]) + c);
+            } else {
+              const int m = 4 * c;
+              v[r][k].x = __ldg(rp[r] + m);
+              if (m + 1 < M) v[r][k].y = __ldg(rp[r] + m + 1);
+              if (m + 2 < M) v[r][k].z = __ldg(rp[r] + m + 2);
+              if (m + 3 < M) v[r][k].w = __ldg(rp[r] + m + 3);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        if (c0 + k * GL >= slots) continue;
+        const int c = base + c0 + k * GL;
+        const int m = 4 * c;
+        float4 p;
+        if (kVec) {
+          p = price4[c];
+        } else {
+          p.x = price[m];
+          p.y = m + 1 < M ? price[m + 1] : 0.f;
+          p.z = m + 2 < M ? price[m + 2] : 0.f;
+          p.w = m + 3 < M ? price[m + 3] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if (rp[r] == nullptr) continue;
+          a[r].take(v[r][k].x, p.x, m);
+          if (kVec || m + 1 < M) a[r].take(v[r][k].y, p.y, m + 1);
+          if (kVec || m + 2 < M) a[r].take(v[r][k].z, p.z, m + 2);
+          if (kVec || m + 3 < M) a[r].take(v[r][k].w, p.w, m + 3);
+        }
+      }
+    }
+    if (timed) t_cols = clock64();  // the columns are done
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int u = u0 + r * RG;
+      if (u >= nu) continue;  // uniform over the warp
+      a[r].warp_merge();
+      if (lane == 0) store(u, wg, a[r]);
+    }
+    if (timed) t_parts = clock64();  // the partials are written
   }
 }
 

@@ -86,8 +86,8 @@ SIGNATURES = {
     "spgan_csr_scratch": (_I, _I, _L),
     # d_ee, idx, d_x, scratch, B, N, k, C, ee_bf16, stream
     "spgan_edge_scatter_bwd": (_P,) * 4 + (_I,) * 5 + (_P,),
-    # x, y, d1, i1, d2, i2, B, N, M, C, stream
-    "spgan_chamfer": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x, y, d1, i1, d2, i2, scratch, B, N, M, C, stream
+    "spgan_chamfer": (_P,) * 7 + (_I,) * 4 + (_P,),
     # d, asg, rounds, bidders, B, N, M, phases, eps (host f32[16]), iters,
     # packed, stream
     "spgan_auction_jacobi": (_P,) * 4 + (_I,) * 4 + (_P, _I, _I, _P),

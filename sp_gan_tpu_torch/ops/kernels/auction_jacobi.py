@@ -36,6 +36,14 @@ by side, through the same f32 and int32 operations as the kernel, so the
 two agree bit for bit. `jacobi_auction` launches the kernel for a CUDA
 tensor and runs the plain version for a CPU tensor;
 `jacobi_auction.launches` counts kernel launches, both modes together.
+
+The kernel runs kernel E's round engine: it keeps the list of unassigned
+rows from round to round (a round's losers, then the owners its winners
+evicted), splits each bidding row's columns at float4 slots over the 4
+blocks of a cluster and over warps and lanes, merges the partials (exact
+and order-free), and resolves each item's bids by the maximum of their
+keys. `tests/test_torch_auction_modes.py` emulates that round in numpy and
+holds it to `jacobi_auction_plain(..., trace=)` round by round.
 """
 
 from __future__ import annotations
@@ -114,12 +122,14 @@ def _packed_bids(d, price, bidding, eps_p, bits):
 
 def jacobi_auction_plain(d: torch.Tensor, eps: float, iters: int,
                          phases: int, theta: float = 8.0,
-                         mode: str = "jacobi") -> Solution:
+                         mode: str = "jacobi", trace=None) -> Solution:
     """The kernel's function in plain PyTorch: d [B, N, M] f32 ->
     (assignment [B, N] int32, rounds [B] int32, bidders [B] int64), on d's
     device. The pairs run side by side: a round leaves a pair whose phase
     is done as it was, so each phase runs until its last pair is done. See
-    the module docstring."""
+    the module docstring. `trace(active, owner, price)`, if given, sees
+    each round's result: the pairs that ran it [B] bool, owner [B, M] int64
+    and price [B, M] f32."""
     _check(d, phases, mode)
     B, n, m = d.shape
     dev = d.device
@@ -152,6 +162,8 @@ def jacobi_auction_plain(d: torch.Tensor, eps: float, iters: int,
             owner = torch.where(has_bid, winner, owner)
             price = price + torch.where(has_bid, bid, 0.0)
             it += active.long()
+            if trace is not None:
+                trace(active, owner, price)
     item_of = torch.full((B, n + 1), -1, dtype=torch.int64, device=dev)
     item_of.scatter_(1, torch.where(owner >= 0, owner, n),
                      torch.arange(m, device=dev).expand(B, m))
@@ -161,8 +173,10 @@ def jacobi_auction_plain(d: torch.Tensor, eps: float, iters: int,
 
 
 def smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one block: the bid keys [M] (8 bytes),
-    price and owner [M], the inverse [N] and the list of bidders [N]."""
+    """The shared memory a block needs at least: the bid keys [M] (8
+    bytes), price and owner [M], the list of unassigned rows [N], and as
+    much again for the partials of the rows a round scans (the kernel
+    takes what the block has left for them)."""
     return 16 * m + 8 * n
 
 

@@ -7,8 +7,16 @@ the fused op's gradients against `jax.grad` of `chamfer_pallas`, the
 Pallas functions in interpret mode, jitted (as tests/test_pallas.py runs
 them); and the size at which `chamfer_directed` takes the fused op.
 
+Kernel N's one pass (`csrc/chamfer.cu`) emulated in numpy
+(`emulate_one_pass`): row minima kept over tiles of y by each thread's
+columns, then merged over threads; column minima over each thread's rows,
+packed into 64-bit keys and merged by min over the block and then over the
+blocks in a shuffled order; held to `chamfer_nn_plain` on duplicated
+points, a grid, x = y and a repeated point.
+
 Kernel N itself runs only on a GPU (`cuda` marker); chip_smoke.py holds it
-against its plain version there.
+against its plain version there, and the `cuda` tests below on the hard
+inputs.
 """
 
 import importlib
@@ -24,6 +32,7 @@ from sp_gan_tpu.ops import dispatch as jdispatch
 from sp_gan_tpu.ops.pallas import chamfer as jpallas
 from sp_gan_tpu_torch.ops import dispatch, kernels
 from sp_gan_tpu_torch.ops.kernels import chamfer_nn, chamfer_nn_plain
+from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
 
 # the modules (both packages' `ops` export a function of the same name)
 jchamfer = importlib.import_module("sp_gan_tpu.ops.chamfer")
@@ -226,5 +235,133 @@ def test_kernel_n_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels have no CPU mode)")
     x, y = (v.cuda() for v in t(*clouds(11, 3, 500, 300)))
+    for a, b in zip(chamfer_nn(x, y), chamfer_nn_plain(x, y)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel N's one pass, emulated
+
+def orderable_u(d):
+    """uint64 images of float32 d that order like the floats."""
+    u = d.astype(np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(u & 0x80000000, ~u & 0xffffffff, u | 0x80000000)
+
+
+def from_orderable_u(k):
+    k = k.astype(np.uint64)
+    u = np.where(k & 0x80000000, k & 0x7fffffff, ~k & 0xffffffff)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def emulate_one_pass(x, y, rows=16, tile=256, seed=0):
+    """Kernel N's four outputs for x [B, N, C], y [B, M, C] as its pass
+    reduces d: thread (tx, ty) of a block of 16 rows-of-`rows` holds `rows`
+    rows of x and the columns ty, ty + 16, ... of each y tile."""
+    rng = np.random.default_rng(seed)
+    d = pairwise_sqdist(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    B, n, m = d.shape
+    out = [np.empty((B, n), np.float32), np.empty((B, n), np.int32),
+           np.empty((B, m), np.float32), np.empty((B, m), np.int32)]
+    for b in range(B):
+        # rows: a thread's running minimum over its columns in ascending
+        # order (strict <: the first of equal values), then the 16 threads
+        # of a row merge in a shuffled order, the lower index on a tie
+        best = np.full(n, np.inf, np.float32)
+        idx = np.zeros(n, np.int64)
+        for ty in rng.permutation(16):
+            cols = np.array([c for c in range(m) if c % 16 == ty])
+            if cols.size == 0:
+                continue
+            j = d[b][:, cols].argmin(axis=1)
+            tb, ti = d[b][np.arange(n), cols[j]], cols[j]
+            take = (tb < best) | ((tb == best) & (ti < idx))
+            best, idx = np.where(take, tb, best), np.where(take, ti, idx)
+        out[0][b], out[1][b] = best, idx
+        # columns: a thread's rows (strict <, ascending), a key of the
+        # orderable distance (-0 as +0) above the row, min over the block,
+        # then over the blocks in a shuffled order
+        key = np.full(m, np.uint64(2 ** 64 - 1))
+        blocks = list(range(0, n, 16 * rows))
+        rng.shuffle(blocks)
+        for n0 in blocks:
+            bkey = np.full(m, np.uint64(2 ** 64 - 1))
+            for r0 in range(n0, min(n, n0 + 16 * rows), rows):
+                blk = d[b][r0:r0 + rows]
+                i = blk.argmin(axis=0)
+                dv = blk[i, np.arange(m)]
+                dv = np.where(dv == 0, np.float32(0), dv).astype(np.float32)
+                k = (orderable_u(dv) << np.uint64(32)) | (
+                    (r0 + i).astype(np.uint64))
+                bkey = np.minimum(bkey, k)
+            key = np.minimum(key, bkey)
+        out[2][b] = from_orderable_u(key >> np.uint64(32))
+        out[3][b] = (key & np.uint64(0xffffffff)).astype(np.int32)
+    return out
+
+
+def hard_clouds(kind, seed=12):
+    """Inputs with many equal distances: duplicated points, a grid, x = y,
+    one point repeated; N and M not multiples of the kernel's tiles."""
+    rng = np.random.default_rng(seed)
+    if kind == "duplicated":
+        x, y = clouds(seed, 2, 300, 200)
+        x[:, 150:] = x[:, :150]
+        y[:, 100:] = y[:, 50:150]
+        return x, y
+    if kind == "grid":
+        g = np.stack(np.meshgrid(*[np.arange(7)] * 3), -1).reshape(-1, 3)
+        g = (g * 0.25).astype(np.float32)
+        return (g[rng.permutation(len(g))[None, :300]].copy(),
+                g[rng.permutation(len(g))[None, :290]].copy())
+    if kind == "x=y":
+        x, _ = clouds(seed, 2, 270, 1)
+        return x, x.copy()
+    x, y = clouds(seed, 1, 513, 257)
+    x[:, 100:400] = x[:, 7:8]
+    y[:, 30:200] = y[:, 3:4]
+    return x, y
+
+
+@pytest.mark.parametrize("kind", ["duplicated", "grid", "x=y", "repeated"])
+@pytest.mark.parametrize("rows, tile", [(16, 256), (8, 256), (3, 40)])
+def test_one_pass_equals_plain(kind, rows, tile):
+    """The emulated pass's four outputs equal `chamfer_nn_plain`'s bit for
+    bit, ties to the lowest index in both directions, whatever the rows a
+    thread holds."""
+    x, y = hard_clouds(kind)
+    got = emulate_one_pass(x, y, rows, tile)
+    want = [v.numpy() for v in chamfer_nn_plain(*t(x, y))]
+    for a, b in zip(got, want):
+        assert a.tobytes() == b.tobytes()
+    if kind == "x=y":              # each point finds itself
+        assert (got[1] == np.arange(x.shape[1])).all()
+        return
+    d = pairwise_sqdist(*t(x, y)).numpy()
+    tied = (d == d.min(axis=2, keepdims=True)).sum(axis=2)
+    assert (tied > 1).any()        # the input reached the tie rule
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["duplicated", "grid", "x=y", "repeated"])
+def test_kernel_n_on_hard_inputs_on_cuda(kind):
+    """Kernel N on the tie-heavy inputs: all four outputs bit-equal to the
+    plain version and twice alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    x, y = (v.cuda() for v in t(*hard_clouds(kind)))
+    got, again = chamfer_nn(x, y), chamfer_nn(x, y)
+    for a, b, c in zip(got, chamfer_nn_plain(x, y), again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 4, 5, 8])
+def test_kernel_n_widths_on_cuda(C):
+    """Kernel N at each width up to 8, N != M: bit-equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    x, y = (v.cuda() for v in t(*clouds(13, 3, 700, 333, C)))
     for a, b in zip(chamfer_nn(x, y), chamfer_nn_plain(x, y)):
         assert torch.equal(a, b)
