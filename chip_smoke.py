@@ -51,6 +51,25 @@ Phases, in order; any failure raises and the script exits nonzero:
               path launches it. A small input is also checked against the
               CPU run of the port, and one more request runs under
               torch.profiler for the device time by kernel.
+4b. manipulate - the nine manipulation routines on the same Manipulator
+              with the CLI's arguments (`manipulate.run_routine`): each
+              one's ms a call, its launches from counts of 0 (a fused
+              forward PER_REQUEST; style_interpolate, the unfused eval
+              path at B=1, kernels A and B once a step and C never),
+              shapes and finiteness; rows whose codes no edit touched
+              equal to `forward` of those codes within 1e-5 (and
+              style_interpolate at alpha 0 to `Generator.forward`); then
+              part_exchange, style_interpolate (3 steps) and a 2 x 3
+              part_interpolate_detail on the card against the CPU on the
+              same CPU-drawn codes in float32 (99% of the points within
+              1e-3, the median within MANIPULATE_MEDIAN).
+4c. checkpoints - the generator and a discriminator written as reference
+              `.pth` files and read back into fresh modules, bit-equal; a
+              Trainer warm-started from them (`--restore
+              --pretrain_model_G/_D`) generating 64 shapes bit-equal to the
+              Manipulator's, then one step with finite losses;
+              `FPD.from_torch` on a reference-layout DGCNN state dict
+              drawn from the seed.
 5. train    - training steps at Config() defaults (bs=24, N=2048, weights
               from --seed) through Trainer.time_steps on the trainer's
               synthetic data: 3 warm-up steps, then 10 timed steps whose
@@ -77,7 +96,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 5c. regularizers - 3 + 10 steps at Config() width for each of
               REGULARIZERS: --fused_train with SPGAN_EDGE_BWD=pallas (M
               once a step, D never), --gan wgan --lambda_gp 10 with and
-              without --gp_mapping, and --mix (kernel E once a step), each
+              without --gp_mapping, --mix (kernel E once a step) and
+              --n_mix (R4: region-mixed codes, the default step's
+              launches; its small steps on mixed codes), each
               with its launch counts, one profiled step and small steps on
               the card against the CPU.
 6. metrics  - kernel E (the EMD auction) against its plain version on the
@@ -236,7 +257,32 @@ REGULARIZERS = {
         WGAN_STILL),
     "--mix": (dict(mix=True), {}, per(knn_edge=2, scatter_diff_bwd=1,
                                       auction=1), ()),
+    # R4: region-mixed codes in both phases; the mixing is PyTorch on the
+    # template's rows, so the step's kernels are the default step's
+    "--n_mix": (dict(n_mix=True), {}, PER_STEP, ()),
 }
+# the manipulation routines with the CLI's defaults (steps 6, the mask
+# region_mask(ball, 0, N // 3)): routine -> (fused forwards a call, shapes
+# a call); style_interpolate runs no fused forward but one
+# Generator.forward at B=1 a step, each launching PER_STYLE_STEP
+MANIPULATE = {"correspondence": (1, 4), "interpolate": (1, 6),
+              "part_interpolate": (1, 6), "style_interpolate": (0, 6),
+              "part_interpolate_detail": (6, 30), "part_edit": (1, 5),
+              "part_flip": (1, 8), "part_exchange": (1, 4),
+              "edit_interpolate": (1, 6)}
+MANIPULATE_STEPS = 6
+# the median of the card-against-CPU gap of those routines at N=2048:
+# 1e-5 holds at N=256 (check_small_reference); at N=2048 the medians read
+# 7.2e-6 (part_exchange), 8.3e-6 (style_interpolate) and 1.6e-5 (the
+# 2 x 3 part_interpolate_detail) on the H100, where near-tie neighbour
+# swaps move the global max pool of some shapes (their max gaps 9e-3 to
+# 6.6e-2); held to twice the largest, as P2's median is held to twice its
+# own
+MANIPULATE_MEDIAN = 3.2e-5
+# per step of style_interpolate (the unfused eval path at B=1):
+# EdgeConv1 selects with kernel A and gathers in PyTorch (3 channels),
+# EdgeConv2 runs kernel B's diff-only form; no tail kernel
+PER_STYLE_STEP = per(knn=1, knn_edge=1)
 # kernel N's path: chamfer_directed above B * N * M = 128 Mi takes it, at
 # [24, 2048, 3] it computes the dense minima
 CHAMFER_FUSED, CHAMFER_DENSE = (64, 2048, 3), (24, 2048, 3)
@@ -1364,7 +1410,10 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     G gradients by up to 0.42 of a tensor's max-abs and 0.36 relative L2
     (tests/test_torch_approx_train.py). So G's gradients are then held to
     the larger of the bounds above and the CPU step's own response to one
-    ulp of z_g up and down, measured here ("g_own")."""
+    ulp of z_g up and down, measured here ("g_own").
+
+    With n_mix both phases take region-mixed codes (`mix_codes` on draws
+    from the seed's rng, the gate open), the same on both devices."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.config import Config
@@ -1385,6 +1434,17 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
              "lam": rng.uniform(size=4).astype(np.float32),
              "anchor": rng.integers(0, cfg.np, 4),
              "flip": np.array(rng.uniform() < 0.5)}
+    if cfg.n_mix:
+        # --n_mix: both phases' codes region-mixed by `mix_codes` from numpy
+        # draws (gate open, a second code, an anchor and a size per shape)
+        from sp_gan_tpu_torch.data.noise import mix_codes
+        z_d, z_g = (mix_codes(
+            torch.from_numpy(z), torch.from_numpy(
+                (rng.standard_normal((4, 1, cfg.nz)) * cfg.nv)
+                .astype(np.float32)), True,
+            torch.from_numpy(rng.integers(0, cfg.np, 4)),
+            torch.from_numpy(rng.uniform(size=4).astype(np.float32)),
+            torch.from_numpy(sphere)).numpy() for z in (z_d, z_g))
     regs = int(cfg.gan == "wgan" and cfg.lambda_gp > 0) + int(cfg.mix)
     card = small_step("cuda", cfg, G0, D0, sphere, real, z_d, z_g,
                       draws=draws)
@@ -2612,6 +2672,264 @@ def regularizers_phase(seed: int) -> dict:
     return res
 
 
+
+def manipulate_phase(man, seed: int) -> dict:
+    """The nine manipulation routines on the card at the width of `man`,
+    with the CLI's arguments (`manipulate.run_routine`): per routine one
+    warm-up call, then one call from launch counts of 0 (host ms ending in
+    a synchronize), whose launches must be MANIPULATE's fused forwards
+    times PER_REQUEST (style_interpolate: PER_STYLE_STEP a step) and whose
+    clouds must be finite, of the right count and shape. Rows whose codes
+    no edit touched must equal `forward` of those codes within 1e-5
+    max-abs, and style_interpolate at alpha = 0 `Generator.forward` of its
+    first code. Then part_exchange, style_interpolate (3 steps) and a
+    2 x 3 part_interpolate_detail on the card against the same routines of
+    the port on the CPU, at full width in float32 (the weights of `man`),
+    both given the same codes drawn on the CPU, by
+    `check_small_reference`'s rule at this width: 99% of the points within
+    1e-3 and the median within MANIPULATE_MEDIAN. style_interpolate at
+    `man`'s own dtype
+    (mixed_edge: bf16 edges on its unfused path) is read beside it, not
+    gated: on the H100 its median was 2.0e-4."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data.noise import sample_z
+    from sp_gan_tpu_torch.manipulate import (ROUTINES, Manipulator,
+                                             region_mask, run_routine)
+    from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops import kernels
+    cfg, N = man.cfg, man.cfg.np
+    mask = region_mask(man.ball, 0, N // 3)
+    if tuple(MANIPULATE) != ROUTINES:
+        raise AssertionError("MANIPULATE must list the CLI's routines")
+    res = {}
+    for r, (fused, shapes) in MANIPULATE.items():
+        run_routine(man, r, mask, seed, MANIPULATE_STEPS)     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        pcs, _ = run_routine(man, r, mask, seed, MANIPULATE_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = kernels.launch_counts()
+        steps = MANIPULATE_STEPS if r == "style_interpolate" else 0
+        for name in KERNEL_NAMES:
+            want = fused * PER_REQUEST[name] + steps * PER_STYLE_STEP[name]
+            if launches[name] != want:
+                raise AssertionError(f"{r}: {name} launched "
+                                     f"{launches[name]} times, expected "
+                                     f"{want}")
+        pcs = np.stack(pcs)
+        if pcs.shape != (shapes, N, 3) or not np.isfinite(pcs).all():
+            raise AssertionError(f"{r}: bad output: shape {pcs.shape}, "
+                                 f"finite {np.isfinite(pcs).all()}")
+        res[r] = {"ms": ms, "shapes": shapes,
+                  "launches": {k: v for k, v in launches.items() if v}}
+        log(f"  {r}: {ms:.2f} ms a call, {shapes} shapes, launches "
+            f"{res[r]['launches']}")
+
+    def same(tag, a, b):
+        err = float(np.abs(a - b).max())
+        log(f"  {tag}: max-abs {err:.3g} from forward of its codes")
+        if not err <= 1e-5:
+            raise AssertionError(f"{tag} differs from forward by {err}")
+        return err
+
+    za, zb = man.sample_codes(1, seed), man.sample_codes(1, seed + 1)
+    with torch.inference_mode():
+        plain = man.G(man.sphere[None], za, train=False).cpu().numpy()
+    ident = {
+        "part_edit original": same(
+            "part_edit original", man.part_edit(mask, seed)[0],
+            man.forward(za)[0]),
+        "part_exchange a, b": same(
+            "part_exchange a, b", man.part_exchange(mask, seed, seed + 1)[:2],
+            man.forward(torch.cat([za, zb]))),
+        "part_flip unflipped": same(
+            "part_flip unflipped", man.part_flip(seed=seed)[:4],
+            man.forward(man.sample_codes(4, seed))),
+        "shape_interpolate alpha=0": same(
+            "shape_interpolate alpha=0",
+            man.shape_interpolate(seed, seed + 1, MANIPULATE_STEPS)[0],
+            man.forward(za)[0]),
+        "style_interpolate alpha=0": same(
+            "style_interpolate alpha=0",
+            man.style_interpolate(mask, seed, seed + 1, MANIPULATE_STEPS)[0],
+            plain[0])}
+
+    # the card against the CPU on codes drawn on the CPU, in float32 (as
+    # check_small_reference): under mixed_edge the unfused path of
+    # style_interpolate rounds its edges to bf16, and features that differ
+    # in their last f32 bits round to other bf16 values on each device
+    def twins(c):
+        out = []
+        for dev in ("cuda", "cpu"):
+            G = Generator(c, seed=None)
+            G.load_state_dict(man.G.state_dict())
+            m = Manipulator(c, G, sphere=man.ball, device=dev)
+            m.sample_codes = (lambda dev: lambda n, seed=0, per_point=None:
+                              sample_z(torch.Generator().manual_seed(seed), n,
+                                       N, c.nz, c.nv, c.n_rand).to(dev))(
+                                           m.device)
+            out.append(m)
+        return out
+
+    def vs_cpu_errors(fn, pair):
+        t = time.perf_counter()
+        card = fn(pair[0])
+        t1 = time.perf_counter()
+        cpu = fn(pair[1])
+        cpu_s = time.perf_counter() - t1
+        err = np.concatenate([np.abs(a - b).max(axis=-1).ravel()
+                              for a, b in zip(card, cpu)])
+        return card, {"max": float(err.max()),
+                      "p99": float(np.quantile(err, 0.99)),
+                      "median": float(np.median(err)),
+                      "card_s": t1 - t, "cpu_s": cpu_s}
+
+    pair = twins(dataclasses.replace(cfg, dtype="float32"))
+    checks = {
+        "part_exchange": lambda m: (m.part_exchange(mask, seed, seed + 1),),
+        "style_interpolate (3 steps)": lambda m: (
+            m.style_interpolate(mask, seed, seed + 1, 3),),
+        "part_interpolate_detail (2 x 3)": lambda m: m.part_interpolate_detail(
+            seed, seed + 1, alphas=(0.75, 0.25), mask_sizes=(0, N // 2, N))[:2]}
+    vs_cpu = {}
+    for tag, fn in checks.items():
+        card, vs_cpu[tag] = vs_cpu_errors(fn, pair)
+        log(f"  {tag}, float32: cuda vs cpu {vs_cpu[tag]}")
+        if not (all(np.isfinite(a).all() for a in card)
+                and vs_cpu[tag]["p99"] <= 1e-3
+                and vs_cpu[tag]["median"] <= MANIPULATE_MEDIAN):
+            raise AssertionError(f"{tag}: cuda disagrees with the cpu")
+    # the same routine at Config()'s mixed_edge, read and not gated
+    _, bf16 = vs_cpu_errors(checks["style_interpolate (3 steps)"],
+                            twins(cfg))
+    log(f"  style_interpolate (3 steps), {cfg.dtype} (bf16 edges): cuda vs "
+        f"cpu {bf16}")
+    return {"routines": res, "identity": ident, "vs_cpu": vs_cpu,
+            "style_vs_cpu_mixed_edge": bf16}
+
+
+def reference_dgcnn_state(seed: int, feat_dims: int = 1024) -> dict:
+    """A DGCNN-cls state dict in the reference protocol's key layout
+    (`module.encoder.conv{1..4}.0.weight` [out, 2C, 1, 1] and their
+    BatchNorms, `conv5` [feat_dims, 512, 1], a classifier the carry
+    drops), drawn from `seed`: no weights file is needed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, loc=0.0):
+        return torch.from_numpy((loc + scale * rng.standard_normal(shape))
+                                .astype(np.float32))
+
+    sd, fin = {}, 3
+    for i, w in enumerate((64, 64, 128, 256)):
+        sd[f"module.encoder.conv{i + 1}.0.weight"] = t(
+            w, 2 * fin, 1, 1, scale=(2 * fin) ** -0.5)
+        fin = w
+    sd["module.encoder.conv5.0.weight"] = t(feat_dims, 512, 1,
+                                            scale=512 ** -0.5)
+    for i, w in enumerate((64, 64, 128, 256, feat_dims)):
+        p = f"module.encoder.conv{i + 1}.1"
+        sd[f"{p}.weight"] = t(w, scale=0.1, loc=1.0)
+        sd[f"{p}.bias"] = t(w, scale=0.1)
+        sd[f"{p}.running_mean"] = t(w, scale=0.1)
+        sd[f"{p}.running_var"] = t(w, scale=0.1, loc=1.0).abs()
+        sd[f"{p}.num_batches_tracked"] = torch.tensor(10)
+    sd["module.classifier.linear1.weight"] = t(512, 2 * feat_dims)
+    return sd
+
+
+def checkpoints_phase(man, seed: int) -> dict:
+    """Reference-layout checkpoints on the card: the generator of `man`
+    and a discriminator drawn from seed + 1 written as `.pth` files in a
+    temporary directory and read into fresh modules on the card, their
+    state dicts bit-equal; a Trainer warm-started from the two files
+    (`--restore --pretrain_model_G/_D`) generates 64 shapes bit-equal
+    (`np.array_equal`) to `man`'s from the same codes and takes one step
+    with finite losses; `FPD.from_torch` on a DGCNN state dict drawn in
+    the reference's key layout and saved with `torch.save`."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch import compat
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.data.noise import sample_z
+    from sp_gan_tpu_torch.eval.fpd import FPD
+    from sp_gan_tpu_torch.manipulate import normalize_point_cloud
+    from sp_gan_tpu_torch.nn import Discriminator, Generator
+    from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
+    cfg, dev = man.cfg, torch.device("cuda")
+    D = Discriminator(cfg, seed=seed + 1).to(dev)
+
+    def equal(a, b, what):
+        sa, sb = a.state_dict(), b.state_dict()
+        if list(sa) != list(sb) or not all(torch.equal(sa[k], sb[k])
+                                           for k in sa):
+            raise AssertionError(f"{what}: state dicts differ")
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        g_path, d_path = os.path.join(d, "G.pth"), os.path.join(d, "D.pth")
+        t = time.perf_counter()
+        dp, ds = compat.discriminator_trees(D)
+        compat.save_reference_checkpoint(
+            g_path, *compat.generator_trees(man.G), cfg, epoch=3,
+            d_path=d_path, d_params=dp, d_stats=ds)
+        (gp, gs), d_trees, epoch = compat.load_reference_checkpoint(
+            g_path, cfg, d_path)
+        G2 = Generator(cfg, seed=None).to(dev)
+        G2.load_state_dict(compat.generator_state_from_jax(gp, gs))
+        D2 = Discriminator(cfg, seed=None).to(dev)
+        D2.load_state_dict(compat.discriminator_state_from_jax(*d_trees))
+        out["round_trip_s"] = time.perf_counter() - t
+        equal(man.G, G2, "G after .pth export and import")
+        equal(D, D2, "D after .pth export and import")
+        if epoch != 3:
+            raise AssertionError(f"epoch {epoch} read back, 3 written")
+        tcfg = dataclasses.replace(cfg, seed=seed, restore=True,
+                                   pretrain_model_G=g_path,
+                                   pretrain_model_D=d_path, log_dir=d)
+        tr = Trainer(tcfg, dataset=synthetic_dataset(tcfg), device="cuda",
+                     logs=False)
+        if tr.start_epoch != epoch + 1:
+            raise AssertionError(f"start epoch {tr.start_epoch}")
+        equal(tr.state.G, man.G, "the warm-started G")
+        equal(tr.state.D, D, "the warm-started D")
+        z = sample_z(torch.Generator(device=dev).manual_seed(seed + 5), 64,
+                     cfg.np, cfg.nz, cfg.nv, cfg.n_rand)
+        ours = tr.sample_fn(tr.state, z).cpu().numpy()
+        if not np.array_equal(ours, man.forward(z)):
+            raise AssertionError("the warm-started trainer generates other "
+                                 "shapes than the exporting Manipulator")
+        step = tr.time_steps(1)["metrics"][0]
+        log(f"  .pth round trip {out['round_trip_s']:.2f} s, bit-equal; "
+            f"warm start at epoch {tr.start_epoch}, 64 shapes bit-equal; "
+            f"one step {step}")
+        if not np.isfinite([step["d_loss"], step["g_loss"]]).all():
+            raise AssertionError(f"warm-started step: {step}")
+        out.update(start_epoch=tr.start_epoch, step=step)
+        del tr
+        w_path = os.path.join(d, "dgcnn.pkl")
+        torch.save(reference_dgcnn_state(seed), w_path)
+        fpd = FPD.from_torch(w_path, device="cuda")
+        gen = normalize_point_cloud(torch.from_numpy(ours))
+        ref = normalize_point_cloud(torch.from_numpy(
+            SyntheticDataset(64, cfg.np, seed=seed).data))
+        out["fpd"] = fpd(gen, ref)
+        log(f"  FPD.from_torch (reference-layout DGCNN from seed {seed}, "
+            f"k=40, 1024 dims): {out['fpd']:.4f}")
+        if fpd.random_features or not np.isfinite(out["fpd"]):
+            raise AssertionError(f"FPD.from_torch: {out['fpd']}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -2778,6 +3096,18 @@ def main() -> None:
     log(json.dumps({"serve": {"ms_per_request": serve_s * 1e3 / 2,
                               "launches": launches,
                               "profile": serve_prof}}))
+    ph.end()
+
+    # --------------------------------------------------------------- 4b
+    ph.start("manipulate")
+    manip = manipulate_phase(man, args.seed)
+    log(json.dumps({"manipulate": manip}))
+    ph.end()
+
+    # --------------------------------------------------------------- 4c
+    ph.start("checkpoints")
+    ckpts = checkpoints_phase(man, args.seed)
+    log(json.dumps({"checkpoints": ckpts}))
     ph.end()
 
     # ---------------------------------------------------------------- 5

@@ -1,10 +1,15 @@
 """Carries generator and discriminator weights between the JAX package's
-parameter trees and the port's modules.
+parameter trees and the port's modules, and (`torch_export`,
+`torch_import`) between those trees and the reference's PyTorch `.pth`
+layout.
 
 The port names its parameters and buffers after the JAX tree paths
-(`edge2.conv_w1.kernel` [in, out], `edge1.bn_w1.mean`, ...), so the carry is
-a rename with no transpose, both ways. This is not the reference `.pth`
-layout, which comes in a later slice.
+(`edge2.conv_w1.kernel` [in, out], `edge1.bn_w1.mean`, ...), so the carry
+here is a rename with no transpose, both ways. The reference layout
+(`head.0.weight` [out, in, 1], `EdgeConv1.conv_out.weight` [out, in, 1, k],
+BatchNorm `running_mean`, ...) is a rename with transposes: to write it,
+`export_generator(*generator_trees(G), cfg)`; to read it,
+`generator_state_from_jax(*convert_generator(sd, cfg))`.
 """
 
 from __future__ import annotations
@@ -58,3 +63,9 @@ def trees(module: torch.nn.Module) -> Tuple[dict, dict]:
 # the generator's and the discriminator's carries are the same rename
 generator_state_from_jax = discriminator_state_from_jax = state_from_jax
 generator_trees = discriminator_trees = trees
+
+from sp_gan_tpu_torch.compat.torch_export import (  # noqa: E402
+    export_discriminator, export_generator, save_reference_checkpoint)
+from sp_gan_tpu_torch.compat.torch_import import (  # noqa: E402
+    convert_dgcnn, convert_discriminator, convert_generator,
+    load_dgcnn_weights, load_reference_checkpoint)

@@ -2,7 +2,8 @@
 
 A deterministic fibonacci lattice stands in for the reference's pre-sampled
 `template/balls/{N}.xyz`; `sphere_template(path=...)` loads such a file.
-The arrays are byte-equal to the JAX package's.
+The arrays are byte-equal to the JAX package's, and so are the distances
+of `sphere_sqdist`.
 """
 
 from __future__ import annotations
@@ -50,3 +51,13 @@ def sphere_template(n: int, path: Optional[str] = None) -> np.ndarray:
                 f"template {path} has {ball.shape[0]} points < requested {n}")
         return pc_normalize(ball[:n])
     return pc_normalize(_fibonacci_sphere(n))
+
+
+def sphere_sqdist(ball: np.ndarray) -> np.ndarray:
+    """[N, N] squared pairwise distances of a template,
+    `|a|^2 - 2 a.b + |b|^2` clamped at 0 (the reference precomputes this
+    matrix for its region sampler; `manipulate.region_mask` reads a row)."""
+    ball = np.asarray(ball, np.float32)
+    sq = (ball ** 2).sum(axis=1)
+    d = sq[:, None] - 2.0 * ball @ ball.T + sq[None, :]
+    return np.maximum(d, 0.0)

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sp_gan_tpu_torch.compat import state_from_jax
+from sp_gan_tpu_torch.compat import load_dgcnn_weights, state_from_jax
 from sp_gan_tpu_torch.device import resolve_device
 from sp_gan_tpu_torch.eval.dgcnn import DGCNNFeat
 
@@ -99,11 +99,13 @@ class FPD:
 
     @classmethod
     def from_torch(cls, weights_path: str, k: int = 40,
-                   feat_dims: int = 1024, batch_size: int = 32) -> "FPD":
-        raise NotImplementedError(
-            "reference DGCNN .pth/.pkl weights need compat.convert_dgcnn, "
-            "which is not ported yet (ROADMAP Queue 1, utilities and "
-            "compat)")
+                   feat_dims: int = 1024, batch_size: int = 32,
+                   device=None) -> "FPD":
+        """FPD with the reference protocol's DGCNN classifier weights (a
+        torch `.pkl`/`.pth` state dict, `Classify_dgcnn_cls_k40_1024_b32
+        .pkl`), carried by `compat.convert_dgcnn`."""
+        return cls(load_dgcnn_weights(weights_path), k=k,
+                   feat_dims=feat_dims, batch_size=batch_size, device=device)
 
     def save_statistics(self, clouds, path: str) -> None:
         mu, sigma = activation_statistics(self.activations(clouds))
@@ -114,7 +116,7 @@ def fpd_from_weights(path: str, device=None) -> FPD:
     """FPD with the extractor of `path`: a pickle of flax variables
     ({"params", "batch_stats"}, with the `k` and `feat_dims` it was trained
     at, as the JAX package writes them), else reference torch weights
-    (`FPD.from_torch`, not ported)."""
+    (`FPD.from_torch`)."""
     import pickle
     with open(path, "rb") as f:
         try:
@@ -122,7 +124,7 @@ def fpd_from_weights(path: str, device=None) -> FPD:
         except pickle.UnpicklingError:     # e.g. a torch zip archive
             blob = None
     if not (isinstance(blob, dict) and "params" in blob):
-        return FPD.from_torch(path)
+        return FPD.from_torch(path, device=device)
     return FPD(variables={k: blob[k] for k in ("params", "batch_stats")
                           if k in blob},
                k=int(blob.get("k", 40)),

@@ -1,10 +1,12 @@
 """Sphere-guided generator, the port of `sp_gan_tpu/nn/generator.py`
-(training and eval forward).
+(training and eval forward, style blending).
 
 Per-point style from (sphere xyz ++ z) -> two attention EdgeConvs with
 AdaIN -> global max-pool branch -> MLP tail with tanh, channel-last. With
 `knn_mode="approx"` the second EdgeConv selects its neighbors in a circular
-index band of half-width `knn_window` (`ops/edge.py`). Module
+index band of half-width `knn_window` (`ops/edge.py`). `z2`, `blend_mask`
+and `blend_alpha` blend two codes' styles, and `interpolate` blends codes
+or styles on a part of the template (the manipulation routines). Module
 names are the JAX tree's (`head1`, `edge1`, `adain1`, `edge2`, `global_bn1`,
 `tail3`, ...), so a JAX checkpoint loads through
 `compat.generator_state_from_jax` with `strict=True`.
@@ -69,10 +71,19 @@ class Generator(nn.Module):
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(rng)
 
+    def _style(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """The per-point style of the head, from x in the compute dtype."""
+        if self.cfg.z_norm:
+            z = z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-8)
+        s = torch.cat([x, z.to(x.dtype)], dim=-1)
+        return lrelu(self.head2(lrelu(self.head1(s), NEG)), NEG)
+
     def forward(self, x: torch.Tensor, z: torch.Tensor, train: bool = False,
                 edge1_idx: Optional[torch.Tensor] = None,
                 template_batch_const: bool = False,
-                edge1_ee: Optional[torch.Tensor] = None) -> torch.Tensor:
+                edge1_ee: Optional[torch.Tensor] = None,
+                z2: Optional[torch.Tensor] = None, blend_mask=None,
+                blend_alpha: float = 0.0) -> torch.Tensor:
         """x: sphere points [B, N, 3]; z: codes [B, N, nz] -> [B, N, 3] f32.
         `train` normalizes with batch statistics and updates every
         BatchNorm's running averages in place.
@@ -83,16 +94,26 @@ class Generator(nn.Module):
         with use_head. template_batch_const: every x[b] is the same
         template, so the first EdgeConv (which z does not reach) runs at
         batch 1, its BatchNorm statistics taken at batch 1, and is
-        broadcast; the broadcast's backward sums over the batch."""
+        broadcast; the broadcast's backward sums over the batch.
+
+        z2, blend_mask, blend_alpha: style-space part interpolation. The
+        shared head runs on z and on z2, and where blend_mask [N] is set the
+        style is `style * (1 - a) + style2 * a` (in the style's dtype); the
+        codes themselves are not blended (that is `interpolate`'s other
+        mode)."""
         cfg = self.cfg
         B, N, _ = x.shape
         dtype = torch.bfloat16 if cfg.g_bf16 else torch.float32
         x = x.to(dtype)
 
-        if cfg.z_norm:
-            z = z / (torch.linalg.vector_norm(z, dim=-1, keepdim=True) + 1e-8)
-        s = torch.cat([x, z.to(dtype)], dim=-1)
-        style = lrelu(self.head2(lrelu(self.head1(s), NEG)), NEG)
+        style = self._style(x, z)
+        if z2 is not None:
+            style2 = self._style(x, z2)
+            sel = torch.as_tensor(blend_mask, device=style.device)
+            sel = sel.reshape(1, -1, 1).to(style.dtype)
+            a = torch.as_tensor(blend_alpha, dtype=style.dtype,
+                                device=style.device)
+            style = torch.where(sel > 0, style * (1 - a) + style2 * a, style)
 
         pc = x
         if cfg.use_head:
@@ -129,3 +150,18 @@ class Generator(nn.Module):
         if cfg.off:
             out = out + x
         return out.float()
+
+    def interpolate(self, x: torch.Tensor, z1: torch.Tensor,
+                    z2: torch.Tensor, selection, alpha: float,
+                    use_latent: bool = False,
+                    train: bool = False) -> torch.Tensor:
+        """Part interpolation: blend the codes (or, with `use_latent`, the
+        styles the head makes of them) of z1 and z2 where `selection` [N]
+        is 1, by `alpha`, then run the generator."""
+        if not use_latent:
+            sel = torch.as_tensor(selection, device=z1.device)
+            sel = sel.reshape(1, -1, 1).to(z1.dtype)
+            z = torch.where(sel > 0, z1 * (1 - alpha) + z2 * alpha, z1)
+            return self(x, z, train=train)
+        return self(x, z1, train=train, z2=z2, blend_mask=selection,
+                    blend_alpha=alpha)

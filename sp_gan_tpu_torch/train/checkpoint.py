@@ -53,12 +53,17 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, cands[-1])
 
 
+def read_checkpoint(path: str) -> Tuple[dict, int]:
+    """(the `state` dict of numpy trees, epoch) of a checkpoint file."""
+    with open(path, "rb") as f:
+        blob = pickle.load(f)
+    return blob["state"], int(blob["epoch"])
+
+
 def load_generator(path: str, use_ema: bool = False) -> Tuple[dict, dict]:
     """(g_params, g_stats) nested numpy dicts of a checkpoint; with
     `use_ema` the EMA weights in place of g_params."""
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
-    state = blob["state"]
+    state, _ = read_checkpoint(path)
     params = state["g_params"]
     if use_ema:
         if state.get("g_ema") is None:

@@ -58,8 +58,10 @@ The D phase's regularizers, as in the JAX step
 The step takes z_d and z_g, and the regularizers' draws (`draws`: alpha
 [B, 1, 1] of WGAN-GP; lam [B], anchor [B] and flip of CutMix) explicitly
 when given (a parity test hands it the JAX step's); otherwise it draws
-them from the state's `torch.Generator`. Region-mixed codes (`n_mix`) are
-not ported yet.
+them from the state's `torch.Generator`. With `n_mix` the drawn codes of
+both phases are region-mixed around an anchor on the template
+(`data.noise.sample_z` with the template's rows, as the JAX step draws
+them); explicit codes are taken as given.
 """
 
 from __future__ import annotations
@@ -113,9 +115,6 @@ def make_train_step(cfg: Config, sphere
     or tensor) is the run's template; metrics are 0-d tensors (d_loss,
     g_loss, real_acc, fake_acc) left on the device."""
     use_gp = cfg.gan == "wgan" and cfg.lambda_gp > 0
-    if cfg.n_mix:
-        raise NotImplementedError("region-mixed codes (--n_mix) are not "
-                                  "ported yet")
     if cfg.bn_groups != 1:
         raise NotImplementedError("per-shard BatchNorm statistics "
                                   "(bn_stats=per_shard over a mesh) wait "
@@ -166,7 +165,8 @@ def make_train_step(cfg: Config, sphere
 
         # ---------------- D phase ----------------
         if z_d is None:
-            z_d = sample_z(gen, B, N, cfg.nz, cfg.nv, cfg.n_rand)
+            z_d = sample_z(gen, B, N, cfg.nz, cfg.nv, cfg.n_rand,
+                           cfg.n_mix, sph)
         with torch.no_grad():
             fake = g_forward(G, x, z_d.to(dev), grad_needed=False)
         d_params = list(D.parameters())
@@ -200,7 +200,8 @@ def make_train_step(cfg: Config, sphere
 
         # ---------------- G phase (against the updated D) ----------------
         if z_g is None:
-            z_g = sample_z(gen, B, N, cfg.nz, cfg.nv, cfg.n_rand)
+            z_g = sample_z(gen, B, N, cfg.nz, cfg.nv, cfg.n_rand,
+                           cfg.n_mix, sph)
         g_params = list(G.parameters())
         fake2 = g_forward(G, x, z_g.to(dev))
         logit_fake = D(fake2, train=True)

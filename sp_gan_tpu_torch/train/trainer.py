@@ -1,7 +1,9 @@
 """The training loop, the port of `sp_gan_tpu/train/trainer.py`: dataset
 choice, the epoch loop over a numpy permutation, meters and
 `log_train.txt`, throughput lines, snapshots every `cfg.snapshot` epochs,
-`--restore` from the newest checkpoint of `log_dir`, and `generate`.
+`--restore` from the newest checkpoint of `log_dir` or, with
+`--pretrain_model_G` (and `--pretrain_model_D`), a warm start from named
+files (reference `.pth` or this project's `.pkl`), and `generate`.
 `time_steps` runs and times steps on the same batches for the benchmark
 (`sp_gan_tpu_torch.bench`) and chip_smoke.py. `--eval_every` runs
 `evaluate`, the in-loop metric protocol (`eval.jsonl`, and `ckpt_best.pkl`
@@ -9,9 +11,8 @@ with `best.json` under `track_best`).
 
 The dataset lives on the device; each step gathers its batch there and
 shuffles every cloud's points with the trainer's `torch.Generator` (the JAX
-package's on-device data path). Not ported yet: the watchdog, warm start
-from named checkpoints (`--pretrain_model_G`), sample dumps (`--save`),
-augmentation (`--augment`) and the source snapshot.
+package's on-device data path). Not ported yet: the watchdog, sample dumps
+(`--save`), augmentation (`--augment`) and the source snapshot.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from sp_gan_tpu_torch.compat import load_reference_checkpoint, state_from_jax
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data import H5Dataset, SyntheticDataset, sample_z
 from sp_gan_tpu_torch.data.sphere import sphere_template
@@ -61,9 +63,6 @@ class Trainer:
         for flag in ("augment", "save"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"--{flag} is not ported yet")
-        if cfg.restore and cfg.pretrain_model_G:
-            raise NotImplementedError("warm start from --pretrain_model_G "
-                                      "is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._log_fout = None
@@ -98,7 +97,11 @@ class Trainer:
         self.sample_raw = (make_sample_fn(cfg, self.sphere, use_ema=False)
                            if cfg.ema else self.sample_fn)
         self.start_epoch = 1
-        if cfg.restore:
+        if cfg.restore and cfg.pretrain_model_G:
+            # --restore with named files warm-starts from them
+            self.start_epoch = self._warm_start(cfg.pretrain_model_G,
+                                                cfg.pretrain_model_D) + 1
+        elif cfg.restore:
             path = latest_checkpoint(cfg.log_dir)
             if path:
                 epoch = load_checkpoint(path, self.state)
@@ -116,6 +119,40 @@ class Trainer:
         # in-loop evaluation state, made on the first `evaluate`
         self._eval_ref = self._eval_tt = self._eval_tt_emd = None
         self._fpd = self._fpd_ref_stats = None
+
+    def _warm_start(self, g_path: str, d_path: Optional[str] = None) -> int:
+        """`--restore --pretrain_model_G <f> [--pretrain_model_D <f>]`:
+        loads named files instead of the newest snapshot and returns their
+        epoch. A path that does not exist as given is taken under
+        `log_dir`. A `.pth` is a reference checkpoint, read through
+        `compat.load_reference_checkpoint` into G (and D), with the Adams'
+        state fresh and, with `--ema`, the EMA copy set to the loaded G; any
+        other file is a checkpoint of this project (`load_checkpoint`: the
+        whole state)."""
+        cfg = self.cfg
+
+        def resolve(p):
+            under = os.path.join(cfg.log_dir, p) if p else p
+            if p and not os.path.exists(p) and os.path.exists(under):
+                return under
+            return p
+
+        g_path, d_path = resolve(g_path), resolve(d_path)
+        if not g_path.endswith(".pth"):
+            epoch = load_checkpoint(g_path, self.state)
+            self.log(f"[*] restored {g_path} (epoch {epoch})")
+            return epoch
+        (g_params, g_stats), d, epoch = load_reference_checkpoint(
+            g_path, cfg, d_path)
+        st = self.state
+        st.G.load_state_dict(state_from_jax(g_params, g_stats), strict=True)
+        if d is not None:
+            st.D.load_state_dict(state_from_jax(*d), strict=True)
+        if st.g_ema is not None:
+            st.g_ema.load_state_dict(st.G.state_dict())
+        self.log(f"[*] warm-start from reference checkpoint {g_path}"
+                 + (f" + {d_path}" if d_path else "") + f" (epoch {epoch})")
+        return epoch
 
     def log(self, msg: str) -> None:
         if self._log_fout is None:

@@ -172,15 +172,26 @@ class TestFPD:
         assert mu.shape == (32,) and sigma.shape == (32, 32)
         assert fpd(x, stats_path=str(tmp_path / "s.npz")) == \
             pytest.approx(0.0, abs=1e-6)
-        with pytest.raises(NotImplementedError, match="utilities and compat"):
-            pe.FPD.from_torch("x.pth")
+        # FPD.from_torch reads reference torch weights (held against JAX
+        # in tests/test_torch_compat_reference.py); a missing file raises
+        with pytest.raises(FileNotFoundError):
+            pe.FPD.from_torch(str(tmp_path / "x.pth"), device="cpu")
         # anything but a pickle of flax variables is the reference format
         (tmp_path / "ref.pkl").write_bytes(b"PK\x03\x04 a torch zip")
         with open(tmp_path / "sd.pkl", "wb") as f:
             pickle.dump({"model_state": {}}, f)
-        for name in ("ref.pkl", "sd.pkl"):
-            with pytest.raises(NotImplementedError):
-                pfpd.fpd_from_weights(str(tmp_path / name), device="cpu")
+        seen = []
+
+        def reference(path):
+            seen.append(path)
+            raise LookupError("the reference reader")
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pfpd, "load_dgcnn_weights", reference)
+            for name in ("ref.pkl", "sd.pkl"):
+                with pytest.raises(LookupError):
+                    pfpd.fpd_from_weights(str(tmp_path / name), device="cpu")
+        assert seen == [str(tmp_path / n) for n in ("ref.pkl", "sd.pkl")]
 
     def test_dgcnn_parameter_names_are_the_flax_paths(self):
         with open(WEIGHTS, "rb") as f:

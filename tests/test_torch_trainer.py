@@ -18,6 +18,7 @@ from sp_gan_tpu.train.state import make_lr_schedule
 from sp_gan_tpu_torch import bench
 from sp_gan_tpu_torch.config import Config, parse_args
 from sp_gan_tpu_torch.data import h5
+from sp_gan_tpu_torch.data.sphere import sphere_template
 from sp_gan_tpu_torch.manipulate import from_checkpoint
 from sp_gan_tpu_torch.train import __main__ as train_cli
 from sp_gan_tpu_torch.train.checkpoint import (latest_checkpoint,
@@ -133,8 +134,20 @@ class TestState:
 
     @pytest.mark.parametrize("kw", [dict(n_mix=True)])
     def test_emd_paths_not_ported(self, kw):
-        with pytest.raises(NotImplementedError):
-            make_train_step(Config(**TINY, **kw), np.zeros((64, 3)))
+        """Once a refusal, now the path that replaced it: region-mixed
+        codes (n_mix) build and take one finite step on the CPU, the same
+        on the same seed (tests/test_torch_n_mix.py holds them against
+        JAX)."""
+        cfg = Config(**TINY, **kw)
+        losses = []
+        for _ in range(2):
+            st = create_train_state(cfg, device="cpu")
+            step = make_train_step(cfg, sphere_template(cfg.np))
+            real = torch.from_numpy(h5.SyntheticDataset(4, cfg.np).data)
+            st, m = step(st, real)
+            losses.append([float(v) for v in m.values()])
+        assert np.isfinite(losses).all() and losses[0] == losses[1]
+        assert st.step == 1
 
     @pytest.mark.parametrize("kw", [dict(gan="wgan"), dict(mix=True)])
     def test_emd_paths_take_a_step(self, kw):
