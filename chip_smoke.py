@@ -137,6 +137,30 @@ Phases, in order; any failure raises and the script exits nonzero:
 9. largen_train_16k - approx training at N=16384, bs=2: a few steps whose
               EdgeConv2 band is plain PyTorch and whose gather backward is
               kernel H, once a step.
+9b. trainer_parts - at Config() width, 3 + 10 steps on device data with
+              and without --augment (the first under --watchdog_secs 120)
+              and streamed from a host dataset of 45,000 clouds (1.1 GB,
+              above the trainer's 1 GiB line) through the native gather and
+              `prefetch_to_device`, with and without --augment: each with
+              the default step's launches, ms a step against the
+              device-data step's, 5 more steps profiled, and for the stream
+              less than half the dataset's bytes left on the card; the
+              prefetcher's batches equal to the host's; a subprocess whose
+              second step stalls under --watchdog_secs 2 exits with 42;
+              --save refused naming matplotlib where it is missing (one
+              dump of 64 .xyz files and the PNG where it is present); the
+              source snapshot written once and kept on --restore.
+9c. emd_large - `emd_auction(scaled=True)` on one pair at N = M = 20,480
+              (1.68 GB, past kernel E's 1 GiB line: `auction_scaled_jacobi`)
+              in the protocol regime: seconds, rounds, distinct items, peak
+              memory, every row within eps of its best item (float64), and
+              if the rounds ended before the cap a bijection within N * eps
+              of the dual; the same d run to its end (cap 100,000): a
+              bijection, dual gap at most N * eps; at N = 16,384 (the
+              line) kernel E through the route and `auction_scaled_jacobi`
+              on the same d, both bijections, costs within N * eps;
+              `auction_scaled_jacobi` at [2, 512, 512] on the card and on
+              the CPU, assignments, prices and rounds equal.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -1576,21 +1600,23 @@ def check_small_steps(seed: int, need: int, cfg_kw=None,
 
 
 def timed_training(cfg, steps: int, warmup: int, expected: dict,
-                   label: str, still=()):
+                   label: str, still=(), dataset=None):
     """`warmup`, then `steps` training steps of `cfg` on the card through
-    `Trainer.time_steps` (the trainer's batches: a device-resident gather
-    and a per-cloud point shuffle each step), weights from cfg.seed, from
-    launch counts of 0: each kernel must have launched `expected` times a
-    step, the losses must be finite and every weight tensor must move but
-    those named in `still`, which must not (their gradient is exactly
-    zero; D's weights are named "D.<name>"). Returns the trainer and the
-    timings."""
+    `Trainer.time_steps` (the trainer's batches: up to 1 GiB of data a
+    device-resident gather and a per-cloud point shuffle each step, above
+    it the host stream), weights from cfg.seed, on `dataset` (default the
+    trainer's synthetic data), from launch counts of 0: each kernel must
+    have launched `expected` times a step, the losses must be finite and
+    every weight tensor must move but those named in `still`, which must
+    not (their gradient is exactly zero; D's weights are named
+    "D.<name>"). Returns the trainer and the timings."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.ops import kernels
     from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
-    tr = Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda",
-                 logs=False)
+    if dataset is None:
+        dataset = synthetic_dataset(cfg)
+    tr = Trainer(cfg, dataset=dataset, device="cuda", logs=False)
     start = [p.detach().clone() for p in
              list(tr.state.G.parameters()) + list(tr.state.D.parameters())]
     run = tr.time_steps(steps, warmup, before=kernels.reset_launch_counts)
@@ -2930,6 +2956,343 @@ def checkpoints_phase(man, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------- trainer_parts
+# the streaming cell: 45,000 clouds of 2048 points (1.1 GB, above the
+# trainer's 1 GiB device-data line), a ShapeNet-scale training set
+STREAM_CLOUDS = 45000
+# the watchdog's stalled step: its limit, and the stall
+STALL_LIMIT_S, STALL_S = 2, 60
+STALL_CHILD = r"""
+import dataclasses, sys, time
+sys.path.insert(0, {root!r})
+import torch
+from sp_gan_tpu_torch.config import Config
+from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
+cfg = Config(np=256, bs=4, nk=8, max_epoch=1, steps_per_epoch=3,
+             seed=1, log_dir={log_dir!r})
+# CUDA, the kernel library and the step warmed up without a watchdog
+warm = Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda",
+               logs=False)
+warm.time_steps(1)
+torch.cuda.synchronize()
+tr = Trainer(dataclasses.replace(cfg, watchdog_secs={limit}),
+             dataset=synthetic_dataset(cfg), device="cuda", logs=False)
+step, calls = tr.train_step, []
+def stalling(state, real):
+    calls.append(1)
+    if len(calls) == 2:
+        print("step 1 done; step 2 stalls", flush=True)
+        time.sleep({stall})
+    return step(state, real)
+tr.train_step = stalling
+tr.train()
+print("train returned", flush=True)
+"""
+
+
+def check_prefetch(gen) -> dict:
+    """`prefetch_to_device` lands six host batches of the streaming step's
+    shape unchanged and in order, the consumer's stream kept busy while
+    the copies run."""
+    import torch
+    from sp_gan_tpu_torch.data.prefetch import prefetch_to_device
+    host = [torch.randn(24, 2048, 3, generator=gen).numpy()
+            for _ in range(6)]
+    got = []
+    for b in prefetch_to_device(iter(host), size=2, device="cuda"):
+        torch.cuda._sleep(2_000_000)
+        got.append(b.cpu())
+    bad = [i for i, (a, h) in enumerate(zip(got, host))
+           if not torch.equal(a, torch.from_numpy(h))]
+    if len(got) != len(host) or bad:
+        raise AssertionError(f"prefetch_to_device: {len(got)} batches of "
+                             f"{len(host)}, batches {bad} differ")
+    return {"batches": len(got), "equal": True}
+
+
+def check_watchdog_stall(tmp: str) -> dict:
+    """A subprocess trains with --watchdog_secs STALL_LIMIT_S and a second
+    step that sleeps STALL_S: it must print its first step, then the
+    watchdog's message, and exit with 42 long before the stall ends."""
+    code = STALL_CHILD.format(root=HERE, log_dir=tmp, limit=STALL_LIMIT_S,
+                              stall=STALL_S)
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=STALL_S + 120)
+    secs = time.perf_counter() - t
+    out = run.stdout
+    log(f"  watchdog: a step stalled past {STALL_LIMIT_S} s; the child "
+        f"exited {run.returncode} after {secs:.1f} s: "
+        f"{out.strip().splitlines()[-1:]}")
+    first, dog = out.find("step 1 done"), out.find("[watchdog]")
+    if run.returncode != 42 or not 0 <= first < dog \
+            or "train returned" in out:
+        raise AssertionError(f"watchdog: exit {run.returncode}, stdout "
+                             f"{out!r}, stderr {run.stderr[-2000:]!r}")
+    return {"exit": run.returncode, "child_s": secs}
+
+
+def check_save_and_snapshot(tmp: str) -> dict:
+    """--save: without matplotlib the Trainer raises at once and names it;
+    with it one dump writes the grid PNG and 64 .xyz files. The source
+    snapshot is written once and a --restore keeps it."""
+    import importlib.util
+
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.train.trainer import Trainer, synthetic_dataset
+    small = dict(np=256, bs=4, nk=8, seed=2)
+    res = {"matplotlib": importlib.util.find_spec("matplotlib") is not None}
+    cfg = Config(**small, save=True, log_dir=os.path.join(tmp, "save"))
+    if not res["matplotlib"]:
+        try:
+            Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda")
+        except RuntimeError as e:
+            if "matplotlib" not in str(e):
+                raise
+            res["raised"] = str(e)
+        else:
+            raise AssertionError("--save without matplotlib did not raise")
+        if os.path.exists(cfg.log_dir):
+            raise AssertionError("--save without matplotlib wrote files")
+    else:
+        tr = Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda")
+        tr.dump_samples(1, 20)
+        tr.close()
+        plot = os.path.join(cfg.log_dir, "plot")
+        xyz = [f for _, _, fs in os.walk(os.path.join(plot, "sample"))
+               for f in fs if f.endswith("_step_20.xyz")]
+        if len(xyz) != 64 or not os.path.getsize(
+                os.path.join(plot, "20.png")):
+            raise AssertionError(f"--save wrote {len(xyz)} .xyz files")
+        res["xyz_files"] = len(xyz)
+    log(f"  --save: {res}")
+    cfg = Config(**small, log_dir=os.path.join(tmp, "snap"))
+    Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda").close()
+    mine = os.path.join(cfg.log_dir, "src_snapshot", "sp_gan_tpu_torch",
+                        "train", "trainer.py")
+    with open(os.path.join(HERE, "sp_gan_tpu_torch", "train",
+                           "trainer.py")) as f, open(mine) as g:
+        if f.read() != g.read():
+            raise AssertionError("snapshot: trainer.py differs")
+    with open(mine, "w") as f:
+        f.write("# the code the run started with\n")
+    cfg.restore = True
+    Trainer(cfg, dataset=synthetic_dataset(cfg), device="cuda").close()
+    with open(mine) as f:
+        if f.read() != "# the code the run started with\n":
+            raise AssertionError("snapshot: --restore overwrote it")
+    log("  source snapshot written once, kept on --restore")
+    return {**res, "snapshot": "written once"}
+
+
+def trainer_parts_phase(seed: int) -> dict:
+    """The trainer's remaining parts at Config() width (bs=24, N=2048): 3 +
+    10 steps on device data with and without --augment (the first with
+    --watchdog_secs 120), and streamed from a host dataset of
+    STREAM_CLOUDS clouds with and without --augment, each with the default
+    step's launches and profiled over 5 more steps; the prefetcher; a
+    stalled step under the watchdog; --save; the source snapshot."""
+    import tempfile
+
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.train import trainer as trainer_mod
+    res = {"prefetch": check_prefetch(
+        torch.Generator().manual_seed(seed + 31))}
+    t = time.perf_counter()
+    stream = SyntheticDataset(n_items=STREAM_CLOUDS, n_points=2048,
+                              seed=seed)
+    log(f"  host dataset of {STREAM_CLOUDS} clouds, "
+        f"{stream.data.nbytes / 1e9:.3f} GB, made in "
+        f"{time.perf_counter() - t:.1f} s")
+    if stream.data.nbytes <= trainer_mod.DEVICE_DATA_BYTES:
+        raise AssertionError("the streaming cell must be above the line")
+    cells = {"device": ({}, None), "device --augment": (
+        dict(augment=True, watchdog_secs=120), None),
+        "streaming": ({}, stream),
+        "streaming --augment": (dict(augment=True), stream)}
+    for label, (kw, ds) in cells.items():
+        cfg = Config(seed=seed, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tr, run = timed_training(cfg, TIMED_STEPS, WARMUP_STEPS, PER_STEP,
+                                 f"{label} step", dataset=ds)
+        if (tr.data is None) != (ds is not None):
+            raise AssertionError(f"{label}: wrong data path")
+        if kw.get("watchdog_secs") and (tr._dog is None or tr._dog.fired):
+            raise AssertionError(f"{label}: the watchdog is not armed")
+        run["profile"] = profile_call(lambda: tr.time_steps(5),
+                                      f"5 {label} steps")
+        run["peak_mem_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # what the trainer keeps on the card between steps: its state, and
+        # on device data the dataset
+        run["resident_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+        tr.close()
+        del tr
+        res[label] = run
+        log(f"  {label}: {run['ms_per_step']:.3f} ms/step, device idle "
+            f"{100 * run['profile']['idle_share']:.1f}% over 5 steps, peak "
+            f"memory {run['peak_mem_gb']:.3f} GB, resident "
+            f"{run['resident_gb']:.3f} GB")
+        if ds is not None and run["resident_gb"] * 1e9 >= ds.data.nbytes / 2:
+            raise AssertionError(f"{label}: the dataset reached the card")
+    dev = res["device"]["ms_per_step"]
+    for label in cells:
+        res[label]["vs_device"] = res[label]["ms_per_step"] / dev
+    log("  ms/step against the device-data step: " + ", ".join(
+        f"{label} {res[label]['vs_device']:.4f}" for label in cells))
+    with tempfile.TemporaryDirectory() as tmp:
+        res["watchdog"] = check_watchdog_stall(os.path.join(tmp, "stall"))
+        res["save"] = check_save_and_snapshot(tmp)
+    del stream
+    return res
+
+
+# -------------------------------------------------------------- emd_large
+# one pair past kernel E's 1 GiB line, and the line itself
+EMD_LARGE_N, EMD_LINE_N = 20480, 16384
+# the cap of the runs that must end on their own
+EMD_OPEN_CAP = 100000
+
+
+def emd_certificate(d, asg, price, eps: float) -> dict:
+    """In float64, row chunk by row chunk: each row's slack, max_j(-d - p)
+    less its own item's -d - p (at most eps in the final phase: eps
+    complementary slackness), and the dual value (sum of the rows' maxima
+    plus the prices) less the primal value (-cost), at most N * eps for a
+    full assignment."""
+    import torch
+    p = price.double()
+    a_own = -d.gather(1, asg.long()[:, None])[:, 0].double()
+    worst, dual = 0.0, float(p.sum())
+    for lo in range(0, d.shape[0], 1024):
+        best = (-d[lo:lo + 1024].double() - p).amax(dim=1)
+        own = a_own[lo:lo + 1024] - p[asg[lo:lo + 1024].long()]
+        worst = max(worst, float((best - own).max()))
+        dual += float(best.sum())
+    return {"max_slack": worst, "gap": dual - float(a_own.sum()),
+            "cost": -float(a_own.sum()), "n_eps": d.shape[0] * eps}
+
+
+def emd_large_phase(seed: int) -> dict:
+    """The scaled EMD above kernel E's limit (`auction_scaled_jacobi`): one
+    pair at N = M = EMD_LARGE_N through emd_auction(scaled=True) in the
+    protocol regime (seconds, rounds, forced rows, peak memory; each row
+    within eps of its best item, and where the rounds ended before the cap
+    a bijection within N * eps of the dual), the same d solved to its end
+    under a cap of EMD_OPEN_CAP (a bijection, dual gap at most N * eps);
+    at the line (N = EMD_LINE_N) kernel E through the route and
+    `auction_scaled_jacobi` on the same d, both ended, their costs within
+    N * eps; `auction_scaled_jacobi` on the card and on the CPU at
+    [2, 512, 512] bit for bit."""
+    import torch
+    from sp_gan_tpu_torch.ops import emd, kernels
+    eps, iters, phases = PROTOCOL
+    res = {}
+    pcs = auction_pairs_clouds(EMD_LARGE_N, 2, seed + 41)
+    x, y = pcs[:1].contiguous(), pcs[1:].contiguous()
+    del pcs
+    state = {}
+    solve = emd.auction_scaled_jacobi
+
+    def recorded(d, *a, **k):
+        asg, price, rounds = solve(d, *a, **k, return_state=True)
+        state.update(price=price, rounds=rounds)
+        return asg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with mock.patch.object(emd, "auction_scaled_jacobi", recorded):
+        t = time.perf_counter()
+        dist, asg = emd.emd_auction(x, y, eps, iters, scaled=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    # the call's own peak, above what earlier phases left allocated
+    peak = torch.cuda.max_memory_allocated() - base
+    n = EMD_LARGE_N
+    if sum(kernels.launch_counts().values()):
+        raise AssertionError("emd_large: a kernel launched above the line")
+    if dist.shape != (1, n) or not torch.isfinite(dist).all():
+        raise AssertionError(f"emd_large: dist {tuple(dist.shape)}")
+    d = emd._sqdist_rows(x[0], y[0])
+    cert = emd_certificate(d, asg[0], state["price"], eps)
+    distinct = int(torch.unique(asg[0]).numel())
+    res["protocol"] = dict(seconds=secs, rounds=state["rounds"], cap=iters,
+                           distinct_items=distinct,
+                           peak_mem_gb=peak / 1e9,
+                           matrix_gb=n * n * 4 / 1e9, **cert)
+    log(f"  emd_auction(scaled=True) at N = M = {n}: {secs:.2f} s, "
+        f"{state['rounds']} rounds (cap {iters}), {distinct} distinct "
+        f"items, peak memory {peak / 1e9:.3f} GB (d {n * n * 4 / 1e9:.3f} "
+        f"GB); {cert}")
+    if cert["max_slack"] > eps * (1 + 1e-3) + 1e-5:
+        raise AssertionError(f"emd_large: a row beyond eps of its best "
+                             f"item {cert}")
+    if state["rounds"] < iters and (distinct != n
+                                    or cert["gap"] > cert["n_eps"]):
+        raise AssertionError(f"emd_large: ended but not a bijection within "
+                             f"N * eps: {distinct} items, {cert}")
+    t = time.perf_counter()
+    asg2, price2, rounds2 = solve(d, eps, EMD_OPEN_CAP, phases,
+                                  return_state=True)
+    torch.cuda.synchronize()
+    cert2 = emd_certificate(d, asg2, price2, eps)
+    res["to_the_end"] = dict(seconds=time.perf_counter() - t,
+                             rounds=rounds2, cap=EMD_OPEN_CAP, **cert2)
+    log(f"  the same d to its end: {res['to_the_end']}")
+    if rounds2 >= EMD_OPEN_CAP or torch.unique(asg2).numel() != n \
+            or cert2["gap"] > cert2["n_eps"]:
+        raise AssertionError(f"emd_large: no bijection within N * eps "
+                             f"{res['to_the_end']}")
+    del d, asg2, price2, x, y, dist, asg
+    # the line: kernel E's last size, through the route, and item 8
+    n = EMD_LINE_N
+    pcs = auction_pairs_clouds(n, 2, seed + 43)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    asg_e = emd.emd_auction(pcs[:1], pcs[1:], eps, iters, scaled=True)[1][0]
+    torch.cuda.synchronize()
+    e_s = time.perf_counter() - t
+    if kernels.launch_counts()["auction"] != 1:
+        raise AssertionError("emd_large: kernel E did not take the line")
+    d = emd._sqdist_rows(pcs[0], pcs[1])
+    t = time.perf_counter()
+    asg_j, price_j, rounds_j = solve(d, eps, EMD_OPEN_CAP, phases,
+                                     return_state=True)
+    torch.cuda.synchronize()
+    j_s = time.perf_counter() - t
+    costs = [float(d.gather(1, a.long()[:, None]).double().sum())
+             for a in (asg_e, asg_j)]
+    distinct = [int(torch.unique(a).numel()) for a in (asg_e, asg_j)]
+    res["line"] = dict(n=n, kernel_e_s=e_s, scaled_jacobi_s=j_s,
+                       scaled_jacobi_rounds=rounds_j, costs=costs,
+                       distinct_items=distinct, n_eps=n * eps)
+    log(f"  at N = M = {n}: {res['line']}")
+    if distinct != [n, n] or abs(costs[0] - costs[1]) > n * eps:
+        raise AssertionError(f"emd_large: kernel E and "
+                             f"auction_scaled_jacobi at the line "
+                             f"{res['line']}")
+    del d, pcs, asg_e, asg_j
+    # the card against the CPU, bit for bit
+    d = auction_pairs(512, 2, seed + 47)
+    same = []
+    for b in range(2):
+        gpu = solve(d[b], eps, iters, phases, return_state=True)
+        cpu = solve(d[b].cpu(), eps, iters, phases, return_state=True)
+        same.append(torch.equal(gpu[0].cpu(), cpu[0])
+                    and torch.equal(gpu[1].cpu(), cpu[1])
+                    and gpu[2] == cpu[2])
+    res["card_vs_cpu_512"] = same
+    log(f"  auction_scaled_jacobi at [2, 512, 512], card against CPU "
+        f"(assignments, prices, rounds): {same}")
+    if not all(same):
+        raise AssertionError("emd_large: card and CPU differ")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -3167,6 +3530,18 @@ def main() -> None:
                                       "N=16384 approx training step")
     del tr16
     log(json.dumps({"largen_train_16k": train16}))
+    ph.end()
+
+    # -------------------------------------------------------------- 9b
+    ph.start("trainer_parts")
+    parts = trainer_parts_phase(args.seed)
+    log(json.dumps({"trainer_parts": parts}))
+    ph.end()
+
+    # -------------------------------------------------------------- 9c
+    ph.start("emd_large")
+    big = emd_large_phase(args.seed)
+    log(json.dumps({"emd_large": big}))
     ph.end()
 
     # --------------------------------------------------------------- 10

@@ -7,8 +7,8 @@ either package loads in the other, and the CLIs take the same flags.
 `fused_train` and `fused_dphase` select the fused train-mode generator
 forward, as in the JAX package (`train/step.py`). Fields that steer only
 the JAX/TPU program (`remat`, `mesh_*`, `data_axis`, `points_axis`,
-`use_pallas`, `fused_eval`, `donate_state`, `steps_per_call`,
-`watchdog_secs`) are accepted and ignored by the port.
+`use_pallas`, `fused_eval`, `donate_state`, `steps_per_call`) are accepted
+and ignored by the port.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ class Config:
     bn_stats: str = "global"
     pool_commute: bool = True
     nan_guard: bool = False
-    watchdog_secs: int = 0             # JAX only
+    watchdog_secs: int = 0             # 0: no hang watchdog
     donate_state: bool = True          # JAX only
     log_every: int = 10
     steps_per_call: int = 8            # JAX only
@@ -179,8 +179,8 @@ def build_argparser() -> argparse.ArgumentParser:
     """The training CLI's flags, one per `Config` field with the same name,
     type and default as the JAX package's (`--flag/--no-flag` for
     booleans). The JAX-only knobs (`steps_per_call`, `donate_state`,
-    `use_pallas`, `remat`, `mesh_*`, `fused_eval`, `watchdog_secs`) are
-    accepted and have no effect in the port."""
+    `use_pallas`, `remat`, `mesh_*`, `fused_eval`) are accepted and have no
+    effect in the port."""
     c = Config()
     p = argparse.ArgumentParser(description="sp_gan_tpu_torch")
     for f in dataclasses.fields(Config):

@@ -8,14 +8,15 @@ JAX package's.
 
 `h5py` is imported inside `load_h5` only: on a machine without it,
 `H5Dataset` raises `OSError`, which the trainer treats as missing data.
-Batches are assembled by the trainer on the device (`train/trainer.py`),
-so the JAX package's native host gather is not needed here.
+A dataset of up to 1 GiB lives on the device and the trainer gathers its
+batches there; a larger one stays here, and `epoch_batches` assembles its
+batches on the host with the native gather (`sp_gan_tpu_torch/native`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -43,14 +44,28 @@ def _normalize_np(pc: np.ndarray) -> np.ndarray:
 
 
 class _Dataset:
-    """`.data` [M, N, 3] float32 and `.labels` (None unless
-    multi-class)."""
+    """`.data` [M, N, 3] float32, `.labels` (None unless multi-class) and
+    the host batches of an epoch."""
 
     data: np.ndarray
     labels: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.data)
+
+    def epoch_batches(self, rng: np.random.Generator,
+                      bs: int) -> Iterator[np.ndarray]:
+        """The full batches [bs, N, 3] of one epoch: a permutation of the
+        dataset drawn from `rng`, then for each batch a seed from `rng` and
+        the native gather with a shuffle of each cloud's points. The same
+        `rng` state gives the same batches as the JAX package's
+        `epoch_batches`."""
+        from sp_gan_tpu_torch.native import assemble_batch
+        order = rng.permutation(len(self.data))
+        for lo in range(0, (len(self.data) // bs) * bs, bs):
+            idx = order[lo:lo + bs].astype(np.int64)
+            seed = int(rng.integers(1, np.iinfo(np.int64).max))
+            yield assemble_batch(self.data, idx, seed)
 
 
 class H5Dataset(_Dataset):

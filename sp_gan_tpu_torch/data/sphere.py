@@ -42,10 +42,16 @@ def pc_normalize(pc: np.ndarray) -> np.ndarray:
 
 
 def sphere_template(n: int, path: Optional[str] = None) -> np.ndarray:
-    """[n, 3] float32 normalized template: the first n rows of an `.xyz`
-    file when `path` is given, else the fibonacci lattice."""
+    """[n, 3] float32 normalized template: the first 3 columns of the first
+    n rows of an `.xyz` file when `path` is given (read by the native
+    parser, as the JAX package reads it; a malformed file raises), else
+    the fibonacci lattice."""
     if path is not None:
-        ball = np.loadtxt(path, ndmin=2).astype(np.float32)[:, :3]
+        from sp_gan_tpu_torch.viz.io import load_xyz
+        ball = load_xyz(path)
+        if ball.ndim != 2 or ball.shape[1] < 3:
+            raise ValueError(f"template {path} has fewer than 3 columns")
+        ball = ball[:, :3]
         if ball.shape[0] < n:
             raise ValueError(
                 f"template {path} has {ball.shape[0]} points < requested {n}")

@@ -193,7 +193,7 @@ def compute_all_metrics(sample_pcs, ref_pcs, normalize: bool = False,
     `jsd_scale` scales both sets before the voxel histogram, which covers
     [-0.5, 0.5]; the scale is recorded in the output. Runs on `device`
     (default cuda; raises without a GPU)."""
-    from sp_gan_tpu_torch.manipulate import normalize_point_cloud
+    from sp_gan_tpu_torch.data.augment import normalize_point_cloud
 
     if mesh is not None:
         raise NotImplementedError("the point-sharded EMD (mesh=, "

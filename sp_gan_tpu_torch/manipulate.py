@@ -44,6 +44,7 @@ import torch
 
 from sp_gan_tpu_torch.compat import generator_state_from_jax
 from sp_gan_tpu_torch.config import Config
+from sp_gan_tpu_torch.data.augment import normalize_point_cloud
 from sp_gan_tpu_torch.data.noise import sample_z
 from sp_gan_tpu_torch.data.sphere import sphere_sqdist, sphere_template
 from sp_gan_tpu_torch.device import resolve_device
@@ -54,14 +55,6 @@ from sp_gan_tpu_torch.nn.generator import Generator
 ROUTINES = ("correspondence", "interpolate", "part_interpolate",
             "style_interpolate", "part_interpolate_detail", "part_edit",
             "part_flip", "part_exchange", "edit_interpolate")
-
-
-def normalize_point_cloud(pc: torch.Tensor) -> torch.Tensor:
-    """Center each cloud on its centroid and scale its furthest point to
-    radius 1; [N, 3] or [B, N, 3]."""
-    pc = pc - pc.mean(dim=-2, keepdim=True)
-    m = torch.sqrt((pc ** 2).sum(dim=-1)).amax(dim=-1)
-    return pc / (m[..., None, None] + 1e-12)
 
 
 # ---------------------------------------------------------------- masks

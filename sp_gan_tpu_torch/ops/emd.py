@@ -6,11 +6,17 @@ distance of each point of xyz1 to its match, assignment [B, N] int32 into
 xyz2). Gradients go to xyz1 only, `2 g (xyz1 - xyz2[sigma])`; xyz2 gets
 zeros, as in the reference backward.
 
-- `scaled=True`, the metric protocol's solver: the block Gauss-Seidel
-  auction with eps-scaling (`phases = 1 if iters <= 500 else 4`,
-  theta = 8, w = 64) that the JAX package runs in its Pallas kernel
-  wherever Pallas runs: kernel E (`ops/kernels/auction.py`) on CUDA, its
-  plain version on the CPU.
+- `scaled=True`, the metric protocol's solver, eps-scaling over
+  `phases = 1 if iters <= 500 else 4` phases (theta = 8). A pair whose
+  matrix takes up to `MAX_BYTES` (1 GiB) runs the block Gauss-Seidel
+  auction (w = 64) that the JAX package runs in its Pallas kernel wherever
+  Pallas runs: kernel E (`ops/kernels/auction.py`) on CUDA, its plain
+  version on the CPU. A larger pair leaves the kernel at the same line as
+  the JAX package leaves Pallas, for its XLA solver
+  `_auction_single_scaled`, whose counterpart here is
+  `auction_scaled_jacobi`: plain PyTorch on either device, one pair at a
+  time, in row chunks, so that the memory is the pair's matrix and one
+  chunk's temporaries.
 - `scaled=False`, the reference's fixed-iteration solver: `iters` Jacobi
   rounds, every unassigned point bidding each round, and the forced final
   pass (`_auction_single`). The JAX package computes it in XLA, so here it
@@ -23,11 +29,14 @@ from typing import Tuple
 
 import torch
 
-from sp_gan_tpu_torch.ops.kernels.auction import auction
+from sp_gan_tpu_torch.ops.kernels.auction import MAX_BYTES, auction, phase_eps
 from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
 
 THETA = 8.0
 BLOCK_W = 64
+# f32 [rows, M] temporaries of one row chunk of `auction_scaled_jacobi` and
+# of the large pair's distance matrix
+CHUNK_BYTES = 256 << 20
 
 
 def scaled_phases(iters: int) -> int:
@@ -76,8 +85,108 @@ def auction_jacobi(d: torch.Tensor, eps: float, iters: int) -> torch.Tensor:
     return torch.where(assignment < 0, best_idx, assignment).to(torch.int32)
 
 
+def _chunk_rows(m: int) -> int:
+    return max(1, CHUNK_BYTES // (4 * m))
+
+
+def _bids(d: torch.Tensor, rows: torch.Tensor, price: torch.Tensor,
+          eps_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """For each row of `rows` (ascending): its best item under `price`
+    (the first maximum of -d - price) and its bid, (best - second) +
+    eps_p, second being the maximum over every other item; row chunk by
+    row chunk."""
+    chunk = _chunk_rows(d.shape[1])
+    best, bid = [], []
+    for lo in range(0, rows.numel(), chunk):
+        v = d.index_select(0, rows[lo:lo + chunk]).neg_().sub_(price)
+        best_val, best_idx = v.max(dim=1)
+        second = v.scatter_(1, best_idx[:, None], float("-inf")).amax(dim=1)
+        best.append(best_idx)
+        bid.append(best_val - second + eps_p)
+    return torch.cat(best), torch.cat(bid)
+
+
+def auction_scaled_jacobi(d: torch.Tensor, eps: float, iters: int,
+                          phases: int, theta: float = THETA,
+                          return_state: bool = False):
+    """The Jacobi auction with eps-scaling of one pair, d [N, M] f32 ->
+    assignment [N] int32 (the JAX package's `_auction_single_scaled`,
+    element for element); with `return_state` also the final prices [M]
+    and the rounds run.
+
+    Phase p bids at eps * theta ** (phases - 1 - p) (computed in float64,
+    rounded once to f32), keeps the prices of the phase before and starts
+    with every row unassigned. A round: each unassigned row bids
+    (best - second) + eps_p on its best item (ties to the lowest item);
+    each item that got bids takes the highest (ties to the lowest row),
+    evicts its owner and adds the bid to its price. A phase ends when every
+    row is assigned; `iters` caps the rounds of all phases together. Rows
+    left unassigned take their best item under the final prices.
+
+    Only the unassigned rows are scanned, in row chunks of `CHUNK_BYTES`,
+    and the bids are resolved per item by `scatter_reduce` (amax, then amin
+    of the rows that bid the maximum): the memory is d and one chunk's
+    temporaries."""
+    if d.dim() != 2 or d.dtype != torch.float32:
+        raise ValueError(f"d must be [N, M] float32, got {d.dtype} "
+                         f"{tuple(d.shape)}")
+    n, m = d.shape
+    dev = d.device
+    price = torch.zeros(m, dtype=d.dtype, device=dev)
+    item = torch.arange(m, device=dev)
+    ninf = torch.full((m,), float("-inf"), dtype=d.dtype, device=dev)
+    nobody = torch.full((m,), n, dtype=torch.int64, device=dev)
+    rounds = 0
+    asg = None
+    for e in phase_eps(eps, theta, phases):
+        eps_p = torch.tensor(e, dtype=d.dtype, device=dev)
+        # slot n takes the writes of items that got no bid
+        asg = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+        owner = torch.full((m,), -1, dtype=torch.int64, device=dev)
+        while rounds < iters:
+            rows = torch.nonzero(asg[:n] < 0)[:, 0]
+            if rows.numel() == 0:
+                break
+            best, bid = _bids(d, rows, price, eps_p)
+            max_bid = ninf.scatter_reduce(0, best, bid, "amax")
+            top = bid == max_bid[best]
+            winner = nobody.scatter_reduce(0, best[top], rows[top], "amin")
+            has_bid = torch.isfinite(max_bid)
+            asg[torch.where(has_bid & (owner >= 0), owner, n)] = -1
+            asg[torch.where(has_bid, winner, n)] = torch.where(has_bid, item,
+                                                               -1)
+            owner = torch.where(has_bid, winner, owner)
+            price = price + torch.where(has_bid, max_bid, 0.0)
+            rounds += 1
+    asg = asg[:n]
+    left = torch.nonzero(asg < 0)[:, 0]
+    if left.numel():
+        asg[left] = _bids(d, left, price, torch.zeros((), dtype=d.dtype,
+                                                      device=dev))[0]
+    asg = asg.to(torch.int32)
+    return (asg, price, rounds) if return_state else asg
+
+
+def _sqdist_rows(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """`pairwise_sqdist` of one pair x [N, 3], y [M, 3] -> [N, M], computed
+    in row chunks: the same values without the full-size temporaries."""
+    d = torch.empty(x.shape[0], y.shape[0], dtype=torch.float32,
+                    device=x.device)
+    chunk = _chunk_rows(y.shape[0])
+    for lo in range(0, x.shape[0], chunk):
+        d[lo:lo + chunk] = pairwise_sqdist(x[lo:lo + chunk], y)
+    return d
+
+
 def _assignment(xyz1, xyz2, eps: float, iters: int,
                 scaled: bool) -> torch.Tensor:
+    B, N, _ = xyz1.shape
+    M = xyz2.shape[1]
+    if scaled and N * M * 4 > MAX_BYTES:
+        # above kernel E's limit: one pair at a time
+        return torch.stack([auction_scaled_jacobi(
+            _sqdist_rows(xyz1[b], xyz2[b]), eps, iters, scaled_phases(iters))
+            for b in range(B)])
     d = pairwise_sqdist(xyz1, xyz2)
     if scaled:
         return auction(d, eps, iters, scaled_phases(iters), THETA,

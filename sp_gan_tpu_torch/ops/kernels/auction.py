@@ -34,8 +34,9 @@ The algorithm, per pair:
 `auction_plain` runs this step by step in PyTorch, the pairs side by side,
 and the kernel runs the same f32 operations in the same order: the two agree
 bit for bit, and a difference is a bug. `auction` launches the kernel for
-a CUDA tensor (N * M * 4 <= 1 GB; the JAX package's XLA solver above that
-is not ported) and runs `auction_plain` for a CPU tensor.
+a CUDA tensor (N * M * 4 <= 1 GiB; `ops/emd.py` sends larger pairs to
+`auction_scaled_jacobi`, the counterpart of the JAX package's XLA solver)
+and runs `auction_plain` for a CPU tensor.
 `auction.launches` counts kernel launches. `auction(mode="jacobi")` and
 `mode="packed"` go to kernel O (`auction_jacobi.py`), which counts its own
 launches.
@@ -208,9 +209,9 @@ def check_fits(N: int, M: int, block_w: int) -> int:
     state over the block's shared memory. Returns the block width w."""
     if N * M * 4 > MAX_BYTES:
         raise ValueError(
-            f"kernel E takes N*M*4 <= 1 GB per pair, got N={N}, M={M} "
-            f"({N * M * 4} bytes); the JAX package's XLA auction for larger "
-            "pairs is not ported")
+            f"kernel E takes N*M*4 <= 1 GiB per pair, got N={N}, M={M} "
+            f"({N * M * 4} bytes); ops.emd routes larger pairs to "
+            "auction_scaled_jacobi")
     w = block_width(N, block_w)
     smem = smem_bytes(N, M, w)
     if smem + E_SMEM_STATIC > SMEM_LIMIT:

@@ -9,10 +9,17 @@ files (reference `.pth` or this project's `.pkl`), and `generate`.
 `evaluate`, the in-loop metric protocol (`eval.jsonl`, and `ckpt_best.pkl`
 with `best.json` under `track_best`).
 
-The dataset lives on the device; each step gathers its batch there and
-shuffles every cloud's points with the trainer's `torch.Generator` (the JAX
-package's on-device data path). Not ported yet: the watchdog, sample dumps
-(`--save`), augmentation (`--augment`) and the source snapshot.
+Two data paths, chosen as in the JAX package: a dataset of up to
+`DEVICE_DATA_BYTES` (1 GiB) lives on the device, and each step gathers its
+batch there and shuffles every cloud's points with the trainer's
+`torch.Generator`; a larger one stays in host memory and streams, the
+native gather (`Dataset.epoch_batches`) feeding `prefetch_to_device`.
+`--augment` rotates and scales each batch after its shuffle
+(`data/augment.py`). `--watchdog_secs` arms `utils/watchdog.py` before the
+first statement that touches the device and exits with 42 on a stall;
+`--save` dumps an 8 x 8 grid and one .xyz a sample under `log_dir/plot`
+every 20 steps (`dump_samples`). A run with logs writes a snapshot of this
+package's source to `log_dir/src_snapshot` once.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import shutil
 import time
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -29,6 +38,10 @@ import torch
 from sp_gan_tpu_torch.compat import load_reference_checkpoint, state_from_jax
 from sp_gan_tpu_torch.config import Config
 from sp_gan_tpu_torch.data import H5Dataset, SyntheticDataset, sample_z
+from sp_gan_tpu_torch.data.augment import (augment_batch,
+                                           normalize_point_cloud,
+                                           shuffle_points_batch)
+from sp_gan_tpu_torch.data.prefetch import prefetch_to_device
 from sp_gan_tpu_torch.data.sphere import sphere_template
 from sp_gan_tpu_torch.device import resolve_device
 from sp_gan_tpu_torch.eval.fpd import (activation_statistics,
@@ -37,15 +50,19 @@ from sp_gan_tpu_torch.eval.fpd import (activation_statistics,
 from sp_gan_tpu_torch.eval.metrics import (coverage, jsd, knn_two_sample, mmd,
                                            pairwise_cd_matrix,
                                            pairwise_emd_matrix)
-from sp_gan_tpu_torch.manipulate import normalize_point_cloud
 from sp_gan_tpu_torch.train.checkpoint import (latest_checkpoint,
                                                load_checkpoint,
                                                save_checkpoint)
 from sp_gan_tpu_torch.train.state import create_train_state, param_count
 from sp_gan_tpu_torch.train.step import make_sample_fn, make_train_step
-from sp_gan_tpu_torch.utils import AverageValueMeter, StepTimer
+from sp_gan_tpu_torch.utils import AverageValueMeter, StepTimer, Watchdog
+from sp_gan_tpu_torch.utils.watchdog import EXIT_CODE
 
 METRICS = ("d_loss", "g_loss", "real_acc", "fake_acc")
+# the largest dataset kept on the device; above it batches stream from the
+# host (the JAX package's line)
+DEVICE_DATA_BYTES = 1 << 30
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def synthetic_dataset(cfg: Config) -> SyntheticDataset:
@@ -60,18 +77,46 @@ class Trainer:
 
     def __init__(self, cfg: Config, dataset=None, device=None,
                  logs: bool = True):
-        for flag in ("augment", "save"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"--{flag} is not ported yet")
+        if cfg.save:
+            try:
+                import matplotlib  # noqa: F401
+            except ImportError as e:
+                raise RuntimeError("--save draws its sample grids with "
+                                   "matplotlib, which is not installed "
+                                   f"({e})") from e
         self.cfg = cfg
-        self.device = resolve_device(device)
         self._log_fout = None
+        # the watchdog covers all that follows: a wedged device call can
+        # come from the first touch of the device on
+        self._dog = (Watchdog(cfg.watchdog_secs, _on_stall).start()
+                     if cfg.watchdog_secs > 0 else None)
+        if self._dog is not None:
+            # a trainer dropped without close() must not leave a dog that
+            # kills its process later
+            weakref.finalize(self, self._dog.stop)
+        try:
+            self._init(dataset, device, logs)
+        except BaseException:
+            self.close()
+            raise
+
+    def _init(self, dataset, device, logs: bool) -> None:
+        cfg = self.cfg
+        self.device = resolve_device(device)
         if logs:
             os.makedirs(cfg.log_dir, exist_ok=True)
             self._log_fout = open(os.path.join(cfg.log_dir, "log_train.txt"),
                                   "a" if cfg.restore else "w")
             with open(os.path.join(cfg.log_dir, "args.txt"), "w") as f:
                 f.write(cfg.to_json())
+            # the first writer wins: a --restore keeps the snapshot of the
+            # code that started the run
+            snap = os.path.join(cfg.log_dir, "src_snapshot")
+            if not os.path.isdir(snap):
+                shutil.copytree(
+                    PKG_DIR, os.path.join(snap, "sp_gan_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc",
+                                                  "*.so", "build"))
 
         if dataset is not None:
             self.dataset = dataset
@@ -84,8 +129,12 @@ class Trainer:
                 self.dataset = synthetic_dataset(cfg)
         self.steps_per_epoch = cfg.steps_per_epoch or max(
             1, len(self.dataset) // cfg.bs)
-        self.data = torch.as_tensor(np.asarray(self.dataset.data, np.float32),
-                                    device=self.device)
+        # None: the dataset streams from the host
+        self.data = (torch.as_tensor(np.asarray(self.dataset.data,
+                                                np.float32),
+                                     device=self.device)
+                     if self.dataset.data.nbytes <= DEVICE_DATA_BYTES
+                     else None)
 
         self.sphere = sphere_template(cfg.np, cfg.template)
         self.state = create_train_state(cfg, self.steps_per_epoch,
@@ -119,6 +168,11 @@ class Trainer:
         # in-loop evaluation state, made on the first `evaluate`
         self._eval_ref = self._eval_tt = self._eval_tt_emd = None
         self._fpd = self._fpd_ref_stats = None
+        # the codes of the sample dumps
+        self.fix_z = (sample_z(torch.Generator(device=self.device)
+                               .manual_seed(cfg.seed + 1), 64, cfg.np,
+                               cfg.nz, cfg.nv, cfg.n_rand)
+                      if cfg.save else None)
 
     def _warm_start(self, g_path: str, d_path: Optional[str] = None) -> int:
         """`--restore --pretrain_model_G <f> [--pretrain_model_D <f>]`:
@@ -162,29 +216,46 @@ class Trainer:
         print(msg, flush=True)
 
     def close(self) -> None:
+        """Stops the watchdog and closes the log."""
+        if self._dog is not None:
+            self._dog.stop()
         if self._log_fout is not None:
             self._log_fout.close()
 
+    def _beat(self) -> None:
+        if self._dog is not None:
+            self._dog.beat()
+
     def batch(self, idx: np.ndarray, gen: torch.Generator) -> torch.Tensor:
-        """The clouds `idx` [bs], each with its points in a random order."""
+        """The device-resident clouds `idx` [bs], each with its points in a
+        random order, then with `--augment` rotated and scaled; all drawn
+        from `gen`."""
         real = self.data[torch.as_tensor(idx, device=self.device)]
-        B, N, _ = real.shape
-        perm = torch.rand(B, N, generator=gen, device=self.device).argsort(1)
-        return torch.gather(real, 1, perm[..., None].expand(B, N, 3))
+        return augment_batch(gen, shuffle_points_batch(gen, real),
+                             self.cfg.augment)
 
     def _epochs(self):
-        """Endless epochs, each an iterator over its batches: a numpy
-        permutation of the dataset (seeded by `cfg.seed`) cut to
-        `steps_per_epoch` batches, each cloud's points shuffled by a
-        `torch.Generator` seeded by `cfg.seed + 3`."""
+        """Endless epochs, each an iterator over at most `steps_per_epoch`
+        batches. On device data: a numpy permutation of the dataset (seeded
+        by `cfg.seed`) and `batch`'s draws from a `torch.Generator` seeded
+        by `cfg.seed + 3`. Streaming: `epoch_batches` of the same numpy
+        generator through `prefetch_to_device`, with `--augment` drawn from
+        a generator seeded by `cfg.seed + 2`."""
         cfg = self.cfg
         rng_np = np.random.default_rng(cfg.seed)
-        shuffle = torch.Generator(device=self.device).manual_seed(cfg.seed + 3)
+        if self.data is not None:
+            gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 3)
+            while True:
+                order = rng_np.permutation(len(self.dataset))
+                n_steps = min(len(order) // cfg.bs, self.steps_per_epoch)
+                yield (self.batch(order[s * cfg.bs:(s + 1) * cfg.bs], gen)
+                       for s in range(n_steps))
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 2)
         while True:
-            order = rng_np.permutation(len(self.dataset))
-            n_steps = min(len(order) // cfg.bs, self.steps_per_epoch)
-            yield (self.batch(order[s * cfg.bs:(s + 1) * cfg.bs], shuffle)
-                   for s in range(n_steps))
+            batches = prefetch_to_device(
+                self.dataset.epoch_batches(rng_np, cfg.bs), 2, self.device)
+            yield (augment_batch(gen, real, cfg.augment) for real in
+                   itertools.islice(batches, self.steps_per_epoch))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -206,6 +277,7 @@ class Trainer:
                     before()
                 t0 = time.perf_counter()
             self.state, m = self.train_step(self.state, next(batches))
+            self._beat()
             metrics.append(m)                  # read after the clock stops
         self._sync()
         ms = (time.perf_counter() - t0) * 1e3 / steps
@@ -215,8 +287,8 @@ class Trainer:
                             for m in metrics]}
 
     def train(self, max_epoch: Optional[int] = None):
-        """Runs epochs `start_epoch..max_epoch` and writes the final
-        checkpoint; returns the state."""
+        """Runs epochs `start_epoch..max_epoch`, writes the final checkpoint
+        and stops the watchdog; returns the state."""
         cfg = self.cfg
         max_epoch = max_epoch or cfg.max_epoch
         epochs = self._epochs()
@@ -229,12 +301,17 @@ class Trainer:
             metrics = None
             for real in next(epochs):
                 self.state, metrics = self.train_step(self.state, real)
+                self._beat()
                 rate = timer.tick()
                 if rate:
                     self.log("throughput: %.2f steps/s, %.0f pts/s, "
                              "%.1f ms/step" % (rate["steps_per_sec"],
                                                rate["points_per_sec"],
                                                rate["ms_per_step"]))
+                if cfg.save and self._log_fout is not None \
+                        and self.state.step % 20 == 0:
+                    self.dump_samples(epoch, self.state.step)
+                    self._beat()
                 if self.state.step % cfg.log_every == 0:
                     for k in METRICS:
                         meters[k].update(float(metrics[k]))
@@ -253,6 +330,9 @@ class Trainer:
                 self.evaluate(epoch, self.state.step)
             if epoch % cfg.snapshot == 0:
                 save_checkpoint(cfg.log_dir, self.state, epoch, cfg)
+            self._beat()                # evaluations and snapshots run long
+        if self._dog is not None:
+            self._dog.stop()
         save_checkpoint(cfg.log_dir, self.state, max_epoch, cfg)
         return self.state
 
@@ -357,6 +437,28 @@ class Trainer:
                          f"-> ckpt_best.pkl (epoch {epoch})")
         return record
 
+    def dump_samples(self, epoch: int, step: int, grid=(8, 8)) -> None:
+        """The sample dump of `--save`: the clouds of `fix_z`, normalized
+        and scaled by 0.75, as a grid PNG `log_dir/plot/<step>.png` and one
+        .xyz a sample, `plot/sample/<i>/<i>_step_<step>.xyz` (the native
+        writer)."""
+        from sp_gan_tpu_torch.native import save_xyz_fast
+        from sp_gan_tpu_torch.viz.plot import plot_grid
+        eval_dir = os.path.join(self.cfg.log_dir, "plot")
+        os.makedirs(eval_dir, exist_ok=True)
+        rows = []
+        for i in range(grid[0]):
+            z = self.fix_z[i * grid[1]:(i + 1) * grid[1]]
+            pcs = self.sample_fn(self.state, z)
+            rows.append((0.75 * normalize_point_cloud(pcs)).cpu().numpy())
+        plot_grid(os.path.join(eval_dir, f"{step}.png"), rows)
+        for i, row in enumerate(rows):
+            for j, pc in enumerate(row):
+                sid = i * grid[1] + j
+                d = os.path.join(eval_dir, "sample", str(sid))
+                os.makedirs(d, exist_ok=True)
+                save_xyz_fast(os.path.join(d, f"{sid}_step_{step}.xyz"), pc)
+
     def generate(self, n: int, seed: int = 0, batch: int = 64) -> np.ndarray:
         """n clouds [n, N, 3] in eval mode (EMA weights with `--ema`), from
         codes drawn by a generator seeded with `seed`."""
@@ -367,3 +469,9 @@ class Trainer:
                          self.cfg.nv, self.cfg.n_rand)
             outs.append(self.sample_fn(self.state, z).cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+
+def _on_stall(stale: float) -> None:
+    print(f"[watchdog] no progress for {stale:.0f}s; exiting {EXIT_CODE} "
+          "for supervised restart", flush=True)
+    os._exit(EXIT_CODE)

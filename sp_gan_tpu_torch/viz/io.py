@@ -1,11 +1,12 @@
 """Point-cloud file IO, the port of `sp_gan_tpu/viz/io.py`: .xyz, .ply
-(ascii and binary little-endian, optional uchar colors) and ascii .pcd,
-numpy only. `load_xyz` parses with `np.loadtxt`; the JAX package's C++
-parser has no port yet.
+(ascii and binary little-endian, optional uchar colors) and ascii .pcd.
+`load_xyz` parses with the native C++ parser (`sp_gan_tpu_torch/native`);
+the rest is numpy.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 from typing import Optional
 
@@ -17,7 +18,25 @@ def save_xyz(path: str, pc: np.ndarray, fmt: str = "%.6f"):
 
 
 def load_xyz(path: str) -> np.ndarray:
-    return np.loadtxt(path, ndmin=2).astype(np.float32)
+    """A whitespace-separated table of numbers, each row as many as the
+    first -> [rows, cols] float32, parsed by the native `parse_xyz` (a
+    build or load failure raises). A file that is not such a table (a
+    header or comment line, a short, long or unparsable row) raises
+    ValueError, as `np.loadtxt` does."""
+    from sp_gan_tpu_torch.native import parse_xyz
+    with open(path, "rb") as f:
+        text = f.read()
+    n_numbers = len(text.split())
+    if n_numbers == 0:
+        return np.empty((0, 0), np.float32)
+    cols = len(next(line for line in io.BytesIO(text) if line.strip())
+               .split())
+    out = parse_xyz(path, max_rows=n_numbers // cols + 1, cols=cols)
+    if out.size != n_numbers:
+        raise ValueError(f"{path} is not a table of {cols} numbers a row: "
+                         f"{out.shape[0]} rows parse, and the file holds "
+                         f"{n_numbers} fields")
+    return out
 
 
 def save_ply(path: str, points: np.ndarray,

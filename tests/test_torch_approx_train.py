@@ -220,15 +220,17 @@ class TestApproxStepParity(step_parity.TestOneStepParity):
 class TestCampaignConfig:
     def test_loads_into_trainer_and_steps(self, tmp_path):
         """The N=8192 approx campaign's config.json builds a `Trainer` on
-        the CPU as it is (its JAX-only `watchdog_secs` and
-        `steps_per_call` accepted and ignored), then at np=384 takes one
-        step, EdgeConv2 through the band in both phases."""
+        the CPU (its JAX-only `steps_per_call` accepted and ignored; its
+        600 s watchdog turned off, since these trainers are not closed),
+        then at np=384 takes one step, EdgeConv2 through the band in both
+        phases."""
         with open(CAMPAIGN) as f:
             cfg = Config.from_json(f.read())
         assert (cfg.np, cfg.bs, cfg.nk, cfg.knn_mode, cfg.knn_window,
                 cfg.dtype) == (8192, 4, 20, "approx", 512, "mixed_edge")
         assert json.load(open(CAMPAIGN))["watchdog_secs"] == 600
-        cfg = dataclasses.replace(cfg, log_dir=str(tmp_path / "run"))
+        cfg = dataclasses.replace(cfg, log_dir=str(tmp_path / "run"),
+                                  watchdog_secs=0)
         tr = Trainer(cfg, device="cpu", logs=False)
         assert tr.data.shape[1:] == (8192, 3)
         small = dataclasses.replace(cfg, np=N, bs=2, steps_per_epoch=1)

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from sp_gan_tpu.data import SyntheticDataset as JaxSynthetic
 from sp_gan_tpu.eval import fpd as jfpd
@@ -39,6 +40,15 @@ from sp_gan_tpu_torch.eval.dgcnn import DGCNNFeat
 from sp_gan_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(2)   # six test workers share the host's cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's and scipy's BLAS in one thread while this file's tests run:
+    each would start a thread a core in each of the six test workers, and
+    the FPD's matrix square roots then wait on one another."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "runs", "fpd_dgcnn_synth.pkl")

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from jax.experimental.pallas import tpu as pltpu
 
 import sp_gan_tpu.ops.dispatch as jdispatch
@@ -25,6 +26,15 @@ from sp_gan_tpu_torch.train.trainer import Trainer
 from test_torch_eval import STATS, WEIGHTS, shapes
 
 torch.set_num_threads(2)   # six test workers share the host's cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """numpy's and scipy's BLAS in one thread while this file's tests run:
+    each would start a thread a core in each of the six test workers, and
+    the FPD's matrix square roots then wait on one another."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 
 def test_compute_all_metrics_with_emd(monkeypatch):
