@@ -161,6 +161,21 @@ Phases, in order; any failure raises and the script exits nonzero:
               on the same d, both bijections, costs within N * eps;
               `auction_scaled_jacobi` at [2, 512, 512] on the card and on
               the CPU, assignments, prices and rounds equal.
+9d. legacy  - the point-network layer library (plain PyTorch, no kernel)
+              at the published widths of LEGACY: PointNet++ SSG's two set
+              abstractions, MSG, feature propagation from 128 to 2048
+              points, PointConv, the PointTransformer layer with its
+              backward (B=24, N=2048); the expansion penalty with its
+              backward (B=8, N=8192, 16 primitives of 512) and MDS on its
+              cloud; the four reference losses: each call's card ms (CUDA
+              events) and CPU seconds; floats, running statistics and
+              gradients card against CPU within LEGACY_TOL (the modules
+              with BatchNorm at the full batch, the rest on the first
+              LEGACY_ROWS clouds); FPS, MDS, ball query, kNN, the MST
+              assignment and the Chamfer matches equal or parted only at
+              a near-tie (the first divergence and its gap reported);
+              shape_preserving_loss's gradients against f64 on each
+              side's matches.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -321,6 +336,37 @@ TRAIN_REGIME = (0.005, 50, 1)
 # clouds of each side of the metric protocol's run at N=2048
 METRIC_CLOUDS = 64
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# the point-network layer library (legacy phase) at published widths:
+# PointNet++ SSG's two set abstractions, its MSG layer and its feature
+# propagation from 128 to 2048 points (Common/pointnet_util.py), PointConv
+# (Common/pointconv_util.py), the PointTransformer layer
+# (Generation/modules.py:1602), MSN's expansion penalty (16 primitives of
+# 512 points) and minimum-density sampling of 1024 points of its cloud,
+# and the reference losses at their defaults (shape_preserving_loss k 20)
+LEGACY_B, LEGACY_N = 24, 2048
+LEGACY = {
+    "sa": (dict(npoint=512, radius=0.2, nsample=32, mlp=(64, 64, 128)),
+           dict(npoint=128, radius=0.4, nsample=64, mlp=(128, 128, 256))),
+    "msg": dict(npoint=512, radii=(0.1, 0.2, 0.4), nsamples=(16, 32, 128),
+                mlps=((32, 32, 64), (64, 64, 128), (64, 96, 128))),
+    "fp": dict(mlp=(256, 128)),
+    "pointconv": dict(npoint=512, nsample=32, mlp=(64, 64, 128),
+                      bandwidth=0.1),
+    "pt": dict(dim=64, k=16),
+    "expansion": dict(B=8, N=8192, P=512, alpha=1.5),
+    "mds": 1024,
+    "sp_k": 20,
+}
+# card against CPU in the legacy phase: float outputs, running statistics
+# and gradients within LEGACY_TOL of the CPU's largest entry (the two sum
+# in other orders: cuBLAS against the CPU's GEMMs, parallel reductions);
+# an integer output may part from the CPU's only where the two choices'
+# f64 keys lie within NEAR_TIE of each other (relative)
+LEGACY_TOL = 1e-4
+NEAR_TIE = 1e-5
+# clouds of the batch compared card against CPU where the clouds of a
+# call do not meet (no BatchNorm): the CPU's share of the phase
+LEGACY_ROWS = 6
 # dense biases that feed a training-mode BatchNorm: their exact gradient is
 # zero, so they are compared on the scale of their layer's kernel gradient
 PRE_BN_BIAS = re.compile(r"(^|\.)(conv_w1|conv_w2|conv_x|global1|global2|"
@@ -3293,6 +3339,362 @@ def emd_large_phase(seed: int) -> dict:
     return res
 
 
+def divergence(card, cpu, gap_of) -> dict:
+    """Integer outputs of the card against the CPU: the count of entries
+    that differ and, at the first, both values and `gap_of(position, card
+    value, cpu value)`, the relative f64 gap between the two choices. A gap
+    above NEAR_TIE is a fault, not a near-tie."""
+    card = card.cpu()
+    diff = card != cpu
+    res = {"mismatches": int(diff.sum())}
+    if res["mismatches"]:
+        pos = tuple(int(v) for v in diff.nonzero()[0])
+        a, c = int(card[pos]), int(cpu[pos])
+        gap = float(gap_of(pos, a, c))
+        res.update(first=list(pos), card=a, cpu=c, gap=gap,
+                   near_tie=gap <= NEAR_TIE)
+        if gap > NEAR_TIE:
+            raise AssertionError(f"card and CPU part at {pos} ({a} against "
+                                 f"{c}) with a gap of {gap:.3g}: not a "
+                                 "near-tie")
+    return res
+
+
+def rel_gap(u, v) -> float:
+    return abs(u - v) / max(abs(u), abs(v), 1e-300)
+
+
+def dist_gap(q, x, a, c=None, r2=None) -> float:
+    """The f64 gap between |q - x[a]|^2 and |q - x[c]|^2 (q [C], x [M, C]
+    f64), or the threshold r2, on the scale that `pairwise_sqdist`'s f32
+    expansion |q|^2 - 2 q.x + |x|^2 rounds at, |q|^2 + |x|^2."""
+    def d(j):
+        return float(((q - x[j]) ** 2).sum())
+    pts = [a] if c is None else [a, c]
+    norms = float((q * q).sum()) + max(float((x[j] * x[j]).sum())
+                                       for j in pts)
+    return abs(d(a) - (r2 if c is None else d(c))) / max(norms, 1e-300)
+
+
+def legacy_phase(seed: int) -> dict:
+    """The point-network layer library (`nn/pointnet.py`, `ops/sampling.py`,
+    `ops/grouping.py`, `ops/expansion.py`, `losses/point_aux.py`,
+    `losses/shape_preserving.py`; plain PyTorch, no kernel of its own) at
+    the published widths of LEGACY: each call's ms on the card (CUDA
+    events, median of 3 after one warm-up) and seconds on the CPU; the
+    card's float outputs, BatchNorm running statistics and gradients
+    within LEGACY_TOL of the CPU's largest entry, its integer outputs (FPS,
+    MDS, ball query, kNN, the MST assignment, the Chamfer matches) equal
+    to the CPU's or parted only at a near-tie (`divergence`). The modules
+    with BatchNorm are compared at the full batch; the rest, whose clouds
+    do not meet, on the first LEGACY_ROWS of the batch on both sides (the
+    CPU's share of the phase). Inputs are synthetic shapes and normal
+    draws from `seed`; each module is drawn on the CPU from `seed` and
+    copied to the card."""
+    import copy
+
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.losses import (repulsion_loss,
+                                         shape_preserving_loss, uniform_loss,
+                                         uniform_loss_knn)
+    from sp_gan_tpu_torch.losses.shape_preserving import \
+        local_mean_covariance
+    from sp_gan_tpu_torch.nn import pointnet as pn
+    from sp_gan_tpu_torch.ops import expansion, grouping, sampling
+    from sp_gan_tpu_torch.ops.pairwise import first_argmin, pairwise_sqdist
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    B, N = LEGACY_B, LEGACY_N
+    gen = torch.Generator().manual_seed(seed + 31)
+    xyz = torch.from_numpy(SyntheticDataset(B, N, seed + 31).data)
+    xyz2 = torch.from_numpy(SyntheticDataset(B, N, seed + 32).data)
+    feats = torch.randn(B, N, LEGACY["pt"]["dim"], generator=gen)
+    w_pt = torch.randn(B, N, LEGACY["pt"]["dim"], generator=gen)
+    ex = LEGACY["expansion"]
+    # the synthetic lattice jittered, so that some MST edges pass alpha
+    # times their primitive's mean and the backward has points to move
+    xe = torch.from_numpy(SyntheticDataset(ex["B"], ex["N"], seed + 33).data)
+    xe = xe + 0.02 * torch.randn(xe.shape, generator=gen)
+    we = torch.randn(ex["B"], ex["N"], generator=gen)
+    rows = {B: LEGACY_ROWS, ex["B"]: max(ex["B"] * LEGACY_ROWS // B, 1)}
+    res = {}
+
+    def held(name, setup, batch=None, scale_of=None, grads_elsewhere=()):
+        """`setup(device, n)` -> a call returning {key: tensor} on the first
+        n clouds of the inputs; the CPU's first call against the card's
+        first call on the first rows[batch] clouds (all without `batch`),
+        then the card's ms at the full batch. An output whose exact value
+        is zero is held on the scale of the output `scale_of` names for
+        it; the outputs in `grads_elsewhere` are left to the caller."""
+        n = rows[batch] if batch else None
+        t = time.perf_counter()
+        ref = setup(cpu, n)()
+        cpu_s = time.perf_counter() - t
+        got = setup(dev, n)()
+        torch.cuda.synchronize()
+        r = {"cpu_s": cpu_s, "compared_clouds": n or "all", "rel_err": {}}
+        for key, want in ref.items():
+            if not want.dtype.is_floating_point or key in grads_elsewhere:
+                continue
+            err = (got[key].detach().cpu().double()
+                   - want.detach().double()).abs().max().item()
+            scale = ref[(scale_of or {}).get(key, key)].detach().double() \
+                .abs().max().item()
+            r["rel_err"][key] = err / max(scale, 1e-300)
+            if not err <= LEGACY_TOL * scale:
+                raise AssertionError(f"legacy {name}[{key}]: card against "
+                                     f"CPU {err:.3g}, over {LEGACY_TOL} of "
+                                     f"{scale:.3g}")
+        r["ms"] = cuda_ms(setup(dev, None), 3)
+        log(f"  {name}: {r['ms']:.3f} ms on the card, {cpu_s:.2f} s on the "
+            f"CPU ({r['compared_clouds']} clouds); card against CPU (of the "
+            "CPU's max-abs) " + ", ".join(f"{k} {v:.2e}"
+                                         for k, v in r["rel_err"].items()))
+        res[name] = r
+        return {"ref": ref, "got": got, **r}
+
+    def on(d, n, *ts):
+        return [None if t is None else t[:n].to(d) for t in ts]
+
+    def module_call(module, *args):
+        """A module's training-mode call (BatchNorm on batch statistics,
+        the running ones updated: both compared) on a fresh copy."""
+        def setup(d, n):
+            m = copy.deepcopy(module).to(d)
+            a = on(d, n, *args)
+
+            def run():
+                out = m(*a, train=True)
+                o = {f"out{i}": t for i, t in enumerate(
+                    out if isinstance(out, tuple) else (out,))}
+                o["running"] = torch.cat([b.flatten() for b in m.buffers()])
+                return o
+            return run
+        return setup
+
+    def grads_of(loss_fn, *ts):
+        def setup(d, n):
+            ins = on(d, n, *ts)
+
+            def run():
+                xs = [t.clone().requires_grad_() for t in ins]
+                out = loss_fn(*xs)
+                out = out if isinstance(out, tuple) else (out,)
+                sum(out).backward()
+                return {**{f"loss{i}": o for i, o in enumerate(out)},
+                        **{f"d_in{i}": x.grad for i, x in enumerate(xs)}}
+            return run
+        return setup
+
+    # integer outputs: FPS, the ball query and kNN at SA1's, PointConv's
+    # and the PointTransformer's calls, on the CPU's centres
+    sa1, sa2 = LEGACY["sa"]
+    x64 = xyz.double()
+    fps = held("farthest_point_sample", lambda d, n: lambda: {
+        "idx": sampling.farthest_point_sample(*on(d, n, xyz),
+                                              sa1["npoint"])}, B)
+
+    def fps_gap(pos, a, c):
+        b, i = pos
+        pre = fps["ref"]["idx"][b, :i].long()
+        m = ((x64[b][:, None] - x64[b][pre][None]) ** 2).sum(-1).amin(1)
+        return rel_gap(float(m[a]), float(m[c]))
+    res["farthest_point_sample"]["cpu_vs_card"] = divergence(
+        fps["got"]["idx"], fps["ref"]["idx"], fps_gap)
+    centres = sampling.gather_points(xyz, sampling.farthest_point_sample(
+        xyz, sa1["npoint"]))
+    c64 = centres.double()
+    r2 = sa1["radius"] ** 2
+    bq = held("ball_query", lambda d, n: lambda: {"idx": sampling.ball_query(
+        sa1["radius"], sa1["nsample"], *on(d, n, xyz, centres))}, B)
+    res["ball_query"]["cpu_vs_card"] = divergence(
+        bq["got"]["idx"], bq["ref"]["idx"], lambda p, a, c: min(
+            dist_gap(c64[p[0], p[1]], x64[p[0]], a, r2=r2),
+            dist_gap(c64[p[0], p[1]], x64[p[0]], c, r2=r2)))
+    for name, k, q in (("knn_query[PointConv]", LEGACY["pointconv"]
+                        ["nsample"], centres),
+                       ("knn_query[PointTransformer]", LEGACY["pt"]["k"],
+                        xyz)):
+        kq = held(name, lambda d, n, k=k, q=q: lambda: {
+            "idx": grouping.knn_query(k, *on(d, n, xyz, q))[0]}, B)
+        q64 = q.double()
+        res[name]["cpu_vs_card"] = divergence(
+            kq["got"]["idx"], kq["ref"]["idx"], lambda p, a, c, q64=q64:
+            dist_gap(q64[p[0], p[1]], x64[p[0]], a, c))
+
+    # the modules at the full batch
+    m_sa1 = pn.SetAbstraction(sa1["npoint"], sa1["radius"], sa1["nsample"],
+                              sa1["mlp"], seed=seed)
+    m_sa2 = pn.SetAbstraction(sa2["npoint"], sa2["radius"], sa2["nsample"],
+                              sa2["mlp"], in_channels=sa1["mlp"][-1],
+                              seed=seed + 1)
+    msg = LEGACY["msg"]
+    m_msg = pn.SetAbstractionMSG(msg["npoint"], msg["radii"],
+                                 msg["nsamples"], msg["mlps"], seed=seed + 2)
+    m_fp = pn.FeaturePropagation(LEGACY["fp"]["mlp"],
+                                 in_channels=sa2["mlp"][-1], seed=seed + 3)
+    pc = LEGACY["pointconv"]
+    m_pc = pn.PointConv(pc["npoint"], pc["nsample"], pc["mlp"],
+                        pc["bandwidth"], seed=seed + 4)
+    pt = LEGACY["pt"]
+    m_pt = pn.PointTransformerLayer(pt["dim"], k=pt["k"], seed=seed + 5)
+    l1 = held("SetAbstraction[SSG 1]", module_call(m_sa1, xyz))["ref"]
+    l2 = held("SetAbstraction[SSG 2]", module_call(
+        m_sa2, l1["out0"], l1["out1"]))["ref"]
+    held("SetAbstractionMSG", module_call(m_msg, xyz))
+    held("FeaturePropagation", module_call(m_fp, xyz, l2["out0"], None,
+                                           l2["out1"]))
+    held("PointConv", module_call(m_pc, xyz))
+
+    def pt_setup(d, n):
+        m = copy.deepcopy(m_pt).to(d)
+        x0, p0, w = on(d, n, feats, xyz, w_pt)
+
+        def run():
+            m.zero_grad(set_to_none=True)
+            x, p = x0.clone().requires_grad_(), p0.clone().requires_grad_()
+            out = m(x, p)
+            (out * w).sum().backward()
+            return {"out": out, "d_x": x.grad, "d_pos": p.grad,
+                    **{f"d_{k}": q.grad for k, q in m.named_parameters()}}
+        return run
+    # the softmax over the group axis does not see attn2's bias (the same
+    # shift for every neighbour), so its exact gradient is zero
+    held("PointTransformerLayer (+ backward)", pt_setup, B,
+         scale_of={"d_attn2.bias": "d_attn2.kernel"})
+
+    # MSN's expansion penalty with its backward, then MDS on its cloud at
+    # its mean MST length
+    def exp_setup(d, n):
+        x0, w = on(d, n, xe, we)
+
+        def run():
+            x = x0.clone().requires_grad_()
+            dist, assign, mean = expansion.expansion_penalty(
+                x, ex["P"], ex["alpha"])
+            (dist * w).sum().backward()
+            return {"dist": dist, "assign": assign, "mean_mst_length": mean,
+                    "d_xyz": x.grad}
+        return run
+    exp = held("expansion_penalty (+ backward)", exp_setup, ex["B"])
+    n_e = rows[ex["B"]]
+    _, edge_len = expansion._prim_mst(xe[:n_e].reshape(-1, ex["P"], 3))
+    mean_len = edge_len.double().sum(-1) / (ex["P"] - 1)
+    lens = edge_len.double().reshape(n_e, ex["N"])
+    thr = (ex["alpha"] * mean_len).repeat_interleave(ex["P"]).reshape(
+        n_e, ex["N"])
+    res["expansion_penalty (+ backward)"]["cpu_vs_card"] = divergence(
+        exp["got"]["assign"], exp["ref"]["assign"],
+        lambda p, a, c: rel_gap(float(lens[p]), float(thr[p])))
+    res["expansion_penalty (+ backward)"]["penalized"] = int(
+        (exp["ref"]["assign"] >= 0).sum())
+    sigma = expansion.expansion_penalty(xe.to(dev), ex["P"], ex["alpha"])[2]
+    def mds_setup(d, n):
+        x, s = on(d, n, xe, sigma)
+        return lambda: {"idx": sampling.minimum_density_sample(
+            x, LEGACY["mds"], s)}
+    mds = held("minimum_density_sample", mds_setup, ex["B"])
+    xe64, s64 = xe.double(), sigma.cpu().double()
+
+    def mds_gap(pos, a, c):
+        b, i = pos
+        pre = mds["ref"]["idx"][b, :i].long()
+        d2 = ((xe64[b][:, None] - xe64[b][pre][None]) ** 2).sum(-1)
+        dens = torch.exp(-d2 / float(s64[b]) ** 2).sum(1)
+        return rel_gap(float(dens[a]), float(dens[c]))
+    res["minimum_density_sample"]["cpu_vs_card"] = divergence(
+        mds["got"]["idx"], mds["ref"]["idx"], mds_gap)
+
+    # the reference losses at their defaults
+    held("uniform_loss", lambda d, n: lambda: {
+        "loss": uniform_loss(*on(d, n, xyz))}, B)
+    held("uniform_loss_knn", lambda d, n: lambda: {
+        "loss": uniform_loss_knn(*on(d, n, xyz))}, B)
+    held("repulsion_loss (+ backward)", grads_of(repulsion_loss, xyz), B)
+
+    # shape_preserving_loss's Chamfer terms match each neighbourhood's mean
+    # and covariance to the nearest of the other cloud's. On smooth
+    # surfaces neighbouring means and covariances lie close, so a match's
+    # gradient, which the f32 distance |p|^2 - 2 p.q + |q|^2 gives as
+    # 2 p - 2 q summed apart, cancels, and the card's and the CPU's
+    # roundings of p and q (other summation orders) weigh in it; a near-tie
+    # can also part the matches. So the matches are integer outputs (held
+    # as `divergence` holds them), and each side's gradients are held to
+    # the f64 gradient on its own matches: the card's no farther from it
+    # than twice the CPU's (or LEGACY_TOL of its largest entry)
+    sp_k, n_sp = LEGACY["sp_k"], rows[B]
+
+    def sp_features(d, dtype=torch.float32):
+        """(pt1, pt2 requiring grad, the means and flattened covariances
+        [(mu1, mu2), (v1, v2)]) of the loss on the first clouds, on d."""
+        a, b = [t[:n_sp].to(d, dtype).clone().requires_grad_()
+                for t in (xyz, xyz2)]
+        mu1, v1 = local_mean_covariance(grouping.group_points(
+            a, grouping.knn_query(sp_k, a, a)[0]))
+        mu2, v2 = local_mean_covariance(grouping.group_points(
+            b, grouping.knn_query(sp_k, b, a)[0]))
+        return a, b, ((mu1, mu2), (v1.flatten(2), v2.flatten(2)))
+
+    def sp_matches(d):
+        """The four match sets [4, n, N] of the two Chamfer sums on d
+        (pt1's to pt2's and back; means, then covariances) and the
+        features in f64."""
+        with torch.no_grad():
+            feats_ = sp_features(d)[2]
+            found = []
+            for p, q in feats_:
+                dd = pairwise_sqdist(p, q)
+                found += [first_argmin(dd), first_argmin(dd.transpose(1, 2))]
+        return torch.stack(found).cpu(), [t.cpu().double() for pq in feats_
+                                          for t in pq]
+
+    def sp_grads64(pin):
+        """(d_pt1, d_pt2) of the two Chamfer sums in f64 on the CPU, each
+        match pinned to `pin` and its distance taken directly."""
+        a, b, feats_ = sp_features(cpu, torch.float64)
+        loss, i = 0.0, 0
+        for p, q in feats_:
+            for u, v in ((p, q), (q, p)):
+                loss = loss + ((u - sampling.gather_points(v, pin[i])) ** 2
+                               ).sum() / N
+                i += 1
+        loss.backward()
+        return a.grad, b.grad
+    sp = held("shape_preserving_loss (+ backward)", grads_of(
+        lambda a, b: shape_preserving_loss(a, b, sp_k), xyz, xyz2), B,
+        grads_elsewhere=("d_in0", "d_in1"))
+    card_m = sp_matches(dev)[0]
+    cpu_m, f64 = sp_matches(cpu)
+
+    def sp_gap(pos, a, c):
+        t_, b, i = pos
+        p, q = f64[2 * (t_ // 2)], f64[2 * (t_ // 2) + 1]
+        if t_ % 2:
+            p, q = q, p
+        return dist_gap(p[b, i], q[b], a, c)
+    out = res["shape_preserving_loss (+ backward)"]
+    out["matches"] = divergence(card_m, cpu_m, sp_gap)
+    g64_card = sp_grads64(card_m)
+    g64_cpu = g64_card if torch.equal(card_m, cpu_m) else sp_grads64(cpu_m)
+    out["grad_vs_f64"] = {}
+    for i, key in enumerate(("d_in0", "d_in1")):
+        scale = g64_card[i].abs().max().item()
+        card = (sp["got"][key].detach().cpu().double()
+                - g64_card[i]).abs().max().item()
+        own = (sp["ref"][key].detach().double() - g64_cpu[i]).abs().max() \
+            .item()
+        out["grad_vs_f64"][key] = {"card": card / scale,
+                                   "cpu": own / scale}
+        if not card <= max(2 * own, LEGACY_TOL * scale):
+            raise AssertionError(f"legacy shape_preserving_loss[{key}]: the "
+                                 f"card {card:.3g} from the f64 gradient, "
+                                 f"the CPU {own:.3g} (max {scale:.3g})")
+    log(f"  shape_preserving_loss: gradients from f64 on each side's "
+        f"matches (of its max-abs) {out['grad_vs_f64']}; matches "
+        f"{out['matches']} of {4 * n_sp * N}")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -3542,6 +3944,12 @@ def main() -> None:
     ph.start("emd_large")
     big = emd_large_phase(args.seed)
     log(json.dumps({"emd_large": big}))
+    ph.end()
+
+    # -------------------------------------------------------------- 9d
+    ph.start("legacy")
+    legacy = legacy_phase(args.seed)
+    log(json.dumps({"legacy": legacy}))
     ph.end()
 
     # --------------------------------------------------------------- 10

@@ -60,9 +60,11 @@ def trees(module: torch.nn.Module) -> Tuple[dict, dict]:
     return nest(module.named_parameters()), nest(module.named_buffers())
 
 
-# the generator's and the discriminator's carries are the same rename
+# the generator's, the discriminator's and the point-network modules'
+# (`nn.pointnet`) carries are the same rename
 generator_state_from_jax = discriminator_state_from_jax = state_from_jax
-generator_trees = discriminator_trees = trees
+pointnet_state_from_jax = state_from_jax
+generator_trees = discriminator_trees = pointnet_trees = trees
 
 from sp_gan_tpu_torch.compat.torch_export import (  # noqa: E402
     export_discriminator, export_generator, save_reference_checkpoint)

@@ -17,28 +17,16 @@ XLA, not a Pallas kernel) and the edges are gathered by index.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from sp_gan_tpu_torch.nn.layers import SPBatchNorm, TorchDense, lrelu
+from sp_gan_tpu_torch.nn.layers import FlaxDense, SPBatchNorm, lrelu
 from sp_gan_tpu_torch.ops.edge import edge_features
 from sp_gan_tpu_torch.ops.pairwise import knn_indices
 
 WIDTHS = (64, 64, 128, 256)
-
-
-def lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
-    """flax's default Dense kernel init: a normal truncated at two
-    standard deviations, scaled to variance 1 / fan_in."""
-    z = torch.randn(t.shape, generator=gen)
-    while bool((out := z.abs() > 2.0).any()):
-        z[out] = torch.randn(int(out.sum()), generator=gen)
-    std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
-    with torch.no_grad():
-        t.copy_(z * std)
 
 
 class DGCNNFeat(nn.Module):
@@ -53,18 +41,15 @@ class DGCNNFeat(nn.Module):
         self.k, self.multi, self.include_self = k, multi, include_self
         fin = 3
         for i, w in enumerate(WIDTHS):
-            setattr(self, f"conv{i + 1}", TorchDense(2 * fin, w))
+            setattr(self, f"conv{i + 1}", FlaxDense(2 * fin, w))
             setattr(self, f"bn{i + 1}", SPBatchNorm(w))
             fin = w
-        self.conv5 = TorchDense(sum(WIDTHS), feat_dims)
+        self.conv5 = FlaxDense(sum(WIDTHS), feat_dims)
         self.bn5 = SPBatchNorm(feat_dims)
         if seed is not None:
             gen = torch.Generator().manual_seed(seed)
             for i in range(1, 6):
-                conv = getattr(self, f"conv{i}")
-                lecun_normal_(conv.kernel, gen)
-                with torch.no_grad():
-                    conv.bias.zero_()
+                getattr(self, f"conv{i}").init_weights(gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x.float()

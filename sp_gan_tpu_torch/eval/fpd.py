@@ -58,12 +58,16 @@ class FPD:
     extractor's flax variables ({"params", "batch_stats"} as nested numpy
     dicts); without them the DGCNN is drawn from `seed` with flax's
     default initializers (`random_features`: a valid two-sample statistic,
-    not comparable to a trained extractor's)."""
+    not comparable to a trained extractor's). `local_extractor` marks an
+    extractor that `fpd_from_weights` read from a flax variables pickle
+    (one trained by this project, not the reference's ShapeNet
+    classifier)."""
 
     def __init__(self, variables=None, k: int = 40, feat_dims: int = 1024,
                  batch_size: int = 32, seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.random_features = variables is None
+        self.local_extractor = False
         self.model = DGCNNFeat(k=k, feat_dims=feat_dims,
                                seed=seed if variables is None else None)
         if variables is not None:
@@ -116,7 +120,7 @@ def fpd_from_weights(path: str, device=None) -> FPD:
     """FPD with the extractor of `path`: a pickle of flax variables
     ({"params", "batch_stats"}, with the `k` and `feat_dims` it was trained
     at, as the JAX package writes them), else reference torch weights
-    (`FPD.from_torch`)."""
+    (`FPD.from_torch`). The pickle's FPD has `local_extractor` set."""
     import pickle
     with open(path, "rb") as f:
         try:
@@ -125,7 +129,9 @@ def fpd_from_weights(path: str, device=None) -> FPD:
             blob = None
     if not (isinstance(blob, dict) and "params" in blob):
         return FPD.from_torch(path, device=device)
-    return FPD(variables={k: blob[k] for k in ("params", "batch_stats")
-                          if k in blob},
-               k=int(blob.get("k", 40)),
-               feat_dims=int(blob.get("feat_dims", 1024)), device=device)
+    fpd = FPD(variables={k: blob[k] for k in ("params", "batch_stats")
+                         if k in blob},
+              k=int(blob.get("k", 40)),
+              feat_dims=int(blob.get("feat_dims", 1024)), device=device)
+    fpd.local_extractor = True
+    return fpd

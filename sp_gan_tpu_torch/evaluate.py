@@ -9,8 +9,10 @@ the GPU by default; the port of the root `evaluate.py`.
     python -m sp_gan_tpu_torch.evaluate --device cpu --gen g.npy --ref r.npy
 
 Prints the JAX CLI's JSON keys. `--device cpu` runs on the CPU (kernel E's
-plain version solves the EMD there). The point-sharded EMD
-(`--mesh_points`) and reference torch DGCNN weights are not ported.
+plain version solves the EMD there). `--fpd_weights` takes a flax
+variables pickle (a locally trained extractor, noted as such in
+`FPD_note`) or the reference's torch DGCNN state dict (no note). The
+point-sharded EMD (`--mesh_points`) is not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="point-sharded EMD (not ported)")
     p.add_argument("--fpd_weights", default=None,
                    help="DGCNN extractor: a flax variables pickle with its "
-                        "k and feat_dims")
+                        "k and feat_dims, or the reference's torch state "
+                        "dict")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     return p
@@ -97,9 +100,10 @@ def main(argv=None) -> dict:
     if args.fpd:
         if args.fpd_weights:
             fpd = fpd_from_weights(args.fpd_weights, device=device)
-            metrics["FPD_note"] = ("locally-trained DGCNN extractor — not "
-                                   "comparable to the reference's ShapeNet "
-                                   "FPD")
+            if fpd.local_extractor:
+                metrics["FPD_note"] = ("locally-trained DGCNN extractor — "
+                                       "not comparable to the reference's "
+                                       "ShapeNet FPD")
         else:
             fpd = FPD(device=device)
         metrics["FPD"] = fpd(gen[:n], ref[:n] if not args.fpd_stats else None,

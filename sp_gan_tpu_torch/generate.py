@@ -1,4 +1,5 @@
-"""CLI: generate shapes from a checkpoint to .npy, on the GPU by default.
+"""CLI: generate shapes from a checkpoint to .npy (and with `--xyz_dir`
+one `<i>.xyz` a shape), on the GPU by default.
 
     python -m sp_gan_tpu_torch.generate --log_dir runs/campaign_horizon \\
         --ckpt runs/keep/campaign_horizon_best.pkl --n 128 --out samples.npy
@@ -24,6 +25,7 @@ def main(argv=None) -> None:
     p.add_argument("--n", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="samples.npy")
+    p.add_argument("--xyz_dir", default=None, help="also dump per-shape .xyz")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda)")
     args = p.parse_args(argv)
@@ -31,6 +33,7 @@ def main(argv=None) -> None:
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.manipulate import from_checkpoint
     from sp_gan_tpu_torch.train.checkpoint import latest_checkpoint
+    from sp_gan_tpu_torch.viz import save_xyz
 
     with open(os.path.join(args.log_dir, "config.json")) as f:
         cfg = Config.from_json(f.read())
@@ -41,6 +44,10 @@ def main(argv=None) -> None:
     pcs = man.generate(args.n, seed=args.seed)
     np.save(args.out, pcs)
     print(f"saved {pcs.shape} -> {args.out}")
+    if args.xyz_dir:
+        os.makedirs(args.xyz_dir, exist_ok=True)
+        for i, pc in enumerate(pcs):
+            save_xyz(os.path.join(args.xyz_dir, f"{i}.xyz"), pc)
 
 
 if __name__ == "__main__":

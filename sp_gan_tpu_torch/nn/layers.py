@@ -8,6 +8,9 @@ alone. Each layer's `init_weights(rng)` draws the JAX package's
 initializers from a numpy generator:
 
 * `TorchDense`: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for kernel and bias;
+* `FlaxDense`: flax's default Dense init, a LeCun normal kernel (truncated
+  at two standard deviations) and a zero bias, drawn from a
+  `torch.Generator` (the DGCNN extractor and `nn/pointnet.py`);
 * `EqualDense`: kernel N(0, 1), bias 0, kernel scaled by sqrt(2/fan_in) in
   the forward;
 * `AdaptivePointNorm`: style kernel N(0, 1), bias [gamma=1, beta=0];
@@ -79,6 +82,28 @@ class TorchDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+def lecun_normal_(t: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's default Dense kernel init: a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in."""
+    z = torch.randn(t.shape, generator=gen)
+    while bool((out := z.abs() > 2.0).any()):
+        z[out] = torch.randn(int(out.sum()), generator=gen)
+    std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+    with torch.no_grad():
+        t.copy_(z * std)
+
+
+class FlaxDense(TorchDense):
+    """Dense layer with flax's default init: `init_weights(gen)` draws a
+    LeCun normal kernel from the `torch.Generator` and zeroes the bias."""
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.kernel, gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
 
 class EqualDense(nn.Module):

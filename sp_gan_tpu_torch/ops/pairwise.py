@@ -57,6 +57,25 @@ def smallest_k(key: torch.Tensor, k: int):
     return srt.values[..., :k], srt.indices[..., :k]
 
 
+def _first_hit(key: torch.Tensor, hit: torch.Tensor) -> torch.Tensor:
+    # the lowest index of each row where `hit` (or the key is NaN) holds
+    n = key.shape[-1]
+    ar = torch.arange(n, device=key.device)
+    return torch.where(hit | torch.isnan(key), ar, n).amin(dim=-1)
+
+
+def first_argmax(key: torch.Tensor) -> torch.Tensor:
+    """int64 index of the largest entry of each row (the last axis), the
+    first one on ties and the first NaN where there is one, as
+    `jnp.argmax` takes it on every device."""
+    return _first_hit(key, key == key.amax(dim=-1, keepdim=True))
+
+
+def first_argmin(key: torch.Tensor) -> torch.Tensor:
+    """`first_argmax`'s rule for the smallest entry (`jnp.argmin`)."""
+    return _first_hit(key, key == key.amin(dim=-1, keepdim=True))
+
+
 def stable_knn_grid() -> float:
     """Bucket width of the sort-stable tie-break mode, or 0.0 (off), from
     env `SPGAN_KNN_STABLE` as in the JAX package: unset or empty is off,

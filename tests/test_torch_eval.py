@@ -238,6 +238,25 @@ class TestCli:
         for k in ("MMD-CD", "JSD"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
 
+    def test_reference_torch_weights_get_no_note(self, tmp_path, monkeypatch,
+                                                 capsys):
+        """`--fpd_weights` naming the reference's torch DGCNN state dict
+        (k 40, 1024 features, `torch.save`d in its key layout): both CLIs
+        print the same keys, neither an `FPD_note`, and the same FPD."""
+        from test_torch_compat_reference import reference_dgcnn_state
+        path = str(tmp_path / "dgcnn.pth")
+        torch.save(reference_dgcnn_state(3, 1024), path)
+        np.save(tmp_path / "g.npy", shapes(13, 6))
+        np.save(tmp_path / "r.npy", shapes(14, 6))
+        argv = ["--gen", str(tmp_path / "g.npy"), "--ref",
+                str(tmp_path / "r.npy"), "--fpd", "--fpd_weights", path]
+        got = port_cli.main([*argv, "--device", "cpu"])
+        capsys.readouterr()
+        want = run_jax_cli(argv, monkeypatch, capsys, tmp_path)
+        assert set(got) == set(want)
+        assert "FPD_note" not in got
+        np.testing.assert_allclose(got["FPD"], want["FPD"], rtol=1e-3)
+
     def test_defaults_to_cuda(self, tmp_path):
         if torch.cuda.is_available():
             pytest.skip("a GPU is present")

@@ -242,6 +242,23 @@ class TestCheckpoints:
         np.testing.assert_array_equal(pcs, man.generate(3, seed=1))
 
 
+    def test_cli_xyz_dir_matches_the_jax_writer(self, run_dir, tmp_path,
+                                                weights):
+        """`--xyz_dir D` writes `D/<i>.xyz` a shape, byte-equal to the JAX
+        package's `save_xyz` of the same array."""
+        from sp_gan_tpu.viz import save_xyz as jax_save_xyz
+        out, d = tmp_path / "pcs.npy", tmp_path / "xyz"
+        generate_cli.main(["--log_dir", str(run_dir), "--n", "3", "--out",
+                           str(out), "--xyz_dir", str(d), "--device", "cpu"])
+        pcs = np.load(out)
+        assert sorted(os.listdir(d)) == ["0.xyz", "1.xyz", "2.xyz"]
+        for i, pc in enumerate(pcs):
+            jax_save_xyz(str(tmp_path / "want.xyz"), pc)
+            with open(d / f"{i}.xyz", "rb") as f, \
+                    open(tmp_path / "want.xyz", "rb") as g:
+                assert f.read() == g.read()
+
+
 class TestDevice:
     def test_entry_points_need_cuda_unless_told_cpu(self, run_dir, weights,
                                                     monkeypatch, tmp_path):
