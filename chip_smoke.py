@@ -93,7 +93,7 @@ Phases, in order; any failure raises and the script exits nonzero:
               profiled once (the --fused_train profile names the share of
               the step of J, K, L and C on the tensor cores, by part);
               small fused steps on the card against the CPU.
-5c. regularizers - 3 + 10 steps at Config() width for each of
+5c. regularizers - 2 + 5 steps at Config() width for each of
               REGULARIZERS: --fused_train with SPGAN_EDGE_BWD=pallas (M
               once a step, D never), --gan wgan --lambda_gp 10 with and
               without --gp_mapping, --mix (kernel E once a step) and
@@ -176,6 +176,28 @@ Phases, in order; any failure raises and the script exits nonzero:
               a near-tie (the first divergence and its gap reported);
               shape_preserving_loss's gradients against f64 on each
               side's matches.
+9e. parallel - over a one-rank NCCL group (a FileStore in a temporary
+              directory): the data-parallel step (`make_train_step` with a
+              (1,) data mesh) at Config() width, PARALLEL_STEPS steps from
+              the same state and batches as the one-device step, its
+              losses and gradients held to the train phase's step-parity
+              bounds, kernels B and D launched as the default step
+              launches them; the point-sharded step on a (1, 1) mesh at
+              PARALLEL_16K (N 16384, bs 2), one step beside the one-device
+              step, finite losses and the EdgeConv2 picks that differ
+              counted, then each phase of the
+              one-device step on the sharded run's inputs (d_loss within
+              1e-5, g_loss within PARALLEL_16K_LOSS_TOL), and the
+              point-sharded sampler at N 16384 against the one-device
+              sampler (float32; 99% within PARALLEL_SAMPLE_P99, the
+              median within MANIPULATE_MEDIAN); the point-sharded
+              protocol (PARALLEL_PROTOCOL: 4 x 4 clouds of 2048 points)
+              within PARALLEL_PROTOCOL_TOL of kernel E's, and its auction
+              equal to `auction_scaled_jacobi` on a pair, a bijection.
+              With two
+              cards or more, that many NCCL ranks run the data-parallel
+              step against the one-card step; else the line `parallel
+              multi-card: not run (1 card)`.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -336,6 +358,9 @@ TRAIN_REGIME = (0.005, 50, 1)
 # clouds of each side of the metric protocol's run at N=2048
 METRIC_CLOUDS = 64
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# the regularizers phase's: its time follows the host more than its work
+# (ROADMAP "Machines"), and five configurations share it
+REG_WARMUP_STEPS, REG_TIMED_STEPS = 2, 5
 # the point-network layer library (legacy phase) at published widths:
 # PointNet++ SSG's two set abstractions, its MSG layer and its feature
 # propagation from 128 to 2048 points (Common/pointnet_util.py), PointConv
@@ -755,7 +780,11 @@ def tc_part(name: str):
 
 
 # idle seconds before the marker launch of each attempt of profile_call
-PROFILE_LEADS_S = (0.1, 1.0, 5.0, 20.0)
+# idle leads before a profile's marker kernel; in a run of this script
+# on the H100 every profile after the first lost its marker at leads of
+# 0.1 and 1.0 s and recorded it at 5 s, which made two attempts of every
+# profile wasted work (about 3 s a profile, 14 profiles)
+PROFILE_LEADS_S = (5.0, 20.0)
 
 
 def profile_call(fn, label: str, group=None, expect=()) -> dict:
@@ -2725,16 +2754,18 @@ def last_kernels_phase(seed: int, idx_t, gen) -> dict:
 
 
 def regularizers_phase(seed: int) -> dict:
-    """For each of REGULARIZERS at Config() width: 3 warm-up and 10 timed
-    training steps with their launch counts (`timed_training`), one
+    """For each of REGULARIZERS at Config() width: REG_WARMUP_STEPS warm-up
+    and REG_TIMED_STEPS timed training steps with their launch counts
+    (`timed_training`), one
     profiled step, and a small step on the card against the CPU
     (`check_small_steps`, one seed with both phases compared)."""
     from sp_gan_tpu_torch.config import Config
     res = {}
     for label, (kw, env, expected, still) in REGULARIZERS.items():
         with mock.patch.dict(os.environ, env):
-            tr, run = timed_training(Config(seed=seed, **kw), TIMED_STEPS,
-                                     WARMUP_STEPS, expected, label, still)
+            tr, run = timed_training(Config(seed=seed, **kw),
+                                     REG_TIMED_STEPS, REG_WARMUP_STEPS,
+                                     expected, label, still)
             run["profile"] = profile_call(lambda: tr.time_steps(1), label)
             del tr
             # G's gradients were compared in 1 of seeds 0-7 under
@@ -3695,6 +3726,462 @@ def legacy_phase(seed: int) -> dict:
     return res
 
 
+# the parallel phase: the data-parallel step at Config() width, 3 steps;
+# the point-sharded step at the JAX package's large configuration
+# (tests/test_points_sharding.py:330-352), one step; the sharded protocol
+# on 4 x 4 clouds of 2048 points at eps 0.005 (4 phases) with a cap of
+# rounds the Jacobi auction does not reach there: its pairs take 2,700 to
+# 12,600 rounds one by one (on the CPU), and 16 in lockstep about 19,600
+# (the slowest pair's, each phase; measured on the H100); with a cap of
+# 5000 some pairs stopped there, their forced passes 30% below kernel E's
+# matchings
+PARALLEL_STEPS = 3
+PARALLEL_16K = dict(np=16384, bs=2, nk=20)
+PARALLEL_PROTOCOL = (4, 2048, 0.005, 20000)
+# the points of the pair on which the sharded auction is held to
+# `auction_scaled_jacobi` round for round
+PARALLEL_PAIR_N = 512
+# the point-sharded step's g_loss against the one-device step's on the
+# same D: the sharded EdgeConv2 rounds its bf16 diffs as nbr - central
+# once (as the JAX package's edge_diff_local), the one-device gather of
+# 16384 points rounds nbr and central apart, the instance norms sum in
+# another order, and at bs 2 the generator's global BatchNorm turns that
+# into flips of a channel's sign (on the CPU at N = 8200: 3.1% on the
+# same D, 9.3% free, with 12 of 164,000 G-phase picks apart); the bound
+# catches a step that is not the same function, not rounding
+PARALLEL_16K_LOSS_TOL = 0.1
+# the point-sharded sampler against the one-device one (fused eval path)
+# at N 16384 in float32, as the manipulate phase holds the card against
+# the CPU: 99% of the coordinates within 1e-3, the median within
+# MANIPULATE_MEDIAN (a near-tie neighbour swap moves a shape's pool)
+PARALLEL_SAMPLE_P99 = 1e-3
+# the sharded protocol's entries against kernel E's (another matching
+# within the same eps)
+PARALLEL_PROTOCOL_TOL = 1e-2
+# the parallel phase's device (a rehearsal on the CPU sets "cpu")
+PARALLEL_DEVICE = "cuda"
+
+
+def _nccl_group(tmp: str, rank: int = 0, world: int = 1) -> None:
+    """The default process group over NCCL, meeting in a FileStore."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=rank, world_size=world)
+
+
+def parallel_steps(cfg, mesh, real, steps: int, pinned=None) -> dict:
+    """`steps` training steps of a fresh state of `cfg` on the card (with
+    `mesh` the data-parallel step on the rank's rows of each whole batch
+    in `real`), from launch counts of 0: each step's losses, both phases'
+    gradients and D's weights right after its update ("d_after"), and the
+    launches. With `pinned` (another run's "d_after") D takes those
+    weights right after each of its updates."""
+    import torch
+    from sp_gan_tpu_torch.data.sphere import sphere_template
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.parallel import shard_batch
+    from sp_gan_tpu_torch.train import step as step_mod
+    from sp_gan_tpu_torch.train.state import create_train_state
+    st = create_train_state(cfg, device=mesh.device if mesh
+                            else PARALLEL_DEVICE)
+    step = step_mod.make_train_step(cfg, sphere_template(cfg.np), mesh)
+    grads, d_after, apply = [], [], step_mod._apply
+
+    def recording(opt, params, g, lr, nan_guard):
+        grads.append([t.detach().float().cpu() for t in g])
+        apply(opt, params, g, lr, nan_guard)
+        if opt is st.d_opt:
+            if pinned is not None:
+                with torch.no_grad():
+                    for p, v in zip(params, pinned[len(d_after)]):
+                        p.copy_(v)
+            d_after.append([p.detach().cpu().clone() for p in params])
+
+    losses = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with mock.patch.object(step_mod, "_apply", recording):
+        for b in real:
+            b = b if mesh is None else shard_batch(mesh, b)
+            st, m = step(st, b)
+            losses.append({k: float(m[k]) for k in ("d_loss", "g_loss")})
+    torch.cuda.synchronize()
+    return {"losses": losses, "grads": grads, "d_after": d_after,
+            "ms_per_step": (time.perf_counter() - t) * 1e3 / len(real),
+            "launches": kernels.launch_counts(),
+            "names": ([n for n, _ in st.D.named_parameters()],
+                      [n for n, _ in st.G.named_parameters()])}
+
+
+def compare_steps(ours: dict, ref: dict, label: str,
+                  steps: int = PARALLEL_STEPS) -> dict:
+    """Losses and gradients of the first `steps` steps of two runs of
+    `parallel_steps`, held to the train phase's step-parity bounds
+    (`check_small_step`: d_loss 1e-5 and g_loss 5e-5 relative, D's
+    gradients 1e-1 of a tensor's max-abs and 2e-2 in relative L2, G's
+    5e-1 and 8e-2)."""
+    res = {"d_loss": 0.0, "g_loss": 0.0, "d_grads": (0.0, ""),
+           "g_grads": (0.0, ""), "d_grads_l2": (0.0, ""),
+           "g_grads_l2": (0.0, "")}
+    for a, b in zip(ours["losses"][:steps], ref["losses"][:steps]):
+        for k in ("d_loss", "g_loss"):
+            res[k] = max(res[k], abs(a[k] - b[k]) / abs(b[k]))
+    for i, (a, b) in enumerate(zip(ours["grads"][:2 * steps],
+                                   ref["grads"][:2 * steps])):
+        tag = "dg"[i % 2]
+        w = grads_worst(ref["names"][i % 2], a, b)
+        res[f"{tag}_grads"] = max(res[f"{tag}_grads"], w["elem"])
+        res[f"{tag}_grads_l2"] = max(res[f"{tag}_grads_l2"], w["l2"])
+    log(f"  {label}: largest differences {res}")
+    if not (res["d_loss"] <= 1e-5 and res["g_loss"] <= 5e-5
+            and res["d_grads"][0] <= 1e-1 and res["d_grads_l2"][0] <= 2e-2
+            and res["g_grads"][0] <= 5e-1 and res["g_grads_l2"][0] <= 8e-2):
+        raise AssertionError(f"{label}: beyond the step-parity bounds: {res}")
+    return res
+
+
+def check_data_parallel(seed: int) -> dict:
+    """The data-parallel step on a (1,) data mesh over the one-rank NCCL
+    group at Config() width, PARALLEL_STEPS steps, against the one-device
+    step from the same state and batches: losses and gradients
+    (`compare_steps`), and kernels B and D launched as the default step
+    launches them (`PER_STEP`) in both."""
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.parallel import make_mesh
+    from sp_gan_tpu_torch.train.trainer import synthetic_dataset
+    cfg = Config(seed=seed)
+    data = synthetic_dataset(cfg).data
+    real = [torch.as_tensor(data[i * cfg.bs:(i + 1) * cfg.bs],
+                            device=PARALLEL_DEVICE)
+            for i in range(PARALLEL_STEPS)]
+    one = parallel_steps(cfg, None, real, PARALLEL_STEPS)
+    mesh = make_mesh((1,), ("data",), PARALLEL_DEVICE)
+    dp = parallel_steps(cfg, mesh, real, PARALLEL_STEPS)
+    res = compare_steps(dp, one, "data-parallel step (1 rank, NCCL) vs "
+                        "one-device step")
+    per = {k: v / PARALLEL_STEPS for k, v in dp["launches"].items()}
+    log(f"  data-parallel step: {dp['ms_per_step']:.2f} ms a step against "
+        f"the one-device step's {one['ms_per_step']:.2f} (host clock, the "
+        f"first {PARALLEL_STEPS} steps of a fresh state each); launches a "
+        f"step {per}")
+    for name, n in PER_STEP.items():
+        if dp["launches"][name] != n * PARALLEL_STEPS \
+                or one["launches"][name] != n * PARALLEL_STEPS:
+            raise AssertionError(f"data-parallel step: {name} launched "
+                                 f"{dp['launches'][name]} times (one-device "
+                                 f"{one['launches'][name]}) in "
+                                 f"{PARALLEL_STEPS} steps, expected "
+                                 f"{n * PARALLEL_STEPS}")
+    return {**res, "ms_per_step": dp["ms_per_step"],
+            "one_device_ms_per_step": one["ms_per_step"],
+            "launches_per_step": per, "losses": dp["losses"]}
+
+
+def check_point_sharded(seed: int) -> dict:
+    """The point-sharded step on a (1, 1) (data, points) mesh at
+    PARALLEL_16K (bs 2, N 16384, nk 20, mixed_edge) beside the one-device
+    step, one step each from the same state and batch: finite losses and
+    the gaps of the free runs printed, with the EdgeConv2 picks of each
+    phase that differ counted (the one-device step selects with kernel G,
+    the sharded one among the gathered points in plain PyTorch); then the
+    one-device step again with each phase on the sharded run's inputs
+    (the D phase on its fakes, the G phase against its updated D), whose
+    d_loss must lie within 1e-5 and g_loss within PARALLEL_16K_LOSS_TOL
+    of the sharded run's. At bs 2 the generator's global BatchNorm
+    normalizes 2 clouds, which turns the two forwards' rounding (the
+    sharded instance norms, EdgeConv2's bf16 diffs) into whole flips of
+    a channel's sign, so the free losses are only printed."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.data.sphere import sphere_template
+    from sp_gan_tpu_torch.ops import edge as edge_mod
+    from sp_gan_tpu_torch.parallel import make_mesh
+    from sp_gan_tpu_torch.parallel import points as points_mod
+    from sp_gan_tpu_torch.train import step as step_mod
+    from sp_gan_tpu_torch.train.state import create_train_state
+    cfg = Config(seed=seed, **PARALLEL_16K)
+    sphere = sphere_template(cfg.np)
+    real = torch.as_tensor(SyntheticDataset(cfg.bs, cfg.np, seed=seed).data,
+                           device=PARALLEL_DEVICE)
+    mesh = make_mesh((1, 1), ("data", "points"), PARALLEL_DEVICE)
+    picks = {"one": [], "sharded": []}
+    knn, local = edge_mod.knn_dispatch, points_mod._local_knn
+
+    def rec_one(x, k):
+        idx = knn(x, k)
+        picks["one"].append(idx.long().cpu())
+        return idx
+
+    def rec_sharded(xq, xk, k, base):
+        idx = local(xq, xk, k, base)
+        picks["sharded"].append(idx.cpu())
+        return idx
+
+    def run(sharded: bool, pinned=None):
+        """One step; returns its losses, ms, peak memory, D-phase fakes
+        and D right after its update. `pinned` = (fakes, D) of another
+        run: the D phase takes those fakes, D those weights after its
+        update."""
+        st = create_train_state(cfg, device=PARALLEL_DEVICE)
+        step = (step_mod.make_train_step_pointsharded(cfg, sphere, mesh)
+                if sharded else step_mod.make_train_step(cfg, sphere))
+        keep, apply = {}, step_mod._apply
+
+        def fake_hook(module, args, out):
+            if "fake" not in keep:
+                keep["fake"] = out.detach().clone()
+                if pinned is not None:
+                    return pinned[0]
+
+        def after_apply(opt, params, grads, lr, nan_guard):
+            apply(opt, params, grads, lr, nan_guard)
+            if opt is st.d_opt:
+                if pinned is not None:
+                    with torch.no_grad():
+                        for p, v in zip(st.D.parameters(), pinned[1]):
+                            p.copy_(v)
+                keep["d"] = [p.detach().clone() for p in st.D.parameters()]
+
+        hook = st.G.register_forward_hook(fake_hook)
+        patch = (mock.patch.object(points_mod, "_local_knn", rec_sharded)
+                 if sharded else
+                 mock.patch.object(edge_mod, "knn_dispatch", rec_one))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        with patch, mock.patch.object(step_mod, "_apply", after_apply):
+            st, m = step(st, real)
+        torch.cuda.synchronize()
+        hook.remove()
+        return ({"ms": (time.perf_counter() - t) * 1e3,
+                 # the step's own peak, above what was held before it
+                 "peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                 **{k: float(m[k]) for k in ("d_loss", "g_loss")}},
+                (keep["fake"], keep["d"]))
+
+    run(True)                                   # warm-up
+    picks["sharded"].clear()
+    sharded, inputs = run(True)
+    one, _ = run(False)
+    selections = (list(picks["one"]), list(picks["sharded"]))
+    pinned, _ = run(False, inputs)
+    res = {"sharded": sharded, "one": one, "pinned": pinned,
+           "picks_differ": [int((a != b).sum()) for a, b in
+                            zip(*selections)],
+           "picks": int(selections[0][0].numel())}
+    for k in ("d_loss", "g_loss"):
+        res[f"free_{k}"] = abs(sharded[k] - one[k]) / abs(one[k])
+        res[f"pinned_{k}"] = abs(sharded[k] - pinned[k]) / abs(pinned[k])
+    log(f"  point-sharded step (1 x 1 mesh, NCCL) at N={cfg.np}, "
+        f"bs={cfg.bs}: {res}")
+    if len(selections[0]) != 2 or len(selections[1]) != 2:
+        raise AssertionError("point-sharded step: EdgeConv2 did not select "
+                             "once a phase on both sides")
+    if not all(np.isfinite(sharded[k]) for k in ("d_loss", "g_loss")):
+        raise AssertionError(f"point-sharded step: non-finite losses {res}")
+    if not res["pinned_d_loss"] <= 1e-5:
+        raise AssertionError(f"point-sharded step: d_loss on the same fakes "
+                             f"beyond 1e-5: {res}")
+    if np.isfinite(pinned["g_loss"]):
+        if not res["pinned_g_loss"] <= PARALLEL_16K_LOSS_TOL:
+            raise AssertionError(f"point-sharded step: g_loss against the "
+                                 f"same D beyond {PARALLEL_16K_LOSS_TOL}: "
+                                 f"{res}")
+    else:
+        # BatchNorm over 2 clouds takes var = E[x^2] - mean^2, which
+        # cancellation can take below -eps (the JAX package's formula too)
+        log("  the one-device step's g_loss is not finite at bs 2; the G "
+            "phases are not compared")
+    res["sampler"] = check_sharded_sampler(seed, mesh)
+    return res
+
+
+def check_sharded_sampler(seed: int, mesh) -> dict:
+    """`make_sample_fn_pointsharded` on the (1, 1) mesh against
+    `make_sample_fn` (the fused eval path) at PARALLEL_16K's N in float32,
+    2 shapes from the same codes: 99% of the coordinates within
+    PARALLEL_SAMPLE_P99, the median within MANIPULATE_MEDIAN."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.data.noise import sample_z
+    from sp_gan_tpu_torch.data.sphere import sphere_template
+    from sp_gan_tpu_torch.train.state import create_train_state
+    from sp_gan_tpu_torch.train.step import (make_sample_fn,
+                                             make_sample_fn_pointsharded)
+    cfg = Config(seed=seed, dtype="float32", **PARALLEL_16K)
+    sphere = sphere_template(cfg.np)
+    st = create_train_state(cfg, device=PARALLEL_DEVICE)
+    z = sample_z(torch.Generator(device=PARALLEL_DEVICE).manual_seed(seed),
+                 cfg.bs, cfg.np, cfg.nz, cfg.nv)
+    out = {}
+    for name, fn in (("one", make_sample_fn(cfg, sphere)),
+                     ("sharded", make_sample_fn_pointsharded(cfg, sphere,
+                                                             mesh))):
+        fn(st, z)                                       # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pcs = fn(st, z)
+        torch.cuda.synchronize()
+        out[name] = ((time.perf_counter() - t) * 1e3, pcs.cpu().numpy())
+    err = np.abs(out["sharded"][1] - out["one"][1])
+    res = {"ms_one": out["one"][0], "ms_sharded": out["sharded"][0],
+           "median": float(np.median(err)),
+           "p99": float(np.quantile(err, 0.99)), "max": float(err.max())}
+    log(f"  point-sharded sampler at N={cfg.np} (float32) vs one-device "
+        f"sampler: {res}")
+    if not np.isfinite(out["sharded"][1]).all() \
+            or res["p99"] > PARALLEL_SAMPLE_P99 \
+            or res["median"] > MANIPULATE_MEDIAN:
+        raise AssertionError(f"point-sharded sampler: {res}")
+    return res
+
+
+def check_sharded_protocol(seed: int) -> dict:
+    """`pairwise_emd_matrix(mesh=)` on a (1,) points mesh over NCCL, 4 x 4
+    clouds of 2048 points (PARALLEL_PROTOCOL), against the one-device
+    protocol (kernel E) within PARALLEL_PROTOCOL_TOL; and the sharded
+    auction (`emd_auction_local`) on the first PARALLEL_PAIR_N points of
+    the first pair equal, assignment for assignment, to
+    `auction_scaled_jacobi` on the same distances, and a bijection (it ran
+    to its end)."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data import SyntheticDataset
+    from sp_gan_tpu_torch.eval.metrics import pairwise_emd_matrix
+    from sp_gan_tpu_torch.ops.emd import auction_scaled_jacobi, scaled_phases
+    from sp_gan_tpu_torch.ops.pairwise import pairwise_sqdist
+    from sp_gan_tpu_torch.parallel import emd_auction_local, make_mesh
+    S, N, eps, iters = PARALLEL_PROTOCOL
+    clouds = torch.as_tensor(SyntheticDataset(2 * S, N, seed=seed + 7).data,
+                             device=PARALLEL_DEVICE)
+    gen, ref = clouds[:S], clouds[S:]
+    mesh = make_mesh((1,), ("points",), PARALLEL_DEVICE)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sharded = pairwise_emd_matrix(gen, ref, eps, iters, mesh=mesh)
+    torch.cuda.synchronize()
+    s_sharded = time.perf_counter() - t
+    t = time.perf_counter()
+    one = pairwise_emd_matrix(gen, ref, eps, iters)
+    s_one = time.perf_counter() - t
+    rel = float(np.abs(sharded - one).max() / np.abs(one).max())
+    x, y = gen[:1, :PARALLEL_PAIR_N], ref[:1, :PARALLEL_PAIR_N]
+    t = time.perf_counter()
+    _, asg = emd_auction_local(x, y, eps, iters, mesh.group("points"))
+    torch.cuda.synchronize()
+    s_pair = time.perf_counter() - t
+    plain = auction_scaled_jacobi(pairwise_sqdist(x[0], y[0]), eps,
+                                  iters, scaled_phases(iters))[None]
+    differ = int((asg.cpu() != plain.cpu()).sum())
+    res = {"max_rel_vs_kernel_e": rel, "s_sharded": s_sharded,
+           "s_one_device": s_one, "s_one_pair_sharded": s_pair,
+           "assignments_differ": differ,
+           "distinct_items": [len(set(a.tolist())) for a in asg.cpu()]}
+    log(f"  point-sharded protocol ({S} x {S}, N={N}, eps {eps}, {iters} "
+        f"rounds): {res}")
+    if differ:
+        raise AssertionError("emd_auction_local and auction_scaled_jacobi "
+                             f"assign {differ} rows apart")
+    if min(res["distinct_items"]) != PARALLEL_PAIR_N:
+        raise AssertionError(f"the sharded auction stopped at its cap: "
+                             f"{res['distinct_items']} distinct items")
+    if rel > PARALLEL_PROTOCOL_TOL:
+        raise AssertionError(f"sharded protocol lies {rel} from kernel E's")
+    return res
+
+
+def _multi_card_rank(rank: int, world: int, tmp: str, seed: int) -> None:
+    """One rank of `check_multi_card`: the data-parallel step on a
+    (world,) mesh, its results saved by rank 0."""
+    import pickle
+    import torch.distributed as dist
+    _nccl_group(tmp, rank, world)
+    try:
+        from sp_gan_tpu_torch.parallel import make_mesh
+        dev = f"cuda:{rank}"
+        cfg, real = _multi_card_inputs(seed, world, dev)
+        run = parallel_steps(cfg, make_mesh((world,), ("data",), dev), real,
+                             PARALLEL_STEPS)
+        if rank == 0:
+            with open(os.path.join(tmp, "ranks.pkl"), "wb") as f:
+                pickle.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _multi_card_inputs(seed: int, world: int, device: str):
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.train.trainer import synthetic_dataset
+    cfg = Config(seed=seed)
+    if cfg.bs % world:
+        cfg = Config(seed=seed, bs=8 * world)
+    data = synthetic_dataset(cfg).data
+    return cfg, [torch.as_tensor(data[i * cfg.bs:(i + 1) * cfg.bs],
+                                 device=device)
+                 for i in range(PARALLEL_STEPS)]
+
+
+def check_multi_card(seed: int) -> dict:
+    """With two cards or more, that many NCCL ranks run the data-parallel
+    step (`_multi_card_rank`), its first step held against the one-card
+    step's (`compare_steps`; the one-card G phase against the ranks'
+    updated D); else it is not run, and says so."""
+    import pickle
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("parallel multi-card: not run (1 card)")
+        return {"cards": n, "run": False}
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_multi_card_rank, args=(n, tmp, seed), nprocs=n, join=True)
+        with open(os.path.join(tmp, "ranks.pkl"), "rb") as f:
+            ranks = pickle.load(f)
+    cfg, real = _multi_card_inputs(seed, n, "cuda:0")
+    # the first step, its G phase against the ranks' updated D: the
+    # synchronized moments sum in another order, and Adam turns a
+    # near-zero gradient's rounding into +-lr (as the train phase's small
+    # steps pin D for the CPU)
+    one = parallel_steps(cfg, None, real[:1], 1, pinned=ranks["d_after"])
+    res = compare_steps(ranks, one, f"data-parallel step on {n} cards vs "
+                        "one card (first step)", steps=1)
+    log(f"parallel multi-card: run on {n} cards")
+    return {"cards": n, "run": True, **res}
+
+
+def parallel_phase(seed: int) -> dict:
+    """See the module docstring (9e)."""
+    import tempfile
+    import torch.distributed as dist
+    import torch
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _nccl_group(tmp)
+        try:
+            # the communicator's set-up is the first collective's
+            t = time.perf_counter()
+            dist.all_reduce(torch.zeros(1, device=PARALLEL_DEVICE))
+            res["first_collective_s"] = time.perf_counter() - t
+            res["data_parallel"] = check_data_parallel(seed)
+            res["point_sharded"] = check_point_sharded(seed)
+            res["protocol"] = check_sharded_protocol(seed)
+        finally:
+            dist.destroy_process_group()
+    res["multi_card"] = check_multi_card(seed)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -3950,6 +4437,12 @@ def main() -> None:
     ph.start("legacy")
     legacy = legacy_phase(args.seed)
     log(json.dumps({"legacy": legacy}))
+    ph.end()
+
+    # -------------------------------------------------------------- 9e
+    ph.start("parallel")
+    par = parallel_phase(args.seed)
+    log(json.dumps({"parallel": par}))
     ph.end()
 
     # --------------------------------------------------------------- 10

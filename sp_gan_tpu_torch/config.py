@@ -5,10 +5,14 @@ own copy of `sp_gan_tpu/config.py` (`Config`, `build_argparser`,
 Every field and default is the JAX package's, so a `config.json` written by
 either package loads in the other, and the CLIs take the same flags.
 `fused_train` and `fused_dphase` select the fused train-mode generator
-forward, as in the JAX package (`train/step.py`). Fields that steer only
-the JAX/TPU program (`remat`, `mesh_*`, `data_axis`, `points_axis`,
-`use_pallas`, `fused_eval`, `donate_state`, `steps_per_call`) are accepted
-and ignored by the port.
+forward, as in the JAX package (`train/step.py`). `mesh_shape` and
+`mesh_axes` lay out the ranks of a torchrun launch (`parallel.make_mesh`):
+the Trainer runs the data-parallel step, or the point-sharded step where
+a `points` axis has more than one rank. Fields that steer only the
+JAX/TPU program (`remat`, `data_axis`, `points_axis`, `use_pallas`,
+`fused_eval`, `donate_state`, `steps_per_call`) are accepted and ignored
+by the port; its layers take their sharding from a `Scope`
+(`nn/layers.py`), not from `data_axis` and `points_axis`.
 """
 
 from __future__ import annotations
@@ -83,8 +87,8 @@ class Config:
     dtype: str = "mixed_edge"          # mixed_edge: bf16 only inside the
                                        # EdgeBlocks' [B,N,k,*] tensors
     remat: bool = False                # JAX only
-    mesh_shape: Sequence[int] = (1,)   # JAX only
-    mesh_axes: Sequence[str] = ("data",)  # JAX only
+    mesh_shape: Sequence[int] = (1,)   # ranks of the launch, by axis
+    mesh_axes: Sequence[str] = ("data",)  # data, or data and points
     data_axis: Optional[str] = None    # JAX only
     points_axis: Optional[str] = None  # JAX only
     use_pallas: bool = True            # JAX only
@@ -139,10 +143,11 @@ class Config:
 
     @property
     def bn_groups(self) -> int:
-        """BatchNorm statistic groups: the JAX package's per-shard groups
-        (`bn_stats="per_shard"` over a mesh). The one-card port trains
-        with one group; `make_train_step` refuses more until the
-        data-parallel slice."""
+        """BatchNorm statistic groups of one device: the JAX package's
+        per-shard groups (`bn_stats="per_shard"` over a mesh), one a
+        shard. `make_train_step` without a mesh takes them as contiguous
+        groups of the batch; over a mesh each rank keeps its own
+        statistics instead."""
         if self.bn_stats == "per_shard" and self.data_axis is None:
             g = 1
             for d in self.mesh_shape:
@@ -179,8 +184,8 @@ def build_argparser() -> argparse.ArgumentParser:
     """The training CLI's flags, one per `Config` field with the same name,
     type and default as the JAX package's (`--flag/--no-flag` for
     booleans). The JAX-only knobs (`steps_per_call`, `donate_state`,
-    `use_pallas`, `remat`, `mesh_*`, `fused_eval`) are accepted and have no
-    effect in the port."""
+    `use_pallas`, `remat`, `fused_eval`) are accepted and have no effect in
+    the port."""
     c = Config()
     p = argparse.ArgumentParser(description="sp_gan_tpu_torch")
     for f in dataclasses.fields(Config):

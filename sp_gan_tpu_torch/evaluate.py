@@ -11,8 +11,13 @@ the GPU by default; the port of the root `evaluate.py`.
 Prints the JAX CLI's JSON keys. `--device cpu` runs on the CPU (kernel E's
 plain version solves the EMD there). `--fpd_weights` takes a flax
 variables pickle (a locally trained extractor, noted as such in
-`FPD_note`) or the reference's torch DGCNN state dict (no note). The
-point-sharded EMD (`--mesh_points`) is not ported.
+`FPD_note`) or the reference's torch DGCNN state dict (no note).
+`--mesh_points P` cuts every EMD solve's points over the P ranks of a
+torchrun launch (`parallel.points.pairwise_emd_matrix_pointsharded`);
+rank 0 prints:
+
+    torchrun --nproc_per_node 2 -m sp_gan_tpu_torch.evaluate \
+        --mesh_points 2 --device cpu --gen g.npy --ref r.npy --emd
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scale clouds by this before the JSD voxel "
                         "histogram, which covers [-0.5, 0.5]")
     p.add_argument("--mesh_points", type=int, default=0,
-                   help="point-sharded EMD (not ported)")
+                   help="cut each EMD solve's points over this many ranks "
+                        "(a torchrun launch of as many)")
     p.add_argument("--fpd_weights", default=None,
                    help="DGCNN extractor: a flax variables pickle with its "
                         "k and feat_dims, or the reference's torch state "
@@ -68,14 +74,29 @@ def load_ref(path: str) -> np.ndarray:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.mesh_points:
-        raise NotImplementedError("--mesh_points (the point-sharded EMD) is "
-                                  "not ported")
+    import torch.distributed as dist
+
     from sp_gan_tpu_torch.device import resolve_device
+    from sp_gan_tpu_torch.parallel import init_distributed, make_mesh
+
+    mesh, own_group = None, False
+    if args.mesh_points:
+        own_group = not dist.is_initialized()
+        device = init_distributed(args.device)
+        mesh = make_mesh((args.mesh_points,), ("points",), device)
+    else:
+        device = resolve_device(args.device)
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> dict:
     from sp_gan_tpu_torch.eval import FPD, compute_all_metrics
     from sp_gan_tpu_torch.eval.fpd import fpd_from_weights
 
-    device = resolve_device(args.device)
     if args.gen:
         gen = np.load(args.gen)
     else:
@@ -96,7 +117,8 @@ def main(argv=None) -> dict:
     n = min(len(gen), len(ref))
     metrics = compute_all_metrics(gen[:n], ref[:n], normalize=args.normalize,
                                   use_emd=args.emd, emd_iters=args.emd_iters,
-                                  jsd_scale=args.jsd_scale, device=device)
+                                  mesh=mesh, jsd_scale=args.jsd_scale,
+                                  device=device)
     if args.fpd:
         if args.fpd_weights:
             fpd = fpd_from_weights(args.fpd_weights, device=device)
@@ -110,7 +132,8 @@ def main(argv=None) -> dict:
                              stats_path=args.fpd_stats)
         if fpd.random_features:
             metrics["FPD_note"] = "random-feature DGCNN (no trained weights)"
-    print(json.dumps(metrics, indent=2, default=float))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(metrics, indent=2, default=float))
     return metrics
 
 

@@ -5,8 +5,12 @@ Shared pointwise MLP 3 -> 64 -> 128 -> 256 (BatchNorm, leaky ReLU 0.01),
 lift to 1024 (512 with small_d), max-pool over the points, head
 1024 -> 512 -> 256 -> 64 -> 1. Channel-last. With `pool_commute` (the
 default) fc2's BatchNorm, leaky ReLU and max-pool run as `MaxPoolBNLReLU`,
-which only reduces the [B, N, 1024] activation. Module names are the JAX
-tree's (`mlp1`, `bn1`, ..., `fc2`, `bn_fc2`, `head1`, ..., `head4`).
+which only reduces the [B, N, 1024] activation, where the `scope` lets
+it (`Scope.commutes`: not with statistic groups, per-replica statistics
+or sharded points, as in the JAX package); elsewhere fc2's BatchNorm and
+leaky ReLU run whole and the max is taken over every rank of the scope's
+points. Module names are the JAX tree's (`mlp1`, `bn1`, ..., `fc2`,
+`bn_fc2`, `head1`, ..., `head4`).
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ import torch
 from torch import nn
 
 from sp_gan_tpu_torch.config import Config
-from sp_gan_tpu_torch.nn.layers import (MaxPoolBNLReLU, SPBatchNorm,
-                                        TorchDense, lrelu)
+from sp_gan_tpu_torch.nn.layers import (UNSHARDED, MaxPoolBNLReLU,
+                                        SPBatchNorm, TorchDense, lrelu,
+                                        max_points)
 
 NEG = 0.01     # reference `neg`
 
@@ -28,6 +33,8 @@ class Discriminator(nn.Module):
     """`Discriminator(cfg, seed)` draws its weights with the JAX package's
     initializers from `np.random.default_rng(seed)`; `seed=None` leaves the
     placeholders for a `load_state_dict` to fill."""
+
+    scope = UNSHARDED
 
     def __init__(self, cfg: Config, seed: Optional[int] = 0):
         super().__init__()
@@ -60,10 +67,12 @@ class Discriminator(nn.Module):
             h = getattr(self, f"mlp{i}")(h)
             h = lrelu(getattr(self, f"bn{i}")(h, train), NEG)
         h = self.fc2(h)
-        if self.commute:
+        if self.commute and self.scope.commutes():
             h = self.bn_fc2(h, train)
         else:
-            h = lrelu(self.bn_fc2(h, train), NEG).amax(dim=1)
+            h = (self.bn_fc2(h, train, pool=False) if self.commute
+                 else self.bn_fc2(h, train))
+            h = max_points(lrelu(h, NEG), self.scope.points)
         h = h.float()
         for i in range(1, 4):
             h = lrelu(getattr(self, f"head{i}")(h), NEG)

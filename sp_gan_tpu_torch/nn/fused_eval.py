@@ -27,9 +27,10 @@ from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail
 
 
 def supports_fused(cfg: Config) -> bool:
-    """The JAX package's rule. Its per-shard BatchNorm groups need a device
-    mesh, which the one-card port does not have."""
-    return not (cfg.eql or cfg.attn or cfg.use_head
+    """The JAX package's rule: not with eql, attn, use_head, per-shard
+    BatchNorm groups (`cfg.bn_groups > 1`: the fused kernels take the
+    whole batch's statistics) or a bf16 sub-mode."""
+    return not (cfg.eql or cfg.attn or cfg.use_head or cfg.bn_groups > 1
                 or cfg.dtype in ("bfloat16_g", "bfloat16_d",
                                  "bfloat16_tail32"))
 

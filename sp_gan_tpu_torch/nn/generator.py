@@ -9,7 +9,10 @@ and `blend_alpha` blend two codes' styles, and `interpolate` blends codes
 or styles on a part of the template (the manipulation routines). Module
 names are the JAX tree's (`head1`, `edge1`, `adain1`, `edge2`, `global_bn1`,
 `tail3`, ...), so a JAX checkpoint loads through
-`compat.generator_state_from_jax` with `strict=True`.
+`compat.generator_state_from_jax` with `strict=True`. Under a `scope`
+whose points are cut over ranks (`nn.layers.sharded`) the global pool is
+the max over every rank and EdgeConv2 selects exactly (the JAX generator
+has no sharded band).
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ import torch
 from torch import nn
 
 from sp_gan_tpu_torch.config import Config
-from sp_gan_tpu_torch.nn.layers import (AdaptivePointNorm, Attention,
-                                        EdgeBlock, SPBatchNorm, TorchDense,
-                                        lrelu, make_dense)
+from sp_gan_tpu_torch.nn.layers import (UNSHARDED, AdaptivePointNorm,
+                                        Attention, EdgeBlock, SPBatchNorm,
+                                        TorchDense, lrelu, make_dense,
+                                        max_points)
 
 NEG = 0.01     # reference `neg`
 NEG2 = 0.2     # reference `neg_2`
@@ -33,6 +37,8 @@ class Generator(nn.Module):
     """`Generator(cfg, seed)` draws its weights with the JAX package's
     initializers from `np.random.default_rng(seed)`; `seed=None` leaves the
     placeholders for a `load_state_dict` to fill."""
+
+    scope = UNSHARDED
 
     def __init__(self, cfg: Config, seed: Optional[int] = 0):
         super().__init__()
@@ -131,11 +137,12 @@ class Generator(nn.Module):
 
         # --knn_mode approx: EdgeConv2 selects in the template's spiral index
         # band |i - j| <= knn_window, in training and in eval alike
-        win2 = cfg.knn_window if cfg.knn_mode == "approx" else None
+        win2 = (cfg.knn_window if cfg.knn_mode == "approx"
+                and self.scope.points is None else None)
         x2 = lrelu(self.edge2(x1, train, window=win2), NEG2)
         x2 = self.adain2(x2, style)
 
-        g = x2.amax(dim=1)                                        # [B, dim]
+        g = max_points(x2, self.scope.points)                     # [B, dim]
         g = lrelu(self.global_bn1(self.global1(g), train), NEG)
         g = lrelu(self.global_bn2(self.global2(g), train), NEG)
         feat = torch.cat([g[:, None, :].expand(B, N, g.shape[-1]), x2], -1)

@@ -20,22 +20,46 @@ initializers from a numpy generator:
 BatchNorm follows the JAX package, not `torch.nn.BatchNorm`: statistics in
 f32 over every axis but the last, `var = E[x^2] - mean^2` (biased), running
 averages `0.9 * old + 0.1 * batch` updated in place in training mode, eps
-1e-5. The JAX package's per-shard statistic groups wait for the
-data-parallel slice (`train.step.make_train_step` refuses them).
+1e-5.
+
+Where the layers' statistics and points live is a `Scope`, which the
+training step and the samplers set with `sharded` for the span of a call
+(the JAX package's `bn_groups`, `axis_names`, `replica0_axes` and
+`points_axis` module fields):
+
+* `groups`: BatchNorm statistics over contiguous groups of the batch on
+  one device, running averages from group 0 (`bn_stats="per_shard"` on
+  one device);
+* `bn_sync`: a process group over which BatchNorm averages its moments,
+  the whole batch's statistics (synchronized BN);
+* `bn_replica0`: a process group whose ranks each normalize by their own
+  statistics and take their running averages from its first rank, so the
+  buffers stay equal on every rank (the reference DataParallel's
+  per-replica BN);
+* `points`: the process group the point axis is cut over: EdgeBlock
+  selects its neighbours among the all-gathered points
+  (`parallel.points.edge_diff_local`), AdaIN's instance norm averages its
+  moments over the group, attention gathers its keys and values, and the
+  max pools take the max over every rank (`global_max_points`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from sp_gan_tpu_torch.ops.edge import edge_diff_features
+from sp_gan_tpu_torch.parallel.mesh import all_gather_cat, all_reduce_mean
+from sp_gan_tpu_torch.parallel.points import (edge_diff_local,
+                                              global_max_points)
 
 
 def _param(*shape) -> nn.Parameter:
@@ -153,12 +177,68 @@ class SplitEdgeDense(nn.Module):
         return v + self.bias.to(v.dtype)
 
 
-def instance_norm_points(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+@dataclass(frozen=True)
+class Scope:
+    """Where the layers' statistics and points live; see the module
+    docstring. The default is one device holding the whole batch."""
+    groups: int = 1
+    bn_sync: Any = None
+    bn_replica0: Any = None
+    points: Any = None
+
+    def commutes(self) -> bool:
+        """Whether D's BatchNorm, leaky ReLU and max pool may run as
+        `MaxPoolBNLReLU` (the JAX package's rule: one statistic group and
+        no per-replica or sharded axis)."""
+        return (self.groups == 1 and self.bn_replica0 is None
+                and self.points is None)
+
+
+UNSHARDED = Scope()
+
+
+@contextlib.contextmanager
+def sharded(scope: Scope, *modules: nn.Module):
+    """Inside the block every layer of `modules` that reads a `Scope`
+    reads `scope`."""
+    layers = [m for mod in modules for m in mod.modules()
+              if hasattr(type(m), "scope")]
+    before = [m.__dict__.get("scope") for m in layers]
+    for m in layers:
+        m.scope = scope
+    try:
+        yield
+    finally:
+        for m, b in zip(layers, before):
+            if b is None:
+                del m.scope
+            else:
+                m.scope = b
+
+
+def max_points(x: torch.Tensor, group) -> torch.Tensor:
+    """[B, N, C] -> [B, C], the max over the points, over every rank of
+    `group` when the points are cut over it."""
+    return x.amax(dim=1) if group is None else global_max_points(x, group)
+
+
+def instance_norm_points(x: torch.Tensor, eps: float = 1e-5,
+                         group=None) -> torch.Tensor:
     """InstanceNorm1d without affine on [B, N, C]: each channel normalized
-    over the points, biased variance, statistics in f32."""
+    over the points, biased variance, statistics in f32. With `group` (the
+    points cut over it) the mean is averaged over the group, then the
+    squared deviations from it: two passes, as the unsharded variance
+    takes them (the JAX package's one pass, E[x^2] - mean^2, loses the
+    variance's low bits where a channel's mean is large against its
+    spread: 1e-5 of AdaIN's output at init)."""
     xf = x.float()
-    mean = xf.mean(dim=1, keepdim=True)
-    var = xf.var(dim=1, unbiased=False, keepdim=True)
+    if group is not None:
+        mean = all_reduce_mean(xf.mean(dim=1, keepdim=True), group)
+        var = all_reduce_mean(((xf - mean) ** 2).mean(dim=1, keepdim=True),
+                              group)
+    else:
+        mean = xf.mean(dim=1, keepdim=True)
+        var = xf.var(dim=1, unbiased=False, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
@@ -167,7 +247,12 @@ class SPBatchNorm(nn.Module):
     `(x - mean) * (rsqrt(var + eps) * scale) + bias` in f32, cast back to
     x's dtype. Training mode normalizes with the batch statistics and
     updates the running ones in place (unless `update_running` is False,
-    see `frozen_running_stats`); eval mode uses the running ones."""
+    see `frozen_running_stats`); eval mode uses the running ones. Its
+    `scope` (see the module docstring) splits the statistics into groups,
+    synchronizes them over a process group, or keeps them per rank with
+    rank 0's running averages."""
+
+    scope = UNSHARDED
 
     def __init__(self, c: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -189,24 +274,56 @@ class SPBatchNorm(nn.Module):
     def statistics(self, xf: torch.Tensor, train: bool):
         """(mean, biased var) of f32 `xf` over every axis but the last in
         training mode, updating the running averages; the running ones in
-        eval mode."""
+        eval mode. With `scope.groups` G > 1 they are [G, C], one row a
+        contiguous group of the batch, and the running averages follow
+        group 0; with `scope.bn_sync` the moments E[x] and E[x^2] are
+        averaged over its ranks; with `scope.bn_replica0` the running
+        averages take the batch statistics of its first rank."""
         if not train:
             return self.mean, self.var
-        axes = tuple(range(xf.dim() - 1))
-        mean = xf.mean(dim=axes)
-        var = (xf * xf).mean(dim=axes) - mean * mean
+        G = self.scope.groups
+        if G > 1:
+            if xf.shape[0] % G:
+                raise ValueError(f"batch {xf.shape[0]} does not divide into "
+                                 f"{G} statistic groups")
+            xg = xf.reshape((G, xf.shape[0] // G) + xf.shape[1:])
+            axes = tuple(range(1, xg.dim() - 1))
+            mean = xg.mean(dim=axes)                               # [G, C]
+            var = (xg * xg).mean(dim=axes) - mean * mean
+            run = (mean[0], var[0])
+        else:
+            axes = tuple(range(xf.dim() - 1))
+            mean = xf.mean(dim=axes)
+            sq = (xf * xf).mean(dim=axes)
+            if self.scope.bn_sync is not None:
+                mean, sq = all_reduce_mean(torch.stack([mean, sq]),
+                                           self.scope.bn_sync).unbind(0)
+            var = sq - mean * mean
+            run = (mean, var)
         if not self.update_running:
             return mean, var
         with torch.no_grad():
+            if self.scope.bn_replica0 is not None:
+                group = self.scope.bn_replica0
+                both = torch.stack(run)
+                dist.broadcast(both, dist.get_global_rank(group, 0),
+                               group=group)
+                run = both.unbind(0)
             m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * var)
+            self.mean.copy_(m * self.mean + (1 - m) * run[0])
+            self.var.copy_(m * self.var + (1 - m) * run[1])
         return mean, var
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         mean, var = self.statistics(xf, train)
         inv = torch.rsqrt(var + self.epsilon) * self.scale
+        if mean.dim() == 2:                      # groups of the batch
+            G = mean.shape[0]
+            shape = (G,) + (1,) * (x.dim() - 1) + (mean.shape[1],)
+            y = ((xf.reshape((G, x.shape[0] // G) + x.shape[1:])
+                  - mean.reshape(shape)) * inv.reshape(shape) + self.bias)
+            return y.reshape(x.shape).to(x.dtype)
         return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
@@ -240,7 +357,12 @@ class MaxPoolBNLReLU(SPBatchNorm):
         super().__init__(c, epsilon, momentum)
         self.negative_slope = negative_slope
 
-    def forward(self, h: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, train: bool = False,
+                pool: bool = True) -> torch.Tensor:
+        """With `pool=False`, the plain BatchNorm of h (the caller takes
+        the leaky ReLU and the max where the scope does not commute)."""
+        if not pool:
+            return super().forward(h, train)
         hf = h.float()
         mean, var = self.statistics(hf, train)
         pooled = torch.where(self.scale >= 0, hf.amax(dim=1),
@@ -250,8 +372,11 @@ class MaxPoolBNLReLU(SPBatchNorm):
 
 
 class AdaptivePointNorm(nn.Module):
-    """Per-point AdaIN: instance-norm the features, then scale and shift
-    with (gamma, beta) predicted per point from the style."""
+    """Per-point AdaIN: instance-norm the features (over every rank of
+    `scope.points`), then scale and shift with (gamma, beta) predicted per
+    point from the style."""
+
+    scope = UNSHARDED
 
     def __init__(self, channels: int, style_dim: int, use_eql: bool = False):
         super().__init__()
@@ -274,7 +399,8 @@ class AdaptivePointNorm(nn.Module):
         gb = torch.matmul(style, k.to(style.dtype)) \
             + self.style_bias.to(style.dtype)
         gamma, beta = gb[..., :C], gb[..., C:]
-        return gamma * instance_norm_points(x) + beta
+        return gamma * instance_norm_points(x, group=self.scope.points) \
+            + beta
 
 
 class EdgeBlock(nn.Module):
@@ -300,7 +426,12 @@ class EdgeBlock(nn.Module):
     `bf16(nbr) - bf16(central)`, `ee` gives `bf16(nbr - central)`.
     `window` (with neither given) restricts the kNN to the circular index
     band |i - j| <= window, the `--knn_mode approx` selection
-    (`ops/edge.py`)."""
+    (`ops/edge.py`). With `scope.points` (and neither given) the local
+    points select among the all-gathered ones
+    (`parallel.points.edge_diff_local`), their diffs in x's dtype, cast to
+    bf16 under `mixed` as the JAX package casts them."""
+
+    scope = UNSHARDED
 
     def __init__(self, fin: int, fout: int, k: int, mixed: bool = False,
                  negative_slope: float = 0.01):
@@ -333,6 +464,10 @@ class EdgeBlock(nn.Module):
         out_dtype = x.dtype
         if ee is not None:
             diff = ee[..., C:]
+            if self.mixed:
+                diff = diff.to(torch.bfloat16)
+        elif self.scope.points is not None and idx is None:
+            diff = edge_diff_local(x, self.k, self.scope.points)
             if self.mixed:
                 diff = diff.to(torch.bfloat16)
         elif self.mixed:
@@ -370,7 +505,10 @@ class EdgeBlock(nn.Module):
 
 class Attention(nn.Module):
     """Global self-attention: 1/8-width query and key, 1/2-width value,
-    zero-initialized gain, residual."""
+    zero-initialized gain, residual. With `scope.points` the queries stay
+    local and the keys and values are gathered from every rank."""
+
+    scope = UNSHARDED
 
     def __init__(self, channels: int):
         super().__init__()
@@ -387,6 +525,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         theta, phi, g = self.theta(x), self.phi(x), self.g(x)
+        phi = all_gather_cat(phi, self.scope.points, dim=1)
+        g = all_gather_cat(g, self.scope.points, dim=1)
         energy = torch.einsum("bnc,bmc->bnm", theta, phi)
         beta = torch.softmax(energy, dim=-1)
         o = self.o(torch.einsum("bnm,bmc->bnc", beta, g))

@@ -20,6 +20,18 @@ first statement that touches the device and exits with 42 on a stall;
 `--save` dumps an 8 x 8 grid and one .xyz a sample under `log_dir/plot`
 every 20 steps (`dump_samples`). A run with logs writes a snapshot of this
 package's source to `log_dir/src_snapshot` once.
+
+With `prod(cfg.mesh_shape) > 1` the run is one of a torchrun launch of
+that many ranks (`torchrun --nproc_per_node R -m sp_gan_tpu_torch.train
+--mesh_shape R ...`; `--device cpu` for gloo): the Trainer joins the
+process group, lays out `parallel.make_mesh(mesh_shape, mesh_axes)` and
+trains with the data-parallel step, or the point-sharded step where the
+mesh's `points` axis has more than one rank. Every rank walks the same
+seeded permutation and draws, builds the whole batch and takes its block
+(`parallel.shard_batch`); only rank 0 writes logs, checkpoints, samples
+and the source snapshot, while the watchdog runs on every rank. A
+WORLD_SIZE other than prod(mesh_shape) raises. Sampling and in-loop
+evaluation run the one-device sampler on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sp_gan_tpu_torch.compat import load_reference_checkpoint, state_from_jax
 from sp_gan_tpu_torch.config import Config
@@ -50,11 +63,14 @@ from sp_gan_tpu_torch.eval.fpd import (activation_statistics,
 from sp_gan_tpu_torch.eval.metrics import (coverage, jsd, knn_two_sample, mmd,
                                            pairwise_cd_matrix,
                                            pairwise_emd_matrix)
+from sp_gan_tpu_torch.parallel.mesh import (env_world_size, init_distributed,
+                                            make_mesh, shard_batch)
 from sp_gan_tpu_torch.train.checkpoint import (latest_checkpoint,
                                                load_checkpoint,
                                                save_checkpoint)
 from sp_gan_tpu_torch.train.state import create_train_state, param_count
-from sp_gan_tpu_torch.train.step import make_sample_fn, make_train_step
+from sp_gan_tpu_torch.train.step import (make_sample_fn, make_train_step,
+                                         make_train_step_pointsharded)
 from sp_gan_tpu_torch.utils import AverageValueMeter, StepTimer, Watchdog
 from sp_gan_tpu_torch.utils.watchdog import EXIT_CODE
 
@@ -73,10 +89,12 @@ def synthetic_dataset(cfg: Config) -> SyntheticDataset:
 class Trainer:
     """Trains on `device` (default cuda; raises without a GPU unless given
     device="cpu"). With `logs=False` it writes nothing under `log_dir` and
-    prints nothing (a benchmark's run)."""
+    prints nothing (a benchmark's run). `mesh` (a `parallel.Mesh`) is
+    taken as given; without one a mesh shape of more than one rank joins
+    the launch's process group (see the module docstring)."""
 
     def __init__(self, cfg: Config, dataset=None, device=None,
-                 logs: bool = True):
+                 logs: bool = True, mesh=None):
         if cfg.save:
             try:
                 import matplotlib  # noqa: F401
@@ -86,6 +104,7 @@ class Trainer:
                                    f"({e})") from e
         self.cfg = cfg
         self._log_fout = None
+        self._own_group = False
         # the watchdog covers all that follows: a wedged device call can
         # come from the first touch of the device on
         self._dog = (Watchdog(cfg.watchdog_secs, _on_stall).start()
@@ -95,14 +114,34 @@ class Trainer:
             # kills its process later
             weakref.finalize(self, self._dog.stop)
         try:
-            self._init(dataset, device, logs)
+            self._init(dataset, device, logs, mesh)
         except BaseException:
             self.close()
             raise
 
-    def _init(self, dataset, device, logs: bool) -> None:
+    def _join_mesh(self, device, mesh):
+        """(this rank's device, the mesh or None); see the class
+        docstring."""
         cfg = self.cfg
-        self.device = resolve_device(device)
+        n = int(np.prod(cfg.mesh_shape))
+        if mesh is not None:
+            return mesh.device, mesh
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else env_world_size())
+        if world is not None and world != n:
+            raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} lays out "
+                             f"{n} ranks, the launch has {world}")
+        if n == 1:
+            return resolve_device(device), None
+        self._own_group = not dist.is_initialized()
+        dev = init_distributed(device)
+        return dev, make_mesh(cfg.mesh_shape, cfg.mesh_axes, dev)
+
+    def _init(self, dataset, device, logs: bool, mesh) -> None:
+        cfg = self.cfg
+        self.device, self.mesh = self._join_mesh(device, mesh)
+        self.is_main = self.mesh is None or self.mesh.rank == 0
+        logs = logs and self.is_main
         if logs:
             os.makedirs(cfg.log_dir, exist_ok=True)
             self._log_fout = open(os.path.join(cfg.log_dir, "log_train.txt"),
@@ -141,7 +180,11 @@ class Trainer:
                                         self.device)
         self.log(f"# generator parameters: {param_count(self.state.G)}")
         self.log(f"# discriminator parameters: {param_count(self.state.D)}")
-        self.train_step = make_train_step(cfg, self.sphere)
+        if self.mesh is not None and self.mesh.axis_size("points") > 1:
+            self.train_step = make_train_step_pointsharded(cfg, self.sphere,
+                                                           self.mesh)
+        else:
+            self.train_step = make_train_step(cfg, self.sphere, self.mesh)
         self.sample_fn = make_sample_fn(cfg, self.sphere, use_ema=cfg.ema)
         self.sample_raw = (make_sample_fn(cfg, self.sphere, use_ema=False)
                            if cfg.ema else self.sample_fn)
@@ -216,11 +259,15 @@ class Trainer:
         print(msg, flush=True)
 
     def close(self) -> None:
-        """Stops the watchdog and closes the log."""
+        """Stops the watchdog, closes the log and leaves the process group
+        if the Trainer joined it."""
         if self._dog is not None:
             self._dog.stop()
         if self._log_fout is not None:
             self._log_fout.close()
+        if self._own_group and dist.is_initialized():
+            dist.destroy_process_group()
+            self._own_group = False
 
     def _beat(self) -> None:
         if self._dog is not None:
@@ -229,10 +276,13 @@ class Trainer:
     def batch(self, idx: np.ndarray, gen: torch.Generator) -> torch.Tensor:
         """The device-resident clouds `idx` [bs], each with its points in a
         random order, then with `--augment` rotated and scaled; all drawn
-        from `gen`."""
+        from `gen`. Under a mesh, this rank's block of them."""
         real = self.data[torch.as_tensor(idx, device=self.device)]
-        return augment_batch(gen, shuffle_points_batch(gen, real),
-                             self.cfg.augment)
+        return self._mine(augment_batch(gen, shuffle_points_batch(gen, real),
+                                        self.cfg.augment))
+
+    def _mine(self, real: torch.Tensor) -> torch.Tensor:
+        return real if self.mesh is None else shard_batch(self.mesh, real)
 
     def _epochs(self):
         """Endless epochs, each an iterator over at most `steps_per_epoch`
@@ -254,8 +304,9 @@ class Trainer:
         while True:
             batches = prefetch_to_device(
                 self.dataset.epoch_batches(rng_np, cfg.bs), 2, self.device)
-            yield (augment_batch(gen, real, cfg.augment) for real in
-                   itertools.islice(batches, self.steps_per_epoch))
+            yield (self._mine(augment_batch(gen, real, cfg.augment))
+                   for real in itertools.islice(batches,
+                                                self.steps_per_epoch))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -328,12 +379,13 @@ class Trainer:
                      % (meters["real_acc"].avg, meters["fake_acc"].avg))
             if cfg.eval_every and epoch % cfg.eval_every == 0:
                 self.evaluate(epoch, self.state.step)
-            if epoch % cfg.snapshot == 0:
+            if epoch % cfg.snapshot == 0 and self.is_main:
                 save_checkpoint(cfg.log_dir, self.state, epoch, cfg)
             self._beat()                # evaluations and snapshots run long
         if self._dog is not None:
             self._dog.stop()
-        save_checkpoint(cfg.log_dir, self.state, max_epoch, cfg)
+        if self.is_main:
+            save_checkpoint(cfg.log_dir, self.state, max_epoch, cfg)
         return self.state
 
     def eval_reference(self) -> torch.Tensor:

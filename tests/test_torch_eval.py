@@ -130,8 +130,10 @@ class TestMetrics:
         assert pm.emd_pairs_per_call(3, 64, 64) == 2
         np.testing.assert_array_equal(pm.pairwise_emd_matrix(g, r, 0.01, 40),
                                       whole)
-        with pytest.raises(NotImplementedError):
-            pm.pairwise_emd_matrix(g, r, mesh=object())
+        # the point-sharded protocol (tests/test_torch_parallel_step.py)
+        # runs the scaled solver only
+        with pytest.raises(ValueError):
+            pm.pairwise_emd_matrix(g, r, scaled=False, mesh=object())
 
 
 class TestFPD:
@@ -264,8 +266,13 @@ class TestCli:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_cli.main(["--gen", str(tmp_path / "g.npy"), "--ref",
                            str(tmp_path / "g.npy")])
-        with pytest.raises(NotImplementedError):
+        # --mesh_points joins a torchrun launch's process group, on the
+        # card by default
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             port_cli.main(["--gen", "x", "--ref", "y", "--mesh_points", "2"])
+        with pytest.raises(RuntimeError, match="torchrun"):
+            port_cli.main(["--gen", "x", "--ref", "y", "--mesh_points", "2",
+                           "--device", "cpu"])
 
     def test_from_a_checkpoint(self, tmp_path, capsys):
         cfg = Config(np=64, bs=4, nk=8, nz=16, log_dir=str(tmp_path),

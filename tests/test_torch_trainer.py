@@ -162,13 +162,18 @@ class TestState:
         assert st.step == 1
 
     def test_per_shard_batchnorm_not_ported(self):
-        """Per-shard statistic groups wait for the data-parallel slice."""
+        """bn_stats=per_shard with a mesh shape of 2, on one device: the
+        step normalizes each half of the batch by its own statistics (two
+        groups; tests/test_torch_parallel_bn.py holds it to the JAX step)
+        and its losses are finite; one shard is one group."""
         cfg = Config(**TINY, bn_stats="per_shard", mesh_shape=(2,))
         assert cfg.bn_groups == 2
-        with pytest.raises(NotImplementedError):
-            make_train_step(cfg, np.zeros((64, 3)))
-        make_train_step(Config(**TINY, bn_stats="per_shard"),
-                        np.zeros((64, 3)))       # one shard is one group
+        st = create_train_state(cfg, device="cpu")
+        step = make_train_step(cfg, sphere_template(cfg.np))
+        real = torch.from_numpy(h5.SyntheticDataset(cfg.bs, cfg.np).data)
+        st, m = step(st, real)
+        assert all(np.isfinite(float(v)) for v in m.values())
+        assert Config(**TINY, bn_stats="per_shard").bn_groups == 1
 
 
 # ---------------------------------------------------------------- trainer
