@@ -198,6 +198,25 @@ Phases, in order; any failure raises and the script exits nonzero:
               cards or more, that many NCCL ranks run the data-parallel
               step against the one-card step; else the line `parallel
               multi-card: not run (1 card)`.
+9f. wide_k - kernels A, G, B and F past k = 32 (lists of 64, slice
+              21): at k = 33, 40 and 64 each bit-equal to its plain
+              version and twice alike on normal draws at the paths' shapes
+              (A on the template [64, 2048, 3], B at serving's and the
+              training step's shapes, F at P1's, G at a P2 request's) and
+              on the hard inputs of phase 3 (knn_hard with the quantum
+              cloud, the quantum band in all eight forms of F,
+              knn_blocked_hard), F also at k = 2W; B's, F's and G's
+              margins swept at k = 40; k = 65 refused by every wrapper,
+              naming the limit; kernel D bit-equal at the --nk 80 step's
+              call; at --nk 80: the default Config through Trainer.train
+              (3 steps) and Trainer.time_steps, P1 (CAMPAIGN_N8192), each
+              with its launches (B or F twice, D once a step), finite
+              losses and one profiled step; style_interpolate at N=2048
+              (A, B once a step) and N=16384 (G twice a step), the path
+              that takes A and G past k = 32 before kernel C does; small
+              --nk 80 steps against the CPU with EdgeConv2's selections
+              pinned; ptxas's registers and spills of every KM = 64
+              instantiation; the k = 40 rows of the kernels line.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -416,9 +435,10 @@ class Phases:
             f"(total {now - self.t0:.1f} s)")
 
 
-def ptxas_report(text: str) -> list:
+def ptxas_report(text: str, width: int = 80) -> list:
     """One line per kernel of nvcc's `-Xptxas -v` report: its (mangled)
-    name, registers, stack frame and spill bytes."""
+    name, cut to `width` characters, registers, stack frame and spill
+    bytes."""
     out, name, spill = [], "?", ""
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -431,15 +451,17 @@ def ptxas_report(text: str) -> list:
                      "bytes")
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out.append(f"{name[:80]}: {m.group(1)} registers, {spill}")
+            out.append(f"{name[:width]}: {m.group(1)} registers, {spill}")
     return out
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Median milliseconds of `fn()` over `reps` runs, each timed with CUDA
-    events after one warm-up run."""
+    events after one warm-up run (none with `warmup` False, for a plain
+    version of seconds whose operations ran before)."""
     import torch
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1335,14 +1357,17 @@ def fused_train_phase(seed: int, step_seeds: int, gen) -> dict:
 
 
 def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
-               draws=None):
+               draws=None, pin_knn=False):
     """One training step of copies of G0 and D0 on `device` (the
     regularizers' `draws` handed to it), recording
     EdgeConv2's inputs and selections, the max pools' inputs, both
     phases' gradients, the D-phase fakes, the G-phase fakes and D right
     after its Adam step. With `pinned` (a record of another run), the
     D phase takes that run's fakes and D takes its weights right after
-    D's Adam step, so that each phase here sees the other run's inputs."""
+    D's Adam step, so that each phase here sees the other run's inputs.
+    With `pin_knn` as well, EdgeConv2's diff edges (kernel B's or F's op)
+    take the other run's selections (its plain versions' edge rounding and
+    kernel D's backward), while its own are recorded."""
     import copy
 
     import torch
@@ -1365,13 +1390,17 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
         rec["lrelu"].append(x.detach().float().cpu())
         return lrelu(x, slope)
 
-    def recording(op):
+    def recording(op, pin=False):
         """EdgeConv2's fused op (kernel B's diff or, on the fused train
         path, concat form, or kernel F's on the band of knn_mode approx),
-        recording its input and selection."""
+        recording its input and selection; with `pin`, the diff form
+        returns the pinned run's selection instead."""
         def run(x, *args):
             diff, idx = op(x, *args)
             rec["knn"].append((x.detach().cpu(), idx.cpu()))
+            if pin:
+                idx = pinned["knn"][len(rec["knn"]) - 1][1].to(idx.device)
+                diff = PinnedEdgeDiff.apply(x, idx, diff.dtype)
             return diff, idx
         return run
 
@@ -1409,8 +1438,8 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
         lambda m, a, out: rec["pools"].append(out.detach().float().cpu()))
     D.bn_fc2.register_forward_pre_hook(
         lambda m, a: rec["pools"].append(a[0].detach().float().cpu()))
-    edge_mod.edge_diff_fused = recording(fused)
-    edge_mod.edge_diff_window = recording(window)
+    edge_mod.edge_diff_fused = recording(fused, pin_knn)
+    edge_mod.edge_diff_window = recording(window, pin_knn)
     edge_mod.edge_concat_fused = recording(concat)
     ft_mod._adain = recording_adain
     step_mod.generator_forward_train = recording_gft
@@ -1436,6 +1465,39 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
     rec["names"] = ([n for n, _ in D.named_parameters()],
                     [n for n, _ in G.named_parameters()])
     return rec
+
+
+class PinnedEdgeDiff:
+    """`nbr - central` at given indices, differentiable in x as the diff
+    edges are (`ops.edge.EdgeDiff`: the plain edge rounding forward,
+    kernel D or its plain version backward), for `small_step`'s pinned
+    selections. Made on first use: chip_smoke.py imports no torch at
+    module level."""
+
+    _fn = None
+
+    @classmethod
+    def apply(cls, x, idx, dtype):
+        if cls._fn is None:
+            import torch
+            from sp_gan_tpu_torch.ops.kernels import scatter_diff_bwd
+            from sp_gan_tpu_torch.ops.kernels.knn_edge import edges_from_idx
+
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x, idx, dtype):
+                    ctx.save_for_backward(idx)
+                    ctx.dtype = x.dtype
+                    return edges_from_idx(x.detach().float(), idx, dtype,
+                                          True)
+
+                @staticmethod
+                def backward(ctx, d):
+                    (idx,) = ctx.saved_tensors
+                    return (scatter_diff_bwd(d.contiguous(), idx)
+                            .to(ctx.dtype), None, None)
+            cls._fn = Fn
+        return cls._fn.apply(x, idx, dtype)
 
 
 def rel_max(a, b) -> float:
@@ -1464,7 +1526,7 @@ def grads_worst(names, ours, ref) -> dict:
     return worst
 
 
-def check_small_step(seed: int, cfg_kw=None) -> dict:
+def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
     """One float32 step at N=256, bs=4, nk=8 (or `cfg_kw`) on the card
     against the same
     step (same weights, batch and codes) of the port on the CPU. Each CPU
@@ -1512,7 +1574,15 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     ulp of z_g up and down, measured here ("g_own").
 
     With n_mix both phases take region-mixed codes (`mix_codes` on draws
-    from the seed's rng, the gate open), the same on both devices."""
+    from the seed's rng, the gate open), the same on both devices.
+
+    With `pin_knn` the CPU's EdgeConv2 takes the card's selections in both
+    phases (`small_step`): its own are still compared, each flip must lie
+    where the devices' inputs agree within 1e-3 of their max-abs
+    ("knn_pinned_flips"), and the chains start at the global pool. At
+    --nk 80 (40 of 256 points) the G phase's kNN parts the devices in
+    every seed of 0-7 on the H100, so only pinned can G's gradients be
+    compared there."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.config import Config
@@ -1548,11 +1618,13 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
     card = small_step("cuda", cfg, G0, D0, sphere, real, z_d, z_g,
                       draws=draws)
     cpu = small_step("cpu", cfg, G0, D0, sphere, real, z_d, z_g,
-                     pinned=card, draws=draws)
+                     pinned=card, draws=draws, pin_knn=pin_knn)
     res = {"seed": seed, "knn_mode": cfg.knn_mode,
            "fake2": rel_max(card["fakes"][1], cpu["fakes"][1]),
            "d_flips": 0, "g_flips": 0, "gp_flips": 0, "flip_input_err": 0.0,
            "fail": []}
+    if pin_knn:
+        res["knn_pinned_flips"] = 0
     if cfg.gan == "wgan" and cfg.lambda_gp > 0:
         # D's third forward of the D phase is the penalty's; D runs
         # 2 + regs forwards in the D phase and one in the G phase
@@ -1607,6 +1679,11 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
         first = True
         for what, i in chain:
             n, err = flips(what, i)
+            if n and pin_knn and what == "knn":
+                # the CPU went on with the card's picks: a near-tie each
+                res["knn_pinned_flips"] += n
+                res["flip_input_err"] = max(res["flip_input_err"], err)
+                continue
             if n:
                 res["g_flips"] += n
                 if first:
@@ -1650,7 +1727,7 @@ def check_small_step(seed: int, cfg_kw=None) -> dict:
 
 
 def check_small_steps(seed: int, need: int, cfg_kw=None,
-                      tries: int = 0) -> list:
+                      tries: int = 0, pin_knn: bool = False) -> list:
     """`check_small_step` from `seed` on, one seed after another, until
     `need` seeds had D's and `need` seeds G's gradients compared (at most
     `tries` seeds, by default 4 * need + 4: G's were compared in 9 of
@@ -1662,7 +1739,7 @@ def check_small_steps(seed: int, need: int, cfg_kw=None,
         return sum(tag in r for r in runs)
 
     for s in range(seed, seed + (tries or 4 * need + 4)):
-        runs.append(check_small_step(s, cfg_kw))
+        runs.append(check_small_step(s, cfg_kw, pin_knn))
         if min(compared("d_grads"), compared("g_grads")) >= need:
             break
     failed = [(r["seed"], r["fail"]) for r in runs if r["fail"]]
@@ -1840,7 +1917,7 @@ def check_knn_blocked(x, k, label: str = "") -> dict:
     return res
 
 
-def knn_blocked_hard(seed: int):
+def knn_blocked_hard(seed: int, k: int = 10):
     """Kernel G on the inputs where a filter that broke its contract would
     show, at P2's N: an integer grid round(4 randn) at C = 64 and C = 3
     (many exact ties), randn + 1000 at B = 2 (the margin then covers every
@@ -1849,7 +1926,7 @@ def knn_blocked_hard(seed: int):
     inputs, by name."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    n, k = SERVE_16K, 10
+    n = SERVE_16K
 
     def r(b, c):
         return torch.randn(b, n, c, generator=gen, device="cuda")
@@ -4182,6 +4259,405 @@ def parallel_phase(seed: int) -> dict:
     return res
 
 
+# slice 21: kernels A, G, B and F past k = 32. The lists the checks take:
+# just past the old limit, the default step's at --nk 80, the widest
+WIDE_K = (33, 40, 64)
+NK80 = 80
+# the steps of each --nk 80 path: warm-up and timed (Trainer.time_steps),
+# and those of the trainer's own loop
+WIDE_WARMUP, WIDE_STEPS, WIDE_LOOP_STEPS = 2, 5, 3
+
+
+def wide_ptxas(text: str) -> list:
+    """ptxas's lines for the wide-list instantiations (KM = 64) of the
+    selection engine: the filter's, the CUDA-core pass's, the merge's and
+    kernel F's CUDA-core kernel, by their whole mangled names."""
+    pat = re.compile(r"(knn_filter_kernelILi32ELi64E|knn_exact_kernelILi64E|"
+                     r"knn_merge_kernelILi64E|knn_edge_window_kernelILi4E"
+                     r"Li64E)")
+    return [line for line in ptxas_report(text, 400) if pat.search(line)]
+
+
+def check_band_to_2w(x, k: int) -> dict:
+    """Kernel F at W = ceil(k / 2), the narrowest band its kernel takes
+    (k <= 2W; the JAX function's W >= k is the wrapper's), both orders,
+    bf16 diffs, against `band_select` and the edge rounding of its plain
+    version, bit for bit and twice alike."""
+    import torch
+    from sp_gan_tpu_torch.ops.approx_knn import band_select
+    from sp_gan_tpu_torch.ops.kernels.knn import FILTER_MU, FILTER_NU
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import edges_from_idx
+    from sp_gan_tpu_torch.ops.kernels.knn_edge_window import _launch_band
+    W = -(-k // 2)
+    low = (1 << max((2 * W).bit_length(), 1)) - 1
+    res = {}
+    for mode in ("packed", "exact"):
+        args = (x, k, W, low, torch.bfloat16, True, mode, FILTER_MU,
+                FILTER_NU)
+        ee, idx = _launch_band(*args)
+        ee2, idx2 = _launch_band(*args)
+        ref = band_select(x, k, W, mode, low)
+        ee_p = edges_from_idx(x, ref, torch.bfloat16, True)
+        res[mode] = {"vs_plain": int((idx != ref).sum())
+                     + int((ee != ee_p).sum()),
+                     "vs_again": int((idx != idx2).sum())
+                     + int((ee != ee2).sum())}
+    log(f"  knn_edge_window[{list(x.shape)}, k={k}, W={W}]: {res}")
+    if any(v for r in res.values() for v in r.values()):
+        raise AssertionError(f"kernel F at k={k}, W={W}: not bit-equal")
+    return res
+
+
+def check_wide_limits() -> dict:
+    """At k = 65 every kNN kernel's wrapper raises on a CUDA tensor, naming
+    the limit, and launches nothing."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    x = torch.zeros(1, 512, 16, device="cuda")
+    calls = {"A": lambda: kernels.knn(x, 65),
+             "G": lambda: kernels.knn_blocked(x, 65),
+             "B": lambda: kernels.knn_edge(x, 65),
+             "F": lambda: kernels.knn_edge_window(x, 65, 128)}
+    kernels.reset_launch_counts()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out[name] = str(e)
+            if "k <= 64 (--nk <= 128)" not in str(e):
+                raise AssertionError(f"{name} at k = 65: {e}") from e
+        else:
+            raise AssertionError(f"{name} took k = 65 on CUDA")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("a refused call launched a kernel")
+    log(f"  k = 65 refused: {out}")
+    return out
+
+
+def trainer_loop_nk80(seed: int) -> dict:
+    """The default Config at --nk 80 through the trainer's own loop
+    (`Trainer.train`, one epoch of WIDE_LOOP_STEPS steps on its synthetic
+    data, a checkpoint at its end), from launch counts of 0: kernel B twice
+    and kernel D once a step, every weight finite and moved."""
+    import tempfile
+
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.train.trainer import Trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(seed=seed, nk=NK80, max_epoch=1,
+                     steps_per_epoch=WIDE_LOOP_STEPS, log_dir=tmp)
+        tr = Trainer(cfg, device="cuda", logs=False)
+        start = [p.detach().clone() for p in tr.state.G.parameters()]
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        state = tr.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+    for name, n in PER_STEP.items():
+        if launches[name] != n * WIDE_LOOP_STEPS:
+            raise AssertionError(f"Trainer.train at --nk {NK80}: {name} "
+                                 f"launched {launches[name]} times in "
+                                 f"{WIDE_LOOP_STEPS} steps")
+    now = list(state.G.parameters())
+    if not all(torch.isfinite(p).all() for p in now) or any(
+            torch.equal(a, b) for a, b in zip(start, now)):
+        raise AssertionError(f"Trainer.train at --nk {NK80}: a weight is "
+                             "not finite or did not move")
+    log(f"  Trainer.train at --nk {NK80}: {WIDE_LOOP_STEPS} steps in "
+        f"{wall:.2f} s (first-use costs included); launches {launches}")
+    return {"steps": WIDE_LOOP_STEPS, "wall_s": wall, "launches": launches}
+
+
+# style_interpolate at --nk 80 (the unfused eval path at B=1, kernel C
+# never): at N=2048 PER_STYLE_STEP a step; above 8192 points both EdgeConvs
+# select with kernel G
+WIDE_STYLE = {2048: PER_STYLE_STEP, SERVE_16K: per(knn_blocked=2)}
+WIDE_STYLE_STEPS = 3
+
+
+def style_nk80(seed: int) -> dict:
+    """`Manipulator.style_interpolate` at --nk 80 (k = 40) at N=2048 and
+    N=16384, weights from `seed`: WIDE_STYLE_STEPS forwards of batch 1,
+    from launch counts of 0, each launching WIDE_STYLE's kernels (A and B,
+    or G twice); finite clouds of the right shape. The one user path that
+    takes A and G past k = 32 before kernel C does."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.manipulate import Manipulator, region_mask
+    from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops import kernels
+    out = {}
+    for n, expected in WIDE_STYLE.items():
+        cfg = Config(seed=seed, nk=NK80, np=n)
+        man = Manipulator(cfg, Generator(cfg, seed=seed), device="cuda")
+        mask = region_mask(man.ball, 0, n // 3)
+        man.style_interpolate(mask, seed, seed + 1, 1)       # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        pcs = man.style_interpolate(mask, seed, seed + 1, WIDE_STYLE_STEPS)
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+        tag = f"style_interpolate at --nk {NK80}, N={n}"
+        if pcs.shape != (WIDE_STYLE_STEPS, n, 3) or not np.isfinite(pcs).all():
+            raise AssertionError(f"{tag}: bad output {pcs.shape}")
+        for name, per_step in expected.items():
+            if launches[name] != per_step * WIDE_STYLE_STEPS:
+                raise AssertionError(f"{tag}: {name} launched "
+                                     f"{launches[name]} times")
+        log(f"  {tag}: {wall * 1e3 / WIDE_STYLE_STEPS:.2f} ms a step; "
+            f"launches {launches}")
+        out[n] = {"ms_per_step": wall * 1e3 / WIDE_STYLE_STEPS,
+                  "launches": launches}
+        del man
+    return out
+
+
+def wide_k_phase(seed: int) -> tuple:
+    """Kernels A, G, B and F at k = 33, 40 and 64 bit-equal to their plain
+    versions and twice alike, on normal draws at the paths' shapes and on
+    the hard inputs of the k <= 32 checks (knn_hard with the quantum cloud,
+    the quantum band, knn_blocked_hard), kernel F also at k = 2W; B's, F's
+    and G's margins swept at k = 40; k = 65 refused; the default step and
+    P1 at --nk 80 (kernel B or F twice and D once a step, D held at its
+    k = 40 call), the default one also through the trainer's loop, small
+    --nk 80 steps against the CPU; and the k = 40 rows of the kernels line
+    (A at serving's shape, B at the training step's, F at P1's, G at a P2
+    request's). Returns the phase's figures and those rows."""
+    import itertools
+
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.data.sphere import sphere_template
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops.kernels import _build
+    res = {"ptxas_km64": wide_ptxas(_build.last_log), "seconds": {}}
+    for line in res["ptxas_km64"]:
+        log("  ptxas (KM = 64): " + line)
+    t0 = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        res["seconds"][part] = now - t0[0]
+        t0[0] = now
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    cfg = Config(seed=seed, nk=NK80)
+    camp = Config(seed=seed, **{**CAMPAIGN_N8192, "nk": NK80})
+    N = cfg.np
+    x_a = torch.as_tensor(sphere_template(N), device="cuda")[None] \
+        .expand(64, -1, -1).contiguous()
+    x_b = torch.randn(64, N, 64, generator=gen, device="cuda")
+    x_t = torch.randn(cfg.bs, N, 64, generator=gen, device="cuda")
+    x_f = torch.randn(camp.bs, camp.np, 64, generator=gen, device="cuda")
+    x_g = {3: torch.as_tensor(sphere_template(SERVE_16K), device="cuda")[None]
+           .expand(REQUEST_16K, -1, -1).contiguous(),
+           64: torch.randn(REQUEST_16K, SERVE_16K, 64, generator=gen,
+                           device="cuda")}
+    eight = list(itertools.product(("packed", "exact"),
+                                   (torch.bfloat16, torch.float32),
+                                   (True, False)))
+    checks, hard_in = {}, {}
+    for k in WIDE_K:
+        c = {"A": check_knn(x_a, k, "template, "),
+             "B_serve": check_knn_edge(x_b, k, [
+                 ("packed", torch.float32, False),
+                 ("exact", torch.float32, False)], "serve, "),
+             "B_train": check_knn_edge(x_t, k, [
+                 ("packed", torch.bfloat16, True),
+                 ("exact", torch.bfloat16, True)], "train, "),
+             "F": check_knn_edge_window(x_f, k, camp.knn_window),
+             "G": {str(ch): check_knn_blocked(xg, k)
+                   for ch, xg in x_g.items()},
+             "F_2W": check_band_to_2w(x_t[:4].contiguous(), k)}
+        c["AB_hard"], hard_in = knn_hard(seed + 19, N, k)
+        f_hard = {**hard_in, "quantum band": quantum_band_cloud(N, 16)}
+        c["F_hard"] = {label: check_knn_edge_window(
+            xx, k, camp.knn_window, eight, label + ", ")
+            for label, xx in f_hard.items()}
+        c["G_hard"], g_hard_in = knn_blocked_hard(seed + 17, k)
+        checks[k] = c
+        lap(f"checks at k = {k}")
+    res["checks"] = {k: {"A": c["A"], "G": c["G"], "F_2W": c["F_2W"]}
+                     for k, c in checks.items()}
+    k = cfg.k
+    res["margin"] = {
+        "B": b_margin_sweep({"offset": hard_in["offset"],
+                             "grid": hard_in["grid"],
+                             "near": hard_in["near"],
+                             "quantum": hard_in["quantum"],
+                             "randn": x_b[:4].contiguous()}, k),
+        "F": f_margin_sweep({"offset": (x_f + 1000).contiguous(),
+                             "grid": hard_in["grid"],
+                             "near": hard_in["near"],
+                             "quantum band": quantum_band_cloud(N, 16),
+                             "randn": x_f}, k, camp.knn_window),
+        "G": g_margin_sweep({"offset": g_hard_in["offset"],
+                             "grid": g_hard_in["grid"],
+                             "repeat": g_hard_in["repeat"],
+                             "randn": x_g[64]}, k)}
+    lap("margin sweeps")
+    res["refused"] = check_wide_limits()
+    # kernel D at the --nk 80 step's call: d_diff [24, 2048, 40, 64] bf16
+    # on kernel B's packed picks, bit for bit and twice alike
+    _, idx_t = kernels.knn_edge(x_t, k, torch.bfloat16, True, "packed")
+    dd = torch.randn(*x_t.shape[:2], k, 64, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    hold_diff_bwd(f"scatter_diff_bwd[--nk {NK80}]", dd, idx_t)
+    res["d_at_k40"] = dict(in_degrees(idx_t, N), ms=cuda_ms(
+        lambda: kernels.scatter_diff_bwd(dd, idx_t), 20))
+    # the paths
+    lap("D at k = 40")
+    res["loop"] = trainer_loop_nk80(seed)
+    lap("Trainer.train")
+    tr, step = timed_training(cfg, WIDE_STEPS, WIDE_WARMUP, PER_STEP,
+                              f"default step at --nk {NK80}")
+    step["profile"] = profile_call(lambda: tr.time_steps(1),
+                                   f"default step at --nk {NK80}")
+    del tr
+    tr, p1 = timed_training(camp, WIDE_STEPS, WIDE_WARMUP, PER_STEP_APPROX,
+                            f"P1 at --nk {NK80}")
+    p1["profile"] = profile_call(lambda: tr.time_steps(1),
+                                 f"P1 at --nk {NK80}")
+    del tr
+    res["step"], res["p1"] = step, p1
+    lap("default step and P1")
+    res["style"] = style_nk80(seed)
+    lap("style_interpolate")
+    res["small_step"] = check_small_steps(seed, 1, {"nk": NK80},
+                                          pin_knn=True)
+    lap("small steps")
+    rows = wide_rows(k, x_a, x_t, x_f, camp.knn_window, x_g, checks[k],
+                     step, p1, res["style"])
+    lap("k = 40 rows")
+    log(f"  wide_k seconds by part: {res['seconds']}")
+    return res, rows
+
+
+def wide_rows(k, x_a, x_t, x_f, window, x_g, checked, step, p1,
+              style) -> list:
+    """The kernels line's k = 40 rows: ms (CUDA events), plain ms and the
+    bound by route (select_bound, from the pairs each call folds exactly)
+    of A at serving's [64, 2048, 3], B at the training step's [24, 2048,
+    64] (bf16 diffs, packed), F at P1's [4, 8192, 64] and G at a P2
+    request (its two calls). A's and G's launches are style_interpolate's
+    (`style_nk80`): serving's requests take them past k = 32 with kernel
+    C, in the next slice."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.knn import knn, knn_plain
+    from sp_gan_tpu_torch.ops.kernels.knn_blocked import (knn_blocked,
+                                                          knn_blocked_plain)
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import (knn_edge,
+                                                       knn_edge_plain)
+    from sp_gan_tpu_torch.ops.kernels.knn_edge_window import (
+        knn_edge_window, knn_edge_window_plain, window_geometry)
+    refined = torch.zeros(1, dtype=torch.int64, device="cuda")
+
+    def pairs(fn):
+        refined.zero_()
+        fn(refined)
+        return int(refined.item())
+    tag = f"k = {k} (--nk {2 * k})"
+    rows = []
+    Ba, Na, _ = x_a.shape
+    a_pairs = pairs(lambda r: knn(x_a, k, refined=r))
+    rows.append(dict(
+        name="knn", route="cuda", source="sp_gan_tpu_torch/csrc/knn.cu",
+        replaces="sp_gan_tpu/ops/pallas/knn.py:515 (knn_pallas, "
+                 "_knn_kernel :24)",
+        launches=style[2048]["launches"]["knn"],
+        launches_per_step=style[2048]["launches"]["knn"] / WIDE_STYLE_STEPS,
+        k=k, max_abs_err=checked["A"]["max_abs_err"],
+        ms=cuda_ms(lambda: knn(x_a, k), 50),
+        plain_ms=cuda_ms(lambda: knn_plain(x_a, k), 10),
+        **dict(zip(("bound_ms", "bound_by"), select_bound(
+            a_pairs, Ba, Na, 3, Ba * Na * 3 * 4 + 2 * Ba * Na * k * 4))),
+        library_ms=None, refined_pairs=a_pairs,
+        refined_per_query=a_pairs / (Ba * Na), shape=list(x_a.shape),
+        path=f"style_interpolate at {tag} (launches); timed at a serving "
+             "request's EdgeConv1 shape, which serving takes with kernel C "
+             "in the next slice"))
+    Bt, Nt, Ct = x_t.shape
+    kw = dict(out_dtype=torch.bfloat16, diff_only=True, select_mode="packed")
+    b_pairs = pairs(lambda r: knn_edge(x_t, k, **kw, refined=r))
+    rows.append(dict(
+        name="knn_edge", route="cuda",
+        source="sp_gan_tpu_torch/csrc/knn_edge.cu",
+        replaces="sp_gan_tpu/ops/pallas/knn.py:313 (knn_edge_pallas, "
+                 "_knn_edge_kernel :177)",
+        launches=step["launches"]["knn_edge"],
+        launches_per_step=step["launches_per_step"]["knn_edge"], k=k,
+        max_abs_err=checked["B_train"]["max_abs_err"],
+        ms=cuda_ms(lambda: knn_edge(x_t, k, **kw), 20),
+        plain_ms=cuda_ms(lambda: knn_edge_plain(x_t, k, **kw), 5),
+        **dict(zip(("bound_ms", "bound_by"), select_bound(
+            b_pairs, Bt, Nt, Ct, Bt * Nt * Ct * 4 + Bt * Nt * k * Ct * 2
+            + Bt * Nt * k * 4))),
+        library_ms=None, refined_pairs=b_pairs,
+        refined_per_query=b_pairs / (Bt * Nt), shape=list(x_t.shape),
+        path=f"train at {tag}"))
+    Bf, Nf, Cf = x_f.shape
+    W, _ = window_geometry(Nf, k, window)
+    f_pairs = pairs(lambda r: knn_edge_window(x_f, k, window, **kw,
+                                              refined=r))
+    rows.append(dict(
+        name="knn_edge_window", route="cuda",
+        source="sp_gan_tpu_torch/csrc/knn_edge_window.cu",
+        replaces="sp_gan_tpu/ops/pallas/knn.py:463 (knn_edge_window_pallas,"
+                 " _knn_edge_window_kernel :339)",
+        launches=p1["launches"]["knn_edge_window"],
+        launches_per_step=p1["launches_per_step"]["knn_edge_window"], k=k,
+        max_abs_err=checked["F"]["max_abs_err"],
+        ms=cuda_ms(lambda: knn_edge_window(x_f, k, window, **kw), 20),
+        plain_ms=cuda_ms(lambda: knn_edge_window_plain(x_f, k, window,
+                                                       **kw), 3),
+        **dict(zip(("bound_ms", "bound_by"), select_bound(
+            f_pairs, Bf, Nf, Cf, Bf * Nf * Cf * 4 + Bf * Nf * k * Cf * 2
+            + Bf * Nf * k * 4, 2 * W + 1))),
+        library_ms=None, refined_pairs=f_pairs,
+        refined_per_query=f_pairs / (Bf * Nf), shape=list(x_f.shape),
+        window=W, path=f"N=8192 approx training (P1) at {tag}"))
+    g_calls = {}
+    for c, xg in x_g.items():
+        Bg, Ng, _ = xg.shape
+        g_pairs = pairs(lambda r: knn_blocked(xg, k, refined=r))
+        g_bound, g_by = select_bound(g_pairs, Bg, Ng, c, Bg * Ng * c * 4
+                                     + 2 * Bg * Ng * k * 4)
+        g_calls[f"C={c}"] = dict(
+            ms=cuda_ms(lambda: knn_blocked(xg, k), 5),
+            plain_ms=cuda_ms(lambda: knn_blocked_plain(xg, k), 1, False),
+            bound_ms=g_bound, bound_by=g_by, refined_pairs=g_pairs,
+            refined_per_query=g_pairs / (Bg * Ng))
+        log(f"  knn_blocked[C={c}, {tag}]: {g_calls[f'C={c}']}")
+    rows.append(dict(
+        name="knn_blocked", route="cuda",
+        source="sp_gan_tpu_torch/csrc/knn.cu",
+        replaces="sp_gan_tpu/ops/pallas/knn.py:120 (knn_pallas_blocked, "
+                 "_knn_blocked_kernel :58)",
+        launches=style[SERVE_16K]["launches"]["knn_blocked"],
+        launches_per_step=(style[SERVE_16K]["launches"]["knn_blocked"]
+                           / WIDE_STYLE_STEPS), k=k,
+        max_abs_err=max(r["max_abs_err"] for r in checked["G"].values()),
+        ms=sum(c["ms"] for c in g_calls.values()),
+        plain_ms=sum(c["plain_ms"] for c in g_calls.values()),
+        bound_ms=sum(c["bound_ms"] for c in g_calls.values()),
+        bound_by=g_calls["C=64"]["bound_by"], library_ms=None,
+        calls=g_calls, per="one request of 16 at N=16384: the edge1 call "
+        "(template) and the edge2 call (normal draws)",
+        path=f"style_interpolate at N=16384 at {tag} (launches); timed at "
+             "a P2 request's shapes, which serving takes with kernel C in "
+             "the next slice"))
+    for r in rows:
+        log(f"  {r['name']} ({r['path']}): {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']})")
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -4443,6 +4919,14 @@ def main() -> None:
     ph.start("parallel")
     par = parallel_phase(args.seed)
     log(json.dumps({"parallel": par}))
+    ph.end()
+
+    # -------------------------------------------------------------- 9f
+    ph.start("wide_k")
+    wide, wide_rows_k40 = wide_k_phase(args.seed)
+    log(json.dumps({"wide_k": {k: wide[k] for k in (
+        "ptxas_km64", "checks", "margin", "refused", "d_at_k40", "loop",
+        "step", "p1", "style", "small_step", "seconds")}}))
     ph.end()
 
     # --------------------------------------------------------------- 10
@@ -4945,6 +5429,7 @@ def main() -> None:
             library_ms=None, rounds=o["rounds"], bidders=o["bidders"],
             regime="eps 0.002, 10000 iterations, 4 phases",
             shape=list(d_o.shape), path=f"auction(mode={mode!r})"))
+    rows.extend(wide_rows_k40)
     for r in rows:
         lib = (f"library {r['library_ms']:.4f} ms" if r["library_ms"]
                is not None else "no single PyTorch call computes this "

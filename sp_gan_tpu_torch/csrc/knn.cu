@@ -32,13 +32,13 @@ extern "C" long long spgan_knn_scratch(int B, int N, int C, int k) {
 // refined null or one unsigned 64-bit counter, to which the call adds the
 // (query, key) pairs it folds exactly. mu and nu: the filter's margin
 // (knn_filter.cuh). Launches on `stream` and returns the first nonzero
-// cudaError_t (0 on success). Takes C <= 128, 1 <= k <= min(32, N) and
+// cudaError_t (0 on success). Takes C <= 128, 1 <= k <= min(64, N) and
 // B <= 65535.
 extern "C" int spgan_knn(const void* x, void* scratch, void* idx, void* dist,
                          void* refined, int B, int N, int C, int k, float mu,
                          float nu, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || C > 128 || k <= 0 ||
-      k > N || k > 32)
+      k > N || k > 64)
     return (int)cudaErrorInvalidValue;
   const spgan::Select<spgan::ListOut> f{
       {static_cast<int32_t*>(idx), static_cast<float*>(dist), k},

@@ -2,7 +2,8 @@
 // through the selection engine of knn_filter.cuh; knn_edge_window.cu: F,
 // through that engine above 4 channels and select_band at or below;
 // chamfer.cu: N): the f32 distance fold, the running top-k kept in
-// registers and the edge-row writer.
+// registers (TopK; TopKSplit keeps the indices in shared memory) and the
+// edge-row writer.
 //
 // Layout: one thread owns one query point; a block holds kQueries queries
 // of one cloud and walks its keys (a chunk of them, or a circular band) in
@@ -78,6 +79,49 @@ struct TopK {
           idx[t] = i;
           i = ti;
         }
+      }
+    }
+  }
+};
+
+// Slot t of one thread's column of a block's shared int table, at
+// p[t * kQueries]: a warp's threads touch consecutive words, one bank each.
+struct SmemColumn {
+  int* p;
+  __device__ __forceinline__ int& operator[](int t) const {
+    return p[t * kQueries];
+  }
+};
+
+// TopK<K, false> with the keys in registers and the indices in the
+// thread's column of a shared table: the wide exact lists (K = 64), whose
+// 2 K registers beside a filter tile's accumulators spill. Its entries,
+// order and pushes are TopK's; only where the indices live differs.
+template <int K>
+struct TopKSplit {
+  int key[K];
+  SmemColumn idx;
+
+  __device__ __forceinline__ void init(int* column) {
+    idx.p = column;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      key[t] = INT_MAX;
+      idx[t] = INT_MAX;
+    }
+  }
+
+  __device__ __forceinline__ void push(int k, int i) {
+    if (!TopK<K, false>::before(k, i, key[K - 1], idx[K - 1])) return;
+#pragma unroll
+    for (int t = 0; t < K; ++t) {
+      if (TopK<K, false>::before(k, i, key[t], idx[t])) {
+        const int tk = key[t];
+        key[t] = k;
+        k = tk;
+        const int ti = idx[t];
+        idx[t] = i;
+        i = ti;
       }
     }
   }
@@ -268,7 +312,7 @@ __device__ __forceinline__ void write_edges(const float* __restrict__ xb,
                                             int C, int k, int q0, int nq,
                                             bool diff_only, bool out_bf16) {
   const int ec = diff_only ? C : 2 * C;
-  const int total = nq * k * ec;  // at most 128 * 32 * 256
+  const int total = nq * k * ec;  // at most 128 * 64 * 256
   const size_t base = ((size_t)b * N + q0) * k * ec;
   if (C % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(ee) % 16 == 0) {
@@ -317,7 +361,7 @@ __device__ __forceinline__ void write_edges(const float* __restrict__ xb,
 
 // Host-side dispatch of the compile-time widths: CM, the channel count
 // rounded up to one of 4, 8, 16, 32, 64, 128; KM, the neighbor count
-// rounded up to 16 or 32. `f` is a launcher with a member template
+// rounded up to 16, 32 or 64. `f` is a launcher with a member template
 // `operator()<CM, KM>()`. Returns false for widths past those.
 template <int CM, typename F>
 bool dispatch_k(int k, const F& f) {
@@ -327,6 +371,10 @@ bool dispatch_k(int k, const F& f) {
   }
   if (k <= 32) {
     f.template operator()<CM, 32>();
+    return true;
+  }
+  if (k <= 64) {
+    f.template operator()<CM, 64>();
     return true;
   }
   return false;
@@ -344,7 +392,8 @@ bool dispatch_widths(int C, int k, const F& f) {
 }
 
 // Shared floats a block needs: one key tile, reused afterwards for the
-// block's neighbor indices.
+// block's neighbor indices (32 KB at KM = 64, under the 48 KB of static
+// shared memory a block may have).
 template <int CM, int KM>
 __host__ __device__ constexpr int smem_floats() {
   return kTileKeys * CM > kQueries * KM ? kTileKeys * CM : kQueries * KM;

@@ -41,14 +41,14 @@ extern "C" long long spgan_knn_edge_scratch(int B, int N, int C, int k) {
 // refined null or one unsigned 64-bit counter, to which the call adds the
 // (query, key) pairs it folds exactly; mu and nu the filter's margin.
 // Launches on `stream` and returns the first nonzero cudaError_t (0 on
-// success). Takes C <= 128, 1 <= k <= min(32, N), B <= 65535 and N <=
+// success). Takes C <= 128, 1 <= k <= min(64, N), B <= 65535 and N <=
 // 2^30.
 extern "C" int spgan_knn_edge(const void* x, void* scratch, void* ee,
                               void* idx, void* refined, int B, int N, int C,
                               int k, int diff_only, int packed, int out_bf16,
                               float mu, float nu, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || N > (1 << 30) || C <= 0 || C > 128 ||
-      k <= 0 || k > N || k > 32)
+      k <= 0 || k > N || k > 64)
     return (int)cudaErrorInvalidValue;
   int bits = 1;
   while ((1 << bits) < N) ++bits;  // ceil(log2 N), at least 1

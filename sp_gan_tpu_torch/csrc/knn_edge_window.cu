@@ -130,7 +130,7 @@ extern "C" long long spgan_knn_edge_window_scratch(int B, int N, int C, int k,
 // call adds the (query, key) pairs it folds exactly; mu and nu the filter's
 // margin. `low_mask` is the packed key's column mask, 2^b - 1 >= 2W.
 // Launches on `stream` and returns the first nonzero cudaError_t (0 on
-// success). Takes C <= 128, 1 <= k <= min(32, 2W), 2W < N, B <= 65535 and
+// success). Takes C <= 128, 1 <= k <= min(64, 2W), 2W < N, B <= 65535 and
 // N <= 2^30.
 extern "C" int spgan_knn_edge_window(const void* x, void* scratch, void* ee,
                                      void* idx, void* refined, int B, int N,
@@ -138,7 +138,7 @@ extern "C" int spgan_knn_edge_window(const void* x, void* scratch, void* ee,
                                      int diff_only, int packed, int out_bf16,
                                      float mu, float nu, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || C > 128 || k <= 0 ||
-      k > 32 || W <= 0 || k > 2 * W || 2 * W >= N || N > (1 << 30) ||
+      k > 64 || W <= 0 || k > 2 * W || 2 * W >= N || N > (1 << 30) ||
       low_mask < 2 * W || (low_mask & (low_mask + 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);

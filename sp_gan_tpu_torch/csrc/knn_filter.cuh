@@ -53,11 +53,14 @@
 // through the same list, then hands it to the sink, which writes the edge
 // rows from a kernel that keeps many blocks an SM in flight (the filter
 // keeps two or three). k <= 10 keeps a list of 10, 11 <= k <= 32 one of
-// 32. A block walks its chunk in tiles (64 keys; the filter's 64 or 32,
-// kFewBlocksPerSm below) starting at the tile that holds its own first
-// query, wrapping around: on a cloud stored in
-// spatial order (the sphere template, and the features computed from it)
-// the first tiles hold near neighbours, so the list's k-th entry falls
+// 32, 33 <= k <= 64 (--nk <= 128) one of 64: KM, the list's compile-time
+// width (in exact order the filter keeps a list of 64's indices in shared
+// memory, FilterList below). A block walks its chunk in tiles (64 keys;
+// the filter's 64 or 32, kFewBlocksPerSm below, and 32 at KM = 64)
+// starting at the tile that holds its own first query, wrapping around:
+// on a cloud stored in spatial order (the sphere template, and the
+// features computed from it) the first tiles hold near neighbours, so the
+// list's k-th entry falls
 // early and few later keys get past it. A list keeps the k smallest of
 // what it is given in any order, so the walk's order changes no result.
 //
@@ -89,7 +92,8 @@
 // instead (first_bound): an upper bound tau0 on the distances of at least
 // k of its keys, so that the list is full after it. Where the estimates
 // bound fewer than k keys, tau0 is +inf and the tile takes every key, so
-// a degenerate cloud turns into the exact pass and stays right.
+// a degenerate cloud turns into the exact pass and stays right. At KM =
+// 64 (k > 32) tau0 is +inf outright (wide lists, below).
 //
 // tau, by order. Exact: the fold's distance of the list's k-th entry.
 // Packed: tau_q = int_as_float(K | low), K the list's k-th key, the
@@ -124,6 +128,20 @@
 // tau0 is such a threshold too: at least k keys have d <= tau0, so the
 // list's final k-th entry (exact) or key (packed, whose high bits are
 // those of a distance <= tau0) comes no later than theirs.
+//
+// Wide lists (KM = 64, 33 <= k <= 64). The filter's tiles hold FT = 32
+// keys there, so a fragment row's 4 lanes see 32 columns in all, the
+// query itself among them in its own tile: fewer than k, and no bound
+// over one tile covers k keys. So the first tile of a chunk is not
+// filtered: rrb is +inf and every key of it (a band's candidates in it,
+// for F) gets the exact fold. While the list holds fewer than k entries
+// its k-th slot is the sentinel (INT_MAX, INT_MAX), so tau is NaN (exact)
+// or tau_q is NaN (packed, INT_MAX | low = INT_MAX), rb is +inf and the
+// next tiles take every key too, until k candidates have been pushed. No
+// key is dropped before the list is full, and from then on tau is the
+// k-th entry of the keys pushed so far, as above: the argument needs no
+// bound on the first tile. At k <= 32 nothing changes: M = ceil(KM / 4)
+// <= 8 columns of a lane's FT / 4 >= 8 (first_bound).
 //
 // On the band each step holds as it stands, with p for j and the band for
 // the chunk's keys. The band mask acts before any push (keys outside a
@@ -206,7 +224,42 @@ constexpr int kT = kTileKeys;      // keys per tile of the exact kernel
 // grid fits one wave at three blocks an SM, which 64 would spread over two
 // waves, the second part empty (the training step's 384 blocks on 132
 // SMs); 64 otherwise (the serving request's 1024 blocks, P2's 2048).
+// Wide lists (KM = 64) always take tiles of 32 at two blocks an SM: the
+// list's 64 registers of keys (FilterList) beside a 64-key tile's 64 of
+// accumulators would not fit the 255 a thread may have (245-252 at tiles
+// of 32, no spill).
 constexpr int kFewBlocksPerSm = 3;
+constexpr int kWideK = 64;         // the widest list (k <= 64)
+
+// The list the filter keeps: TopK, or for the wide exact lists TopKSplit,
+// its indices in a shared table of KM * kSelQ ints (32 KB), so that the
+// list takes 64 registers, as a packed one does: with TopK's 128 beside
+// the accumulators the filter spilled 1.3 KB a thread (G at P2's 64
+// channels 41.0-41.4 ms a call, split 35.1 on the H100). The CUDA-core
+// pass and the merge keep TopK: they hold no accumulators, and at the
+// CUDA-core pass's many pushes the shared indices cost more than they
+// save (A at [64, 2048, 3] 4.58-4.80 ms in registers, 6.34 split).
+template <int KM, bool PACKED>
+struct FilterList {
+  using type = TopK<KM, PACKED>;
+  static constexpr int kSharedInts = 0;
+};
+
+template <>
+struct FilterList<kWideK, false> {
+  using type = TopKSplit<kWideK>;
+  static constexpr int kSharedInts = kWideK * kSelQ;
+};
+
+template <int K, bool P>
+__device__ __forceinline__ void init_list(TopK<K, P>& top, int*) {
+  top.init();
+}
+
+template <int K>
+__device__ __forceinline__ void init_list(TopKSplit<K>& top, int* column) {
+  top.init(column);
+}
 // blocks the split aims at: the exact kernel keeps many blocks an SM in
 // flight, the filter two (its shared memory)
 constexpr int kFillExact = 1024;
@@ -273,10 +326,9 @@ struct ListOut {
   int k;
 
   // Called by every thread of the block with its query's list.
-  template <int KM>
-  __device__ __forceinline__ void finish(const TopK<KM, false>& top, int b,
-                                         int N, int q0, bool valid,
-                                         float*) const {
+  template <int KM, class List>
+  __device__ __forceinline__ void finish(const List& top, int b, int N,
+                                         int q0, bool valid, float*) const {
     if (!valid) return;
     const size_t o = ((size_t)b * N + q0 + threadIdx.x) * k;
 #pragma unroll
@@ -306,9 +358,9 @@ struct EdgeOut {
   bool diff_only, out_bf16;
   int W;  // the band's half-width (BAND)
 
-  template <int KM>
-  __device__ __forceinline__ void finish(const TopK<KM, PACKED>& top, int b,
-                                         int N, int q0, bool valid,
+  template <int KM, class List>
+  __device__ __forceinline__ void finish(const List& top, int b, int N,
+                                         int q0, bool valid,
                                          float* smem) const {
     int* snbr = reinterpret_cast<int*>(smem);
     __syncthreads();  // every thread is done with the shared memory
@@ -350,8 +402,8 @@ __device__ __forceinline__ int first_tile(int q0, int key0, int key1,
 
 // The list's k-th entry as the filter's threshold tau (above): exact, its
 // distance; packed, tau_q. NaN or +-inf where every key must be kept.
-template <int KM, bool PACKED>
-__device__ __forceinline__ float list_tau(const TopK<KM, PACKED>& top, int k,
+template <int KM, bool PACKED, class List>
+__device__ __forceinline__ float list_tau(const List& top, int k,
                                           int low_mask) {
   int kth = INT_MAX;
 #pragma unroll
@@ -369,9 +421,8 @@ __device__ __forceinline__ int select_key(float d, int low_mask, int j) {
 
 // The end of a selection block: the lists to the sink (S = 1, no edges),
 // or to the partial lists of chunk s.
-template <int KM, class Out>
-__device__ __forceinline__ void end_block(const Out& out,
-                                          const TopK<KM, Out::kPacked>& top,
+template <int KM, class Out, class List>
+__device__ __forceinline__ void end_block(const Out& out, const List& top,
                                           int b, int N, int q0, bool valid,
                                           int s, int S, int k,
                                           int32_t* part_key,
@@ -568,16 +619,20 @@ __host__ __device__ constexpr int filter_cp(int C) {
 // Shared bytes of a filter block with tiles of FT keys, ld = Cp + 4
 // (conflict-free fragment loads): the query rows [kSelQ, ld], two key
 // tiles [FT, ld], their norms [2, FT], the current tile's tf32 pairs in
-// fragment order [2, FT * Cp] and its keys' terms mu kn - kn and kn + mu
-// kn, rounded up [2, FT].
-int filter_smem_bytes(int C, int FT) {
+// fragment order [2, FT * Cp], its keys' terms mu kn - kn and kn + mu
+// kn, rounded up [2, FT], and `list_ints` of the lists' indices
+// (FilterList; 167 KB at C = 128 with a wide exact list, of the 227 KB a
+// block may have).
+int filter_smem_bytes(int C, int FT, int list_ints) {
   const int Cp = filter_cp(C), ld = Cp + 4;
-  return (kSelQ * ld + 2 * FT * ld + 2 * FT + 2 * FT * Cp + 2 * FT) *
+  return (kSelQ * ld + 2 * FT * ld + 2 * FT + 2 * FT * Cp + 2 * FT +
+          list_ints) *
          (int)sizeof(float);
 }
 
-// The threshold of a chunk's first tile, which meets an empty list: from
-// the tile's own estimates. U_j = (qn - 2 c~) + (kn + mu kn) + (mu qn +
+// The threshold of a chunk's first tile, which meets an empty list, at
+// KM <= 32 (at KM = 64 it is +inf: wide lists, above): from the tile's
+// own estimates. U_j = (qn - 2 c~) + (kn + mu kn) + (mu qn +
 // nu), each step rounded up, bounds d_j from above (the bound of the
 // header holds both ways). Each of the 4 lanes holding a fragment row
 // takes the M-th smallest U of its FT / 4 columns, M = ceil(KM / 4) (self and
@@ -638,7 +693,7 @@ __device__ __forceinline__ void first_bound(const float (&acc)[2][FT / 8][4],
 }
 
 template <int FT, int KM, class Out>
-__global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
+__global__ void __launch_bounds__(kSelQ, FT == 32 && KM < kWideK ? 3 : 2)
     knn_filter_kernel(const float* __restrict__ x,
                       const float* __restrict__ norms, Out out,
                       int32_t* __restrict__ part_key,
@@ -647,6 +702,7 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
                       int k, int S, int chunk, int low_mask, float mu,
                       float nu, int vec) {
   constexpr bool P = Out::kPacked;
+  using List = FilterList<KM, P>;
   constexpr int NT = FT / 8;  // n-tiles of 8 keys
   extern __shared__ __align__(16) float smem[];
   const int Cp = filter_cp(C), ld = Cp + 4, NP = Cp / 16;
@@ -656,6 +712,8 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
   float* sb = skn + 2 * FT;       // [2 (hi, lo), NT, NP, 32, 4] tf32 pairs
   float* sw = sb + 2 * FT * Cp;   // [FT] (mu kn - kn) / 2, rounded up
   float* su = sw + FT;            // [FT] kn + mu kn, rounded up
+  // [KM, kSelQ] the lists' indices (FilterList), if they live here
+  int* sidx = reinterpret_cast<int*>(su + FT);
   const int b = blockIdx.z, s = blockIdx.y, q0 = blockIdx.x * kSelQ;
   // Keys in key coordinates: the cloud's rows, or (kernel F) the positions
   // r of the block's circular slice, rows q0 - W + r mod N, where query t's
@@ -708,8 +766,8 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
   // mu qn + (tau + nu), rounded up; +inf (every key kept) while the list is
   // short, tau is not finite or qn is not below kHuge
   float rb = kInf;
-  TopK<KM, P> top;
-  top.init();
+  typename List::type top;
+  init_list(top, sidx + threadIdx.x);
   unsigned long long count = 0;
 
   for (int it = 0; it < tiles; ++it) {
@@ -802,8 +860,16 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
     // each n-tile
     float rrb[2][2];
     if (it == 0) {
-      first_bound<FT, KM, P, Out::kBand>(acc, rqn, su, qk0 + warp * 32, tile0,
-                                         t4, g, k, low_mask, mu, nu, W, rrb);
+      if constexpr (KM >= kWideK) {  // every key of the first tile kept
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) rrb[m][h] = kInf;
+      } else {
+        first_bound<FT, KM, P, Out::kBand>(acc, rqn, su, qk0 + warp * 32,
+                                           tile0, t4, g, k, low_mask, mu, nu,
+                                           W, rrb);
+      }
     } else {
 #pragma unroll
       for (int m = 0; m < 2; ++m)
@@ -873,7 +939,7 @@ __global__ void __launch_bounds__(kSelQ, FT == 32 ? 3 : 2)
         if (j == sj) d = kInf;  // self
         top.push(select_key<P>(d, low_mask, col0 + j), col0 + j);
       }
-      const float tau = list_tau(top, k, low_mask);
+      const float tau = list_tau<KM, P>(top, k, low_mask);
       rb = (fabsf(tau) < kInf && qn < kHuge)
                ? __fmaf_ru(mu, qn, __fadd_ru(tau, nu))
                : kInf;
@@ -932,7 +998,8 @@ struct Select {
   int filter(dim3 grid, const float* norms, int32_t* part_key,
              int32_t* part_idx) const {
     const Split sp = split();
-    const int bytes = filter_smem_bytes(C, FT);
+    const int bytes =
+        filter_smem_bytes(C, FT, FilterList<KM, Out::kPacked>::kSharedInts);
     const cudaError_t e = cudaFuncSetAttribute(
         knn_filter_kernel<FT, KM, Out>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -967,14 +1034,19 @@ struct Select {
       const cudaError_t e =
           cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (e != cudaSuccess) return (int)e;
-      const long long blocks = (long long)grid.x * grid.y * grid.z;
-      // the band's grid takes tiles of 32 only where tiles of 64 (two
-      // blocks an SM) would spread it over two waves: P1's 256 blocks fit
-      // one wave of 64 and read faster so on an H100
-      const bool few = blocks <= (long long)kFewBlocksPerSm * sms &&
-                       (!Out::kBand || blocks > 2LL * sms);
-      const int r = few ? filter<32, KM>(grid, norms, part_key, part_idx)
-                        : filter<64, KM>(grid, norms, part_key, part_idx);
+      int r;
+      if constexpr (KM >= kWideK) {  // tiles of 32 whatever the grid
+        r = filter<32, KM>(grid, norms, part_key, part_idx);
+      } else {
+        const long long blocks = (long long)grid.x * grid.y * grid.z;
+        // the band's grid takes tiles of 32 only where tiles of 64 (two
+        // blocks an SM) would spread it over two waves: P1's 256 blocks
+        // fit one wave of 64 and read faster so on an H100
+        const bool few = blocks <= (long long)kFewBlocksPerSm * sms &&
+                         (!Out::kBand || blocks > 2LL * sms);
+        r = few ? filter<32, KM>(grid, norms, part_key, part_idx)
+                : filter<64, KM>(grid, norms, part_key, part_idx);
+      }
       if (r != 0) return r;
     }
     if (merges<Out>(sp) && cudaPeekAtLastError() == cudaSuccess)
@@ -984,7 +1056,9 @@ struct Select {
     return (int)cudaGetLastError();
   }
 
-  int operator()() const { return k <= 10 ? run<10>() : run<32>(); }
+  int operator()() const {
+    return k <= 10 ? run<10>() : (k <= 32 ? run<32>() : run<kWideK>());
+  }
 };
 
 }  // namespace

@@ -27,7 +27,7 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     ascending, ties to the lower index), on f32 distances. Kernel A on
     CUDA, or kernel G above 8192 points (the switch of the JAX
     `knn_pallas`, `knn.py:503-506`); their plain versions on the CPU. Both
-    take C <= 128 and k <= 32 on CUDA and give the same indices. Indices
+    take C <= 128 and k <= 64 on CUDA and give the same indices. Indices
     carry no gradient."""
     x = x.detach().float().contiguous()
     with torch.no_grad():

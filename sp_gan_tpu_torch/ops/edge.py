@@ -22,7 +22,7 @@ kernel M branch; the gather's backward is
 else `index_add_`). Eligibility is the JAX rule of
 `_use_fused_knn_edge` (N % 8 == 0, N <= 8192, N*C*4 <= 8 MiB, C >= 16)
 minus its TPU condition, plus the port's own limits: the CUDA kernels take
-C <= 128 and k <= 32, and kernel B no N limit beyond those. Selection order
+C <= 128 and k <= 64, and kernel B no N limit beyond those. Selection order
 comes from env `SPGAN_KNN_SELECT` (packed, the default, or exact), as in
 the JAX package; `SPGAN_DIST_MODE` does not apply, distances are always
 true f32.

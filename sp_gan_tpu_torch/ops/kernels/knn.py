@@ -54,7 +54,7 @@ from sp_gan_tpu_torch.ops.kernels import _build
 from sp_gan_tpu_torch.ops.pairwise import self_sqdist, smallest_k
 
 MAX_C = 128
-MAX_K = 32
+MAX_K = 64
 # the filter's margin, the one definition for kernels A, B and G: a key is
 # dropped only if its tensor-core distance exceeds tau + FILTER_NU +
 # FILTER_MU * (|q|^2 + |k|^2) (csrc/knn_filter.cuh derives both)
@@ -77,10 +77,10 @@ def _check(x: torch.Tensor, k: int) -> None:
 
 
 def check_kernel_limits(name: str, k: int, C: int = 1, B: int = 1) -> None:
-    """The CUDA kernels' limits, checked before a launch: k <= 32 (the
-    generator's --nk <= 64), C <= 128 channels and B <= 65535 clouds. The
-    plain versions have none of them, but a CUDA tensor never falls back
-    to a plain version."""
+    """The limits of the kNN kernels A, B, F and G, checked before a
+    launch: k <= 64 (the generator's --nk <= 128), C <= 128 channels and
+    B <= 65535 clouds. The plain versions have none of them, but a CUDA
+    tensor never falls back to a plain version."""
     if k > MAX_K or C > MAX_C or B > 65535:
         raise ValueError(
             f"{name} takes k <= {MAX_K} (--nk <= {2 * MAX_K}), C <= {MAX_C} "

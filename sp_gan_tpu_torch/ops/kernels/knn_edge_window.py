@@ -8,7 +8,9 @@ query's candidates are exactly the circular index band of offsets
 0 < |o| <= W around it and idx holds GLOBAL indices (mod N). W is
 `window` clamped to (N - tq) // 2, as in the JAX function, where tq is the
 JAX kernel's query tile (256 unless given, halved until it divides N); a
-clamped W below k raises. Selection runs on f32 distances:
+clamped W below k raises, as the JAX function asserts. The kernel itself
+takes any k <= min(64, 2W) (`_launch_band`). Selection runs on f32
+distances:
 
 - `select_mode="exact"`: ascending (distance, band position), so ties go
   to the lower offset;
@@ -107,10 +109,26 @@ def _launch(x: torch.Tensor, k: int, window: int, cd: torch.dtype, tq: int,
     if x.device.type != "cuda":
         raise ValueError(f"knn_edge_window runs on cuda or cpu, not "
                          f"{x.device}")
+    W, low_mask = window_geometry(x.shape[1], k, window, tq)
+    return _launch_band(x, k, W, low_mask, cd, diff_only, select_mode, mu,
+                        nu, refined)
+
+
+def _launch_band(x: torch.Tensor, k: int, W: int, low_mask: int,
+                 cd: torch.dtype, diff_only: bool, select_mode: str,
+                 mu: float, nu: float,
+                 refined: Optional[torch.Tensor] = None):
+    """Kernel F on a CUDA tensor at the band's half-width W and the packed
+    key's column mask `low_mask` (2^b - 1 >= 2W), k <= min(64, 2W): the
+    band as the kernel takes it, without the JAX function's W >= k."""
     B, N, C = x.shape
     check_kernel_limits("kernel F (knn_edge_window)", k, C, B)
     check_refined(refined, x)
-    W, low_mask = window_geometry(N, k, window, tq)
+    if not (k <= 2 * W < N and low_mask >= 2 * W
+            and low_mask & (low_mask + 1) == 0):
+        raise ValueError(f"kernel F needs k <= 2W < N and a mask 2^b - 1 "
+                         f">= 2W; got k={k}, W={W}, N={N}, "
+                         f"low_mask={low_mask}")
     ec = C if diff_only else 2 * C
     ee = torch.empty((B, N, k, ec), dtype=cd, device=x.device)
     idx = torch.empty((B, N, k), dtype=torch.int32, device=x.device)

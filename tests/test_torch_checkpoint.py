@@ -176,10 +176,14 @@ class TestJaxToPort:
 
 class TestKnnLimits:
     @pytest.mark.parametrize("dtype", ["float32", "mixed_edge"])
-    def test_manipulator_at_nk_80(self, dtype):
-        """k = 40 > 32 runs on the CPU. In float32 the clouds equal the
-        JAX Generator's on the same weights and codes within 2e-4; under
-        mixed_edge they are finite and of the right shape."""
+    def test_manipulator_at_nk_80(self, dtype, monkeypatch):
+        """k = 40 runs on the CPU, EdgeConv2 through kernel B's plain
+        version (k <= 64) in the exact selection order, as the JAX
+        Generator selects on the CPU (tests/test_torch_serving.py). In
+        float32 the clouds equal the JAX Generator's on the same weights
+        and codes within 2e-4; under mixed_edge they are finite and of the
+        right shape."""
+        monkeypatch.setenv("SPGAN_KNN_SELECT", "exact")
         cfg = Config(np=128, nk=80, nz=16, dtype=dtype)
         G = Generator(cfg, seed=0)
         man = Manipulator(cfg, G, device="cpu")
@@ -209,9 +213,9 @@ class TestKnnLimits:
             knn(x, 48)
 
     @pytest.mark.parametrize("k, C, match", [
-        (40, 3, r"k <= 32 \(--nk <= 64\).*k=40 \(from --nk 80\)"),
+        (65, 3, r"k <= 64 \(--nk <= 128\).*k=65 \(from --nk 130\)"),
         (10, 160, "C <= 128.*C=160")])
     def test_cuda_limits_name_the_flag(self, k, C, match):
         with pytest.raises(ValueError, match=match):
             check_kernel_limits("kernel A (knn)", k, C)
-        check_kernel_limits("kernel A (knn)", 32, 128)
+        check_kernel_limits("kernel A (knn)", 64, 128)

@@ -98,10 +98,12 @@ def filter_select(x: torch.Tensor, k: int, mode: str, mu: float, nu: float,
     tau_q of the k-th pushed key (packed; the k-th distance with `widen`
     False), every key kept while it is not finite. The first tile's
     threshold is first_bound's: for each query, the M-th smallest upper
-    bound (qn - 2 c~) + kn + mu (qn + kn) + nu of each lane's 16 columns
-    (column c is lane (c % 8) // 2's, M = ceil(KM / 4), KM = 10 or 32),
-    the largest of the four lanes'. Returns the k neighbours [B, N, k] of
-    the pushed keys in the mode's order."""
+    bound (qn - 2 c~) + kn + mu (qn + kn) + nu of each lane's tile / 4
+    columns (column c is lane (c % 8) // 2's, M = ceil(KM / 4), KM = 10 or
+    32), the largest of the four lanes'; with a wide list (KM = 64, k >
+    32, whose tiles hold 32 keys) it is +inf, the first tile taken whole.
+    Returns the k neighbours [B, N, k] of the pushed keys in the mode's
+    order."""
     B, N, C = x.shape
     acc = _estimates(x).double()
     qn = sq_norms(x).double()[:, :, None]
@@ -119,10 +121,12 @@ def filter_select(x: torch.Tensor, k: int, mode: str, mu: float, nu: float,
     key_tile = q // tile
     eye = torch.eye(N, dtype=torch.bool)
     pushed = torch.zeros(B, N, N, dtype=torch.bool)
-    km = 10 if k <= 10 else 32
+    km = 10 if k <= 10 else (32 if k <= 32 else 64)
     for it in range(tiles):
         in_tile = key_tile[None, :] == ((first + it) % tiles)[:, None]
-        if it == 0:
+        if it == 0 and km == 64:
+            tau = torch.full((B, N), float("inf"), dtype=torch.float64)
+        elif it == 0:
             u = e + kn + mu * kn + mu * qn + nu
             u = torch.where(in_tile & ~eye, u, float("inf"))
             lane = (q % tile % 8) // 2

@@ -329,7 +329,8 @@ class TestEdgeOps:
     @pytest.mark.parametrize("shape, k, fused", [
         ((1, 2048, 3), 10, False), ((1, 2048, 16), 10, True),
         ((1, 100, 32), 10, False), ((1, 8200, 16), 10, False),
-        ((1, 64, 129), 10, False), ((1, 64, 32), 33, False)])
+        ((1, 64, 129), 10, False), ((1, 64, 32), 33, True),
+        ((1, 128, 32), 64, True), ((1, 128, 32), 65, False)])
     def test_fused_eligibility(self, shape, k, fused):
         assert edge.use_fused_knn_edge(torch.empty(shape, device="meta"),
                                        k) == fused

@@ -346,7 +346,8 @@ REAL_POOLS = [("pool", 1, 1), ("pool", 1, 2)]
 
 
 def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
-             jax_one_ulp=False, replay_slopes=False, **kw):
+             jax_one_ulp=False, replay_slopes=False, zd_one_ulp=False,
+             **kw):
     """One step of each package from the same start: a dict of numpy
     results of the free port run, the pinned port run and the JAX step.
     `near_tie` bounds how far the JAX step's own choices may lie from the
@@ -369,6 +370,10 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
     With `witness` (a dtype), also the JAX step in that dtype from the same
     start, replaying the choices of run B ("witness"): how far the JAX
     package's own arithmetic moves when its dtype changes.
+
+    With `zd_one_ulp`, also port runs like the free one with z_d moved by
+    one ulp up and down ("zd_one_ulp": [(results, whether it made the free
+    run's kNN choices)]): how far rounding alone moves the D phase.
 
     With `jax_one_ulp`, also the JAX step of run B with the real batch
     moved by one ulp up and down, replaying the same choices
@@ -466,6 +471,15 @@ def run_both(near_tie=1e-4, tie_keys=None, one_ulp=False, witness=None,
             # a new trace counts anew
             replay.n_knn = replay.n_pool = replay.n_emd = replay.n_lrelu = 0
             out["witness"] = jax_run()
+        if zd_one_ulp:
+            out["zd_one_ulp"] = []
+            for eps in (2.0 ** -23, -2.0 ** -23):
+                ulp = port_step(cfg, jstate, sphere, real,
+                                (z_d * (1 + eps)).astype(np.float32), z_g,
+                                draws=draws)
+                same = all(np.array_equal(a, b)
+                           for a, b in zip(free_run[1], ulp[1]))
+                out["zd_one_ulp"].append((ulp[0], same))
         if one_ulp:
             out["one_ulp"] = []
             for eps in (2.0 ** -23, -2.0 ** -23):
