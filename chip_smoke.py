@@ -216,7 +216,24 @@ Phases, in order; any failure raises and the script exits nonzero:
               that takes A and G past k = 32 before kernel C does; small
               --nk 80 steps against the CPU with EdgeConv2's selections
               pinned; ptxas's registers and spills of every KM = 64
-              instantiation; the k = 40 rows of the kernels line.
+              instantiation; the k = 40 rows of the kernels line. Its
+              serving half (slice 22, kernel C's f32 mode past k = 32):
+              ptxas of C's three KM = 64 instantiations (no more than 52
+              bytes spilled); Manipulator.generate at --nk 80 (two
+              requests of 64, A, B once and C twice each, one profiled;
+              one more at float32) and P2 at --nk 80 (N = 16384, G and C
+              twice a request, one profiled, ee's and v's bytes); C at
+              k = 33, 40 and 64 within 1e-5 + 1e-4 relative of its plain
+              version and twice alike on normal, offset and scaled draws
+              through the route `edge_tail_route` names: the tensor cores
+              at both EdgeBlocks' widths, the FMA kernels at F2 = 48 and,
+              weights in global memory, at C = 124; at k = 40 also on the
+              request's own edges; f32 at k = 65, bf16 at k = 33 and a
+              Manipulator at --nk 130 refused; the Trainer's sample rows
+              and the generate CLI on the --nk 80 checkpoint (launches
+              counted); the routines' fused forwards at --nk 80 with their
+              launches, part_exchange and interpolate against the CPU in
+              float32 with EdgeConv2's picks pinned; C's k = 40 row.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -278,6 +295,10 @@ def per(**launches) -> dict:
 # kernel launches per request of the fused eval path: EdgeConv1 selects
 # with kernel A, EdgeConv2 with kernel B, and each runs its tail as kernel C
 PER_REQUEST = per(knn=1, knn_edge=1, edge_tail=2)
+# per batch of the Trainer's sampler (`make_sample_fn`): the same fused
+# forward, with EdgeConv1's neighbours taken once from the template
+# (`pairwise.knn_indices`, cached) instead of kernel A
+PER_SAMPLE_ROW = per(knn_edge=1, edge_tail=2)
 # kernel launches per default training step: EdgeConv2's kNN and diff
 # edges (kernel B) in the D phase and in the G phase, and their backward
 # (kernel D) in the G phase; EdgeConv1 runs on the template's run-constant
@@ -4339,7 +4360,9 @@ def trainer_loop_nk80(seed: int) -> dict:
     """The default Config at --nk 80 through the trainer's own loop
     (`Trainer.train`, one epoch of WIDE_LOOP_STEPS steps on its synthetic
     data, a checkpoint at its end), from launch counts of 0: kernel B twice
-    and kernel D once a step, every weight finite and moved."""
+    and kernel D once a step, every weight finite and moved. Then, from
+    counts of 0 each, the Trainer's samples (`trainer_samples_nk80`) and
+    the generate CLI on that checkpoint (`generate_cli_nk80`)."""
     import tempfile
 
     import torch
@@ -4357,19 +4380,85 @@ def trainer_loop_nk80(seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = kernels.launch_counts()
-    for name, n in PER_STEP.items():
-        if launches[name] != n * WIDE_LOOP_STEPS:
-            raise AssertionError(f"Trainer.train at --nk {NK80}: {name} "
+        for name, n in PER_STEP.items():
+            if launches[name] != n * WIDE_LOOP_STEPS:
+                raise AssertionError(f"Trainer.train at --nk {NK80}: {name} "
+                                     f"launched {launches[name]} times in "
+                                     f"{WIDE_LOOP_STEPS} steps")
+        now = list(state.G.parameters())
+        if not all(torch.isfinite(p).all() for p in now) or any(
+                torch.equal(a, b) for a, b in zip(start, now)):
+            raise AssertionError(f"Trainer.train at --nk {NK80}: a weight "
+                                 "is not finite or did not move")
+        log(f"  Trainer.train at --nk {NK80}: {WIDE_LOOP_STEPS} steps in "
+            f"{wall:.2f} s (first-use costs included); launches {launches}")
+        samples = trainer_samples_nk80(tr)
+        cli = generate_cli_nk80(tmp)
+    return {"steps": WIDE_LOOP_STEPS, "wall_s": wall, "launches": launches,
+            "samples": samples, "generate_cli": cli}
+
+
+def trainer_samples_nk80(tr) -> dict:
+    """The Trainer's sample dump of --save at --nk 80 (`dump_samples`: 64
+    codes drawn as the Trainer draws `fix_z`, sampled in rows of 8, each
+    row one fused eval forward: PER_SAMPLE_ROW), from launch counts of 0;
+    finite clouds. The dump's PNG needs matplotlib, which the
+    card's machine lacks (the Trainer then refuses --save), so the rows
+    are drawn through `sample_fn` as the dump draws them."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data.noise import sample_z
+    from sp_gan_tpu_torch.ops import kernels
+    cfg, rows = tr.cfg, 8
+    z = sample_z(torch.Generator(device="cuda").manual_seed(cfg.seed + 1),
+                 64, cfg.np, cfg.nz, cfg.nv, cfg.n_rand)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    pcs = np.stack([tr.sample_fn(tr.state, z[i * 8:(i + 1) * 8])
+                    .cpu().numpy() for i in range(rows)])
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    if pcs.shape != (rows, 8, cfg.np, 3) or not np.isfinite(pcs).all():
+        raise AssertionError(f"Trainer samples at --nk {NK80}: bad output "
+                             f"{pcs.shape}")
+    for name, n in PER_SAMPLE_ROW.items():
+        if launches[name] != n * rows:
+            raise AssertionError(f"Trainer samples at --nk {NK80}: {name} "
                                  f"launched {launches[name]} times in "
-                                 f"{WIDE_LOOP_STEPS} steps")
-    now = list(state.G.parameters())
-    if not all(torch.isfinite(p).all() for p in now) or any(
-            torch.equal(a, b) for a, b in zip(start, now)):
-        raise AssertionError(f"Trainer.train at --nk {NK80}: a weight is "
-                             "not finite or did not move")
-    log(f"  Trainer.train at --nk {NK80}: {WIDE_LOOP_STEPS} steps in "
-        f"{wall:.2f} s (first-use costs included); launches {launches}")
-    return {"steps": WIDE_LOOP_STEPS, "wall_s": wall, "launches": launches}
+                                 f"{rows} rows")
+    log(f"  Trainer samples at --nk {NK80}: {rows} rows of 8 in "
+        f"{wall:.2f} s; launches {launches}")
+    return {"rows": rows, "wall_s": wall, "launches": launches}
+
+
+def generate_cli_nk80(log_dir: str) -> dict:
+    """`python -m sp_gan_tpu_torch.generate` (its `main`) on a checkpoint
+    trained at --nk 80: 64 clouds in one request, from launch counts of 0
+    (PER_REQUEST), finite, of the run's shape, at radius 1."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch import generate as generate_cli
+    from sp_gan_tpu_torch.ops import kernels
+    out = os.path.join(log_dir, "samples.npy")
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    generate_cli.main(["--log_dir", log_dir, "--n", "64", "--out", out,
+                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    pcs = np.load(out)
+    radius = np.sqrt((pcs ** 2).sum(-1)).max(axis=1)
+    if pcs.shape != (64, 2048, 3) or not np.isfinite(pcs).all() or \
+            not np.allclose(radius, 1.0, atol=1e-4):
+        raise AssertionError(f"generate --nk {NK80}: bad output {pcs.shape}")
+    for name, n in PER_REQUEST.items():
+        if launches[name] != n:
+            raise AssertionError(f"generate --nk {NK80}: {name} launched "
+                                 f"{launches[name]} times")
+    log(f"  generate CLI at --nk {NK80}: 64 clouds in {wall:.2f} s (the "
+        f"checkpoint's load included); launches {launches}")
+    return {"wall_s": wall, "launches": launches}
 
 
 # style_interpolate at --nk 80 (the unfused eval path at B=1, kernel C
@@ -4534,6 +4623,10 @@ def wide_k_phase(seed: int) -> tuple:
     rows = wide_rows(k, x_a, x_t, x_f, camp.knn_window, x_g, checks[k],
                      step, p1, res["style"])
     lap("k = 40 rows")
+    del x_a, x_b, x_t, x_f, x_g, hard_in, g_hard_in, checks
+    torch.cuda.empty_cache()
+    res["serving"], row_c = wide_serve(seed, lap)
+    rows.append(row_c)
     log(f"  wide_k seconds by part: {res['seconds']}")
     return res, rows
 
@@ -4656,6 +4749,453 @@ def wide_rows(k, x_a, x_t, x_f, window, x_g, checked, step, p1,
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']})")
     return rows
+
+
+# slice 22: kernel C's f32 mode past k = 32 (k <= 64) and serving at
+# --nk 80. The widths of C's checks: the serving calls' (the tensor cores)
+# and two the tensor cores refuse: F2 = 48, which does not divide 128 (the
+# FMA kernels with their weights in shared memory), and C = 124, whose
+# weights no design holds beside one point's rows past k = 30 (the FMA
+# kernels with their weights in global memory)
+WIDE_TAIL_WIDTHS = {"EdgeConv2": (64, 64, 128), "EdgeConv1": (3, 32, 64),
+                    "F2 48": (64, 48, 128), "C 124": (124, 64, 128)}
+WIDE_TAIL_ROUTES = {"EdgeConv2": "tensor cores, f32",
+                    "EdgeConv1": "tensor cores, f32", "F2 48": "FMA",
+                    "C 124": "FMA, weights in global memory"}
+# clouds of 2048 points a drawn check takes (k = 40 also takes the serving
+# request's own edges)
+WIDE_TAIL_B = 8
+# kernel C's instantiations past k = 32, by their mangled names, and the
+# most bytes any may spill: the most the lists of 64 of slice 21 spilled
+WIDE_TAIL_KERNELS = re.compile(
+    r"tf_tile_kernelILi64E|edge_rows_kernelILi64ELi1ELb[01]E")
+WIDE_TAIL_MAX_SPILL = 52
+# the routines run at --nk 80 against the CPU with EdgeConv2's picks
+# pinned: one fused forward each
+WIDE_MANIPULATE_VS_CPU = ("part_exchange", "interpolate")
+
+
+def wide_tail_ptxas(text: str) -> list:
+    """ptxas's lines for kernel C's instantiations past k = 32; raises if
+    one is missing or spills more than WIDE_TAIL_MAX_SPILL bytes."""
+    lines = [line for line in ptxas_report(text, 400)
+             if WIDE_TAIL_KERNELS.search(line)]
+    if len(lines) != 3:
+        raise AssertionError(f"ptxas reported {len(lines)} of kernel C's "
+                             "three instantiations past k = 32")
+    for line in lines:
+        spill = re.search(r"spill (\d+)/(\d+) bytes", line)
+        if spill and max(map(int, spill.groups())) > WIDE_TAIL_MAX_SPILL:
+            raise AssertionError(f"kernel C spills: {line}")
+    return lines
+
+
+def drawn_tail(C: int, F2: int, F: int, k: int, B: int, gen):
+    """Kernel C's f32 arguments at N = 2048, drawn on the card from `gen`
+    as tests/test_torch_edge_tail.py draws them: weights at about unit
+    output scale, affines [1 + 0.1 r; 0.1 r], normal edges."""
+    import math
+
+    import torch
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def aff(n):
+        return torch.stack([1 + 0.1 * r(n), 0.1 * r(n)]).contiguous()
+    return (r(B, 2048, k, 2 * C), r(C, F2) / math.sqrt(C), aff(F2),
+            r(F2, F) / math.sqrt(F2), aff(F), r(2 * C, F) / math.sqrt(2 * C),
+            aff(F), r(k, F, F) / math.sqrt(k * F), r(1, F))
+
+
+def check_wide_tails(served: dict, gen) -> dict:
+    """Kernel C's f32 mode at k = 33, 40 and 64 at each of
+    WIDE_TAIL_WIDTHS through the route WIDE_TAIL_ROUTES names (asked of
+    `edge_tail_route`, which decides as the launch does), on normal draws
+    of WIDE_TAIL_B clouds and on them offset by +10 and scaled by 10
+    (TAIL_HARD): the f32 gate against its plain version and two launches
+    bit-identical (`check_edge_tail`); at k = 40 also on the serving
+    request's own edges (`served`, its two calls)."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail_route
+    res = {}
+    for k in WIDE_K:
+        for name, (C, F2, F) in WIDE_TAIL_WIDTHS.items():
+            route = edge_tail_route(WIDE_TAIL_B, 2048, C, F2, F, k)
+            if route != WIDE_TAIL_ROUTES[name]:
+                raise AssertionError(f"edge_tail[{name}, k={k}] takes "
+                                     f"{route!r}")
+            targs = drawn_tail(C, F2, F, k, WIDE_TAIL_B, gen)
+            tag = f"{name}, k={k}"
+            res[tag] = {"route": route,
+                        "normal": check_edge_tail(targs, k),
+                        **check_edge_tail_hard({tag: targs}, k)}
+            log(f"  edge_tail[{tag}] ({route}): {res[tag]['normal']}")
+            del targs
+        torch.cuda.empty_cache()
+    for name, targs in served.items():
+        tag = f"serving {name}, k={targs[0].shape[2]}"
+        res[tag] = {"normal": check_edge_tail(targs, targs[0].shape[2]),
+                    **check_edge_tail_hard({tag: targs}, targs[0].shape[2])}
+        log(f"  edge_tail[{tag}]: {res[tag]['normal']}")
+    worst = max(r2["gate_excess"] for r in res.values()
+                for r2 in r.values() if isinstance(r2, dict))
+    log(f"  edge_tail past k = 32: {len(res)} cases, worst gate excess "
+        f"{worst:.3g}")
+    return res
+
+
+def check_wide_tail_limits(seed: int) -> dict:
+    """On CUDA tensors kernel C refuses f32 edges at k = 65 and bf16 edges
+    at k = 33, naming the limit, and a Manipulator at --nk 130 refuses to
+    serve; none of them launches a kernel."""
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.manipulate import Manipulator
+    from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops import kernels
+
+    def tail(k, dtype):
+        C, F2, F = 3, 32, 64
+        t = lambda *s: torch.zeros(*s, device="cuda")
+        return lambda: kernels.edge_tail(
+            t(1, 8, k, 2 * C).to(dtype), t(C, F2), t(2, F2), t(F2, F),
+            t(2, F), t(2 * C, F), t(2, F), t(k, F, F), t(1, F), k=k)
+    cfg = Config(seed=seed, nk=130, np=256)
+    man = Manipulator(cfg, Generator(cfg, seed=seed), device="cuda")
+    calls = {"f32, k = 65": (tail(65, torch.float32),
+                             "k <= 64 (--nk <= 128) in f32 mode"),
+             "bf16, k = 33": (tail(33, torch.bfloat16),
+                              "k <= 32 (--nk <= 64) in bf16 mode"),
+             "Manipulator.generate at --nk 130": (
+                 lambda: man.generate(1, seed=seed), "--nk <= 128")}
+    kernels.reset_launch_counts()
+    out = {}
+    for name, (call, limit) in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out[name] = str(e)
+            if limit not in str(e):
+                raise AssertionError(f"{name}: {e}") from e
+        else:
+            raise AssertionError(f"{name} was not refused on CUDA")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("a refused call launched a kernel")
+    log(f"  refused: {out}")
+    return out
+
+
+def record_tails(man, n: int, seed: int, batch: int) -> dict:
+    """One `man.generate(n, seed, batch=batch)` whose calls of kernel C are
+    recorded: {"edge1" | "edge2": the arguments of its first call}."""
+    from sp_gan_tpu_torch.nn import fused_eval
+    tails, real = {}, fused_eval.edge_tail
+
+    def record(*targs, k, neg):
+        tails.setdefault(f"edge{len(tails) + 1}",
+                         tuple(t.clone() for t in targs))
+        return real(*targs, k=k, neg=neg)
+    with mock.patch.object(fused_eval, "edge_tail", record):
+        man.generate(n, seed=seed, batch=batch)
+    return tails
+
+
+def serve_requests(man, B: int, expected: dict, label: str, seed: int,
+                   requests: int = 2) -> dict:
+    """`requests` requests of B shapes through `man.generate` from launch
+    counts of 0: each launching `expected`; normalized clouds, finite, of
+    the right shape, at radius 1; host ms a request."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    pcs = man.generate(requests * B, seed=seed, batch=B)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / requests
+    launches = kernels.launch_counts()
+    for name, n in expected.items():
+        if launches[name] != requests * n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]}"
+                                 f" times in {requests} requests")
+    radius = np.sqrt((pcs ** 2).sum(-1)).max(axis=1)
+    if pcs.shape != (requests * B, man.cfg.np, 3) or not np.isfinite(
+            pcs).all() or not np.allclose(radius, 1.0, atol=1e-4):
+        raise AssertionError(f"{label}: bad output {pcs.shape}")
+    log(f"  {label}: {ms:.2f} ms a request of {B} shapes; launches "
+        f"{launches}")
+    return {"ms_per_request": ms, "launches": launches}
+
+
+def serve_nk80(seed: int) -> tuple:
+    """Serving at --nk 80 at full width (Config(nk=80): 64 shapes of 2048
+    points a request, nz 128, mixed_edge; kernel C computes in f32 either
+    way), weights from `seed`: a warm-up request whose tails are recorded,
+    two requests with PER_REQUEST's launches each, one profiled; one
+    request at dtype float32; then P2 at --nk 80 (N = 16384, 16 shapes a
+    request, PER_REQUEST_16K), two requests and one profiled, with the
+    bytes of its edge tensor and of C's scratch v and the request's peak
+    device memory. Returns the figures, the Manipulator and both paths'
+    recorded tails."""
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.manipulate import Manipulator
+    from sp_gan_tpu_torch.nn.generator import Generator
+    res, tails = {}, {}
+    cfg = Config(seed=seed, nk=NK80)
+    man = Manipulator(cfg, Generator(cfg, seed=seed), device="cuda")
+    if not man.fused:
+        raise AssertionError(f"--nk {NK80} must be served by the fused path")
+    tails[2048] = record_tails(man, 64, seed + 1000, 64)
+    res["serve"] = serve_requests(man, 64, PER_REQUEST,
+                                  f"generate at --nk {NK80}", seed)
+    res["serve"]["profile"] = profile_call(
+        lambda: man.generate(64, seed=seed), f"request of 64 shapes at --nk "
+        f"{NK80}", tf_part)
+    c32 = Config(seed=seed, nk=NK80, dtype="float32")
+    m32 = Manipulator(c32, Generator(c32, seed=seed), device="cuda")
+    m32.generate(64, seed=seed + 1000)
+    res["serve_float32"] = serve_requests(
+        m32, 64, PER_REQUEST, f"generate at --nk {NK80}, float32", seed, 1)
+    del m32
+    c16 = Config(seed=seed, nk=NK80, np=SERVE_16K)
+    m16 = Manipulator(c16, Generator(c16, seed=seed), device="cuda")
+    tails[SERVE_16K] = record_tails(m16, REQUEST_16K, seed + 1000,
+                                    REQUEST_16K)
+    torch.cuda.reset_peak_memory_stats()
+    res["p2"] = serve_requests(m16, REQUEST_16K, PER_REQUEST_16K,
+                               f"P2 at --nk {NK80}", seed)
+    ee = tails[SERVE_16K]["edge2"][0]
+    res["p2"]["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["p2"]["ee_gb"] = ee.numel() * 4 / 1e9
+    res["p2"]["v_gb"] = ee.numel() // ee.shape[-1] * 128 * 4 / 1e9
+    res["serve"]["ee_gb"] = tails[2048]["edge2"][0].numel() * 4 / 1e9
+    res["p2"]["profile"] = profile_call(
+        lambda: m16.generate(REQUEST_16K, seed=seed, batch=REQUEST_16K),
+        f"request of {REQUEST_16K} shapes at N={SERVE_16K}, --nk {NK80}",
+        lambda n: g_pass(n) or tf_part(n), expect=tuple(G_PASSES)[:3])
+    log(f"  P2 at --nk {NK80}: ee {res['p2']['ee_gb']:.2f} GB, v "
+        f"{res['p2']['v_gb']:.2f} GB, peak {res['p2']['peak_memory_gb']:.2f}"
+        " GB of device memory")
+    del m16
+    return res, man, tails
+
+
+def pinned_twins(man, fn) -> tuple:
+    """`fn` of the card's Manipulator `man` and of its twin on the CPU, both
+    in float32 on CPU-drawn codes (as `manipulate_phase` draws them), the
+    CPU's EdgeConv2 taking the card's picks in order. Returns (card, cpu,
+    pinned) where pinned counts the picks the CPU's own selection parted
+    from the card's and the largest gap between the two at such a pick,
+    relative to the point's k-th distance."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.data.noise import sample_z
+    from sp_gan_tpu_torch.manipulate import Manipulator
+    from sp_gan_tpu_torch.nn import fused_eval
+    from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops.pairwise import self_sqdist
+    c = dataclasses.replace(man.cfg, dtype="float32")
+    N = c.np
+    pair = []
+    for dev in ("cuda", "cpu"):
+        G = Generator(c, seed=None)
+        G.load_state_dict(man.G.state_dict())
+        m = Manipulator(c, G, sphere=man.ball, device=dev)
+        m.sample_codes = (lambda dev: lambda n, seed=0, per_point=None:
+                          sample_z(torch.Generator().manual_seed(seed), n, N,
+                                   c.nz, c.nv, c.n_rand).to(dev))(m.device)
+        pair.append(m)
+    real, picks = fused_eval.edge_features, []
+    pinned = {"parted": 0, "max_gap": 0.0}
+
+    def card(x, k, idx=None):
+        ee, i = real(x, k, idx=idx, return_idx=True)
+        if x.shape[-1] > 3:
+            picks.append(i.cpu())
+        return ee
+
+    def cpu(x, k, idx=None):
+        if x.shape[-1] <= 3:
+            return real(x, k, idx=idx)
+        want = picks.pop(0).to(x.device)
+        own = real(x, k, return_idx=True)[1]
+        d = self_sqdist(x.double())
+        dw, do = d.gather(2, want.long()), d.gather(2, own.long())
+        parted = (want.sort(-1).values != own.sort(-1).values).any(-1)
+        if parted.any():
+            kth = do.amax(-1, keepdim=True)
+            gap = ((dw.sort(-1).values - do.sort(-1).values).abs() / kth)
+            pinned["parted"] += int(parted.sum())
+            pinned["max_gap"] = max(pinned["max_gap"],
+                                    float(gap[parted].max()))
+        return real(x, k, idx=want)
+    with mock.patch.object(fused_eval, "edge_features", card):
+        out_card = fn(pair[0])
+    with mock.patch.object(fused_eval, "edge_features", cpu):
+        out_cpu = fn(pair[1])
+    if picks:
+        raise AssertionError("the CPU run took fewer forwards than the card")
+    return np.asarray(out_card), np.asarray(out_cpu), pinned
+
+
+def manipulate_nk80(man, seed: int) -> dict:
+    """The manipulation routines whose fused forward takes kernel C (every
+    one of MANIPULATE but style_interpolate) at --nk 80 on `man`, with the
+    CLI's arguments: one warm-up call, then one from launch counts of 0
+    whose launches are MANIPULATE's fused forwards times PER_REQUEST, its
+    clouds finite and of the right count and shape. Then the routines of
+    WIDE_MANIPULATE_VS_CPU on the card against the CPU in float32
+    (`pinned_twins`): 99% of the points within 1e-3 and the median within
+    MANIPULATE_MEDIAN, as the manipulate phase holds them at --nk 20, and
+    each pick the CPU's own selection parts from the card's within 1e-3 of
+    the point's k-th distance (a near-tie: the two devices' inputs to
+    EdgeConv2 differ in their last bits)."""
+    import numpy as np
+    import torch
+    from sp_gan_tpu_torch.manipulate import region_mask, run_routine
+    from sp_gan_tpu_torch.ops import kernels
+    N = man.cfg.np
+    mask = region_mask(man.ball, 0, N // 3)
+    res = {}
+    for r, (fused, shapes) in MANIPULATE.items():
+        if not fused:
+            continue
+        run_routine(man, r, mask, seed, MANIPULATE_STEPS)     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        pcs, _ = run_routine(man, r, mask, seed, MANIPULATE_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = kernels.launch_counts()
+        for name in KERNEL_NAMES:
+            if launches[name] != fused * PER_REQUEST[name]:
+                raise AssertionError(f"{r} at --nk {NK80}: {name} launched "
+                                     f"{launches[name]} times")
+        pcs = np.stack(pcs)
+        if pcs.shape != (shapes, N, 3) or not np.isfinite(pcs).all():
+            raise AssertionError(f"{r} at --nk {NK80}: bad output "
+                                 f"{pcs.shape}")
+        res[r] = {"ms": ms, "shapes": shapes,
+                  "launches": {k: v for k, v in launches.items() if v}}
+        log(f"  {r} at --nk {NK80}: {ms:.2f} ms a call; launches "
+            f"{res[r]['launches']}")
+    calls = {"part_exchange": lambda m: m.part_exchange(mask, seed,
+                                                        seed + 1),
+             "interpolate": lambda m: m.shape_interpolate(seed, seed + 1,
+                                                          MANIPULATE_STEPS)}
+    vs_cpu = {}
+    for r in WIDE_MANIPULATE_VS_CPU:
+        t = time.perf_counter()
+        card, cpu, pinned = pinned_twins(man, calls[r])
+        err = np.abs(card - cpu).max(axis=-1)
+        vs_cpu[r] = {"max": float(err.max()),
+                     "p99": float(np.quantile(err, 0.99)),
+                     "median": float(np.median(err)), **pinned,
+                     "s": time.perf_counter() - t}
+        log(f"  {r} at --nk {NK80}, float32, EdgeConv2's picks pinned: "
+            f"cuda vs cpu {vs_cpu[r]}")
+        if not (np.isfinite(card).all() and vs_cpu[r]["p99"] <= 1e-3
+                and vs_cpu[r]["median"] <= MANIPULATE_MEDIAN
+                and pinned["max_gap"] <= 1e-3):
+            raise AssertionError(f"{r} at --nk {NK80}: cuda disagrees with "
+                                 "the cpu")
+    return {"routines": res, "vs_cpu": vs_cpu}
+
+
+def tail_figures(targs, reps: int) -> dict:
+    """One call of kernel C's f32 mode: ms (CUDA events), its plain
+    version's ms and the bound of the route's own work (three TF32
+    products of each multiply-add at the TF32 peak; ee and the weights
+    read, out written once), the f32 FMA bound beside it."""
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import (edge_tail,
+                                                        edge_tail_plain)
+    ee, w1, w2 = targs[0], targs[1], targs[3]
+    Bc, Nc, k, c2 = ee.shape
+    f2, f = w1.shape[1], w2.shape[1]
+    flops = 2 * Bc * Nc * k * (c2 // 2 * f2 + f2 * f + c2 * f + f * f)
+    nbytes = 4 * (ee.numel() + sum(t.numel() for t in targs[1:])
+                  + Bc * Nc * f)
+    c_bound, c_by = bound(3 * flops, nbytes, TF32_FLOPS)
+    return dict(ee=list(ee.shape), F2=f2, F=f,
+                ms=cuda_ms(lambda: edge_tail(*targs, k=k), reps),
+                plain_ms=cuda_ms(lambda: edge_tail_plain(*targs, k=k),
+                                 max(reps // 2, 2)),
+                bound_ms=c_bound, bound_by=c_by,
+                fma_bound_ms=bound(flops, nbytes)[0])
+
+
+def wide_tail_row(served: dict, checked: dict) -> dict:
+    """The kernels line's k = 40 row of kernel C's f32 mode: the serving
+    request's two calls at --nk 80 (ms, plain ms, bound summed) and P2's
+    beside them, each on the request's own recorded edges; launches those
+    of the two --nk 80 requests."""
+    import torch
+    calls, calls_p2 = {}, {}
+    for name, targs in served["tails"][2048].items():
+        calls[name] = tail_figures(targs, 10)
+        log(f"  edge_tail[{name} at --nk {NK80}]: {calls[name]}")
+    for name, targs in served["tails"][SERVE_16K].items():
+        calls_p2[name] = tail_figures(targs, 5)
+        log(f"  edge_tail[{name} at P2, --nk {NK80}]: {calls_p2[name]}")
+        torch.cuda.empty_cache()
+    k = served["tails"][2048]["edge2"][0].shape[2]
+    row = dict(
+        name="edge_tail", route="cuda",
+        source="sp_gan_tpu_torch/csrc/edgeblock_tf32.cu",
+        replaces="sp_gan_tpu/ops/pallas/edgeblock.py:102 (edge_tail_pallas,"
+                 " _edge_tail_kernel :28)",
+        launches=served["serve"]["launches"]["edge_tail"], k=k,
+        max_abs_err=max(r["normal"]["max_abs_err"]
+                        for t, r in checked.items() if t.startswith(
+                            "serving")),
+        ms=sum(c["ms"] for c in calls.values()),
+        plain_ms=sum(c["plain_ms"] for c in calls.values()),
+        bound_ms=sum(c["bound_ms"] for c in calls.values()),
+        bound_by=calls["edge2"]["bound_by"], library_ms=None,
+        fma_bound_ms=sum(c["fma_bound_ms"] for c in calls.values()),
+        ms_at_p2=sum(c["ms"] for c in calls_p2.values()),
+        plain_ms_at_p2=sum(c["plain_ms"] for c in calls_p2.values()),
+        bound_ms_at_p2=sum(c["bound_ms"] for c in calls_p2.values()),
+        launches_at_p2=served["p2"]["launches"]["edge_tail"],
+        per="one request: the edge1 and the edge2 call", calls=calls,
+        calls_at_p2=calls_p2, path=f"serve at k = {k} (--nk {2 * k})")
+    log(f"  edge_tail (serve at --nk {NK80}): {row['ms']:.4f} ms a request "
+        f"(plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}); P2 {row['ms_at_p2']:.4f} ms")
+    return row
+
+
+def wide_serve(seed: int, lap) -> tuple:
+    """The serving half of wide_k: ptxas of kernel C past k = 32, serving
+    and P2 at --nk 80 (`serve_nk80`), kernel C's checks at k = 33, 40 and
+    64 on both designs (`check_wide_tails`), the refusals, the routines at
+    --nk 80 (`manipulate_nk80`) and C's k = 40 row. Returns the figures
+    and the row."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels import _build
+    res = {"ptxas_c_km64": wide_tail_ptxas(_build.last_log)}
+    for line in res["ptxas_c_km64"]:
+        log("  ptxas (kernel C, KM = 64): " + line)
+    served, man, tails = serve_nk80(seed)
+    served["tails"] = tails
+    lap("serving and P2 at --nk 80")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    res["tail_checks"] = check_wide_tails(tails[2048], gen)
+    res["tail_refused"] = check_wide_tail_limits(seed)
+    lap("kernel C past k = 32")
+    res["manipulate"] = manipulate_nk80(man, seed)
+    lap("routines at --nk 80")
+    row = wide_tail_row(served, res["tail_checks"])
+    lap("kernel C's k = 40 row")
+    del served["tails"], tails
+    res["serve"], res["p2"] = served["serve"], served["p2"]
+    res["serve_float32"] = served["serve_float32"]
+    return res, row
 
 
 def main() -> None:
@@ -4926,7 +5466,7 @@ def main() -> None:
     wide, wide_rows_k40 = wide_k_phase(args.seed)
     log(json.dumps({"wide_k": {k: wide[k] for k in (
         "ptxas_km64", "checks", "margin", "refused", "d_at_k40", "loop",
-        "step", "p1", "style", "small_step", "seconds")}}))
+        "step", "p1", "style", "small_step", "serving", "seconds")}}))
     ph.end()
 
     # --------------------------------------------------------------- 10

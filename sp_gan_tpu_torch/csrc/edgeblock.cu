@@ -5,11 +5,12 @@
 // hands it bf16 edges under mixed_edge (bf16 mode, at the entry point
 // below). Each mode runs on the tensor cores wherever its layout fits:
 // f32 mode in edgeblock_tf32.cu, every product as three TF32 products
-// (ebt_tf_fits: F2 dividing 128, F in {64, 128}; at F = 128, F2 = 64 and
-// k = 10, C <= 120, which takes both serving calls), bf16 mode in
-// edgeblock_train_tc.cu (ebt_tc_fits(kEbtTail, ...): C a multiple of 4,
-// F2 dividing 256, F = 128, at the default widths C <= 224). The two
-// kernels here are both modes at the other widths.
+// (ebt_tf_fits: F2 dividing 128, F in {64, 128}, k <= 64; at F = 128,
+// F2 = 64, C <= 120 at k = 10 and C <= 64 at k = 64, which takes both
+// serving calls), bf16 mode in edgeblock_train_tc.cu (ebt_tc_fits(
+// kEbtTail, ...): C a multiple of 4, F2 dividing 256, F = 128, k <= 32, at
+// the default widths C <= 224). The two kernels here are both modes at the
+// other widths, f32 mode up to k = 64 and bf16 mode up to k = 32.
 //
 // Replaces the TPU kernel sp_gan_tpu/ops/pallas/edgeblock.py::
 // edge_tail_pallas (_edge_tail_kernel). Per point, with diff = ee[..., C:],
@@ -24,10 +25,17 @@
 //     [B, N, k, F]. The small weights (w1, w2, both halves of wx and the
 //     affines: 115 KB at EdgeConv2's widths) are loaded into shared memory
 //     once per block; each block then walks tiles of P points. A thread
-//     owns a few output channels of one point (4 at F = 128) and keeps
-//     their k values in registers, so the softmax over k needs no exchange.
-//     Input rows are read from shared memory as float4 broadcasts, each
-//     feeding the thread's channels.
+//     owns a few output channels of one point (4 at F = 128, one past
+//     k = 16) and keeps their k values in registers, so the softmax over k
+//     needs no exchange; past k = 32 (KM = 64) h and v would not fit in
+//     registers together, so the thread takes h and its softmax first,
+//     stores the weights to its column of the scratch, then takes v and
+//     multiplies them there. Input rows are read from shared memory as
+//     float4 broadcasts, each feeding the thread's channels. In f32 mode,
+//     where the weights and one point's rows do not fit in shared memory
+//     (wide C at large k: at F = 128, F2 = 64 and k = 64, C > 100), the
+//     weights stay in global memory, read through the read-only cache
+//     (GW), and shared memory holds only the affines and the points' rows.
 //  2. conv_out_kernel contracts v over (k, F): a [B*N, k*F] x [k*F, F]
 //     product in 128-row tiles, 8 x F/16 outputs per thread, wout streamed
 //     through shared memory in slices of 8 rows.
@@ -66,17 +74,25 @@ __device__ __forceinline__ float rnd(float x, int rb) {
 // for i < TC, j < k; a is in shared memory (the k rows of one point), W
 // row-major with row length ldw. K and lda are multiples of 4 and a is
 // 16-byte aligned. Each float4 of a feeds 4 * TC fused multiply-adds.
-template <int KM, int TC>
+// With GW, W is in global memory (read through the read-only cache) and
+// has only its first kw rows: those past them count as zero.
+template <int KM, int TC, bool GW = false>
 __device__ __forceinline__ void rows_dot(const float* a, int lda,
                                          const float* W, int ldw, int c0,
                                          int cs, int K, int k,
-                                         float (&acc)[TC][KM]) {
+                                         float (&acc)[TC][KM], int kw = 0) {
   for (int kk = 0; kk < K; kk += 4) {
     float w[TC][4];
 #pragma unroll
     for (int i = 0; i < TC; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) w[i][q] = W[(kk + q) * ldw + c0 + i * cs];
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (GW)
+          w[i][q] = kk + q < kw ? __ldg(W + (kk + q) * ldw + c0 + i * cs)
+                                : 0.f;
+        else
+          w[i][q] = W[(kk + q) * ldw + c0 + i * cs];
+      }
 #pragma unroll
     for (int j = 0; j < KM; ++j) {
       if (j < k) {
@@ -107,9 +123,12 @@ struct Rows {
 //   W1 [Cp][F2] | W2 [F2][F] | WX0 [Cp][F] | WX1 [Cp][F] | A1 [2][F2] |
 //   A2 [2][F] | AX [2][F] | CEN [P*k][Cp] | DIF [P*k][Cp] | H1 [P*k][F2]
 // Rows C..Cp-1 of the weights and columns C..Cp-1 of CEN and DIF are zero,
-// so the padded terms add exact zeros.
-__host__ __device__ inline int weight_floats(int Cp, int F2, int F) {
-  return Cp * F2 + F2 * F + 2 * Cp * F + 2 * F2 + 4 * F;
+// so the padded terms add exact zeros. Where the weights and one point's
+// rows do not fit (in f32 mode), the weights stay in global memory (GW)
+// and their four parts take no shared memory.
+__host__ __device__ inline int weight_floats(int Cp, int F2, int F,
+                                             bool gw = false) {
+  return (gw ? 0 : Cp * F2 + F2 * F + 2 * Cp * F) + 2 * F2 + 4 * F;
 }
 
 __host__ __device__ inline int point_floats(int Cp, int F2, int k) {
@@ -119,17 +138,18 @@ __host__ __device__ inline int point_floats(int Cp, int F2, int k) {
 // KM: k rounded up to the register arrays' length. TC: output channels per
 // thread in the F-wide pass, TC1 in the F2-wide pass; a thread owns
 // channels c0, c0 + F / TC, ... of one point, so that neighbouring threads
-// read neighbouring weights and the threads of a warp share a point.
-template <int KM, int TC>
+// read neighbouring weights and the threads of a warp share a point. GW:
+// the weights are read from global memory (f32 mode only: no rounding).
+template <int KM, int TC, bool GW = false>
 __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
   constexpr int TC1 = TC > 1 ? TC / 2 : 1;
   extern __shared__ __align__(16) float sm[];
   const int C = r.C, Cp = r.Cp, F2 = r.F2, F = r.F, k = r.k, P = r.P;
   float* W1 = sm;
-  float* W2 = W1 + Cp * F2;
-  float* WX0 = W2 + F2 * F;
-  float* WX1 = WX0 + Cp * F;
-  float* A1 = WX1 + Cp * F;
+  float* W2 = W1 + (GW ? 0 : Cp * F2);
+  float* WX0 = W2 + (GW ? 0 : F2 * F);
+  float* WX1 = WX0 + (GW ? 0 : Cp * F);
+  float* A1 = WX1 + (GW ? 0 : Cp * F);
   float* A2 = A1 + 2 * F2;
   float* AX = A2 + 2 * F;
   float* CEN = AX + 2 * F;
@@ -138,16 +158,23 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
   const int tid = threadIdx.x;
 
   const int rb = r.rb;
-  for (int i = tid; i < Cp * F2; i += kThreads) {
-    const int row = i / F2, c = i - row * F2;
-    W1[i] = row < C ? rnd(r.w1[row * F2 + c], rb) : 0.f;
+  if constexpr (!GW) {
+    for (int i = tid; i < Cp * F2; i += kThreads) {
+      const int row = i / F2, c = i - row * F2;
+      W1[i] = row < C ? rnd(r.w1[row * F2 + c], rb) : 0.f;
+    }
+    for (int i = tid; i < F2 * F; i += kThreads) W2[i] = rnd(r.w2[i], rb);
+    for (int i = tid; i < Cp * F; i += kThreads) {
+      const int row = i / F, c = i - row * F;
+      WX0[i] = row < C ? rnd(r.wx[row * F + c], rb) : 0.f;
+      WX1[i] = row < C ? rnd(r.wx[(C + row) * F + c], rb) : 0.f;
+    }
   }
-  for (int i = tid; i < F2 * F; i += kThreads) W2[i] = rnd(r.w2[i], rb);
-  for (int i = tid; i < Cp * F; i += kThreads) {
-    const int row = i / F, c = i - row * F;
-    WX0[i] = row < C ? rnd(r.wx[row * F + c], rb) : 0.f;
-    WX1[i] = row < C ? rnd(r.wx[(C + row) * F + c], rb) : 0.f;
-  }
+  // the products' weights: in shared memory, or with GW as given
+  const float* w1 = GW ? r.w1 : W1;
+  const float* w2 = GW ? r.w2 : W2;
+  const float* wx0 = GW ? r.wx : WX0;
+  const float* wx1 = GW ? r.wx + C * F : WX1;
   for (int i = tid; i < 2 * F2; i += kThreads) A1[i] = r.a1[i];
   for (int i = tid; i < 2 * F; i += kThreads) {
     A2[i] = r.a2[i];
@@ -185,7 +212,8 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
       for (int i = 0; i < TC1; ++i)
 #pragma unroll
         for (int j = 0; j < KM; ++j) acc[i][j] = 0.f;
-      rows_dot<KM, TC1>(DIF + pp * k * Cp, Cp, W1, F2, c0, cs1, Cp, k, acc);
+      rows_dot<KM, TC1, GW>(DIF + pp * k * Cp, Cp, w1, F2, c0, cs1, Cp, k,
+                            acc, C);
 #pragma unroll
       for (int i = 0; i < TC1; ++i) {
         const int c = c0 + i * cs1;
@@ -203,41 +231,102 @@ __global__ void __launch_bounds__(kThreads) edge_rows_kernel(const Rows r) {
     const int cs = F / TC;
     for (int t = tid; t < np * cs; t += kThreads) {
       const int pp = t / cs, c0 = t - pp * cs;
-      float h[TC][KM], v[TC][KM];
+      if constexpr (KM <= 32) {
+        float h[TC][KM], v[TC][KM];
 #pragma unroll
-      for (int i = 0; i < TC; ++i)
+        for (int i = 0; i < TC; ++i)
 #pragma unroll
-        for (int j = 0; j < KM; ++j) h[i][j] = v[i][j] = 0.f;
-      rows_dot<KM, TC>(H1 + pp * k * F2, F2, W2, F, c0, cs, F2, k, h);
-      rows_dot<KM, TC>(CEN + pp * k * Cp, Cp, WX0, F, c0, cs, Cp, k, v);
-      rows_dot<KM, TC>(DIF + pp * k * Cp, Cp, WX1, F, c0, cs, Cp, k, v);
-      float* dst = r.v + (p0 + pp) * k * F;
+          for (int j = 0; j < KM; ++j) h[i][j] = v[i][j] = 0.f;
+        rows_dot<KM, TC, GW>(H1 + pp * k * F2, F2, w2, F, c0, cs, F2, k, h,
+                             F2);
+        rows_dot<KM, TC, GW>(CEN + pp * k * Cp, Cp, wx0, F, c0, cs, Cp, k, v,
+                             C);
+        rows_dot<KM, TC, GW>(DIF + pp * k * Cp, Cp, wx1, F, c0, cs, Cp, k, v,
+                             C);
+        float* dst = r.v + (p0 + pp) * k * F;
 #pragma unroll
-      for (int i = 0; i < TC; ++i) {
-        const int c = c0 + i * cs;
-        const float s2 = A2[c], sh2 = A2[F + c];
-        const float sx = AX[c], shx = AX[F + c];
-        float m = -INFINITY;
+        for (int i = 0; i < TC; ++i) {
+          const int c = c0 + i * cs;
+          const float s2 = A2[c], sh2 = A2[F + c];
+          const float sx = AX[c], shx = AX[F + c];
+          float m = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < KM; ++j) {
-          if (j < k) {
-            h[i][j] = lrelu(h[i][j] * s2 + sh2, r.neg);
-            m = fmaxf(m, h[i][j]);
+          for (int j = 0; j < KM; ++j) {
+            if (j < k) {
+              h[i][j] = lrelu(h[i][j] * s2 + sh2, r.neg);
+              m = fmaxf(m, h[i][j]);
+            }
           }
-        }
-        float sum = 0.f;
+          float sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < KM; ++j) {
-          if (j < k) {
-            h[i][j] = expf(h[i][j] - m);
-            sum += h[i][j];
+          for (int j = 0; j < KM; ++j) {
+            if (j < k) {
+              h[i][j] = expf(h[i][j] - m);
+              sum += h[i][j];
+            }
           }
-        }
 #pragma unroll
-        for (int j = 0; j < KM; ++j)
-          if (j < k)
-            dst[j * F + c] =
-                rnd(lrelu(v[i][j] * sx + shx, r.neg) * (h[i][j] / sum), rb);
+          for (int j = 0; j < KM; ++j)
+            if (j < k)
+              dst[j * F + c] =
+                  rnd(lrelu(v[i][j] * sx + shx, r.neg) * (h[i][j] / sum), rb);
+        }
+      } else {
+        // past 32 rows h and v together would pass the 255 registers a
+        // thread may have: h first, its softmax (the same operations in
+        // the same order) stored to the thread's own column of v, then v,
+        // which multiplies it there
+        float* dst = r.v + (p0 + pp) * k * F;
+        float h[TC][KM];
+#pragma unroll
+        for (int i = 0; i < TC; ++i)
+#pragma unroll
+          for (int j = 0; j < KM; ++j) h[i][j] = 0.f;
+        rows_dot<KM, TC, GW>(H1 + pp * k * F2, F2, w2, F, c0, cs, F2, k, h,
+                             F2);
+#pragma unroll
+        for (int i = 0; i < TC; ++i) {
+          const int c = c0 + i * cs;
+          const float s2 = A2[c], sh2 = A2[F + c];
+          float m = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < KM; ++j) {
+            if (j < k) {
+              h[i][j] = lrelu(h[i][j] * s2 + sh2, r.neg);
+              m = fmaxf(m, h[i][j]);
+            }
+          }
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < KM; ++j) {
+            if (j < k) {
+              h[i][j] = expf(h[i][j] - m);
+              sum += h[i][j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KM; ++j)
+            if (j < k) dst[j * F + c] = h[i][j] / sum;
+        }
+        float v[TC][KM];
+#pragma unroll
+        for (int i = 0; i < TC; ++i)
+#pragma unroll
+          for (int j = 0; j < KM; ++j) v[i][j] = 0.f;
+        rows_dot<KM, TC, GW>(CEN + pp * k * Cp, Cp, wx0, F, c0, cs, Cp, k, v,
+                             C);
+        rows_dot<KM, TC, GW>(DIF + pp * k * Cp, Cp, wx1, F, c0, cs, Cp, k, v,
+                             C);
+#pragma unroll
+        for (int i = 0; i < TC; ++i) {
+          const int c = c0 + i * cs;
+          const float sx = AX[c], shx = AX[F + c];
+#pragma unroll
+          for (int j = 0; j < KM; ++j)
+            if (j < k)
+              dst[j * F + c] =
+                  rnd(lrelu(v[i][j] * sx + shx, r.neg) * dst[j * F + c], rb);
+        }
       }
     }
     __syncthreads();
@@ -306,11 +395,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int KM, int TC>
+template <int KM, int TC, bool GW = false>
 cudaError_t launch_rows(const Rows& r, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      edge_rows_kernel<KM, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      edge_rows_kernel<KM, TC, GW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -318,24 +407,80 @@ cudaError_t launch_rows(const Rows& r, size_t smem, cudaStream_t stream) {
                                     dev)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, edge_rows_kernel<KM, TC>, kThreads, smem)) !=
+           &per_sm, edge_rows_kernel<KM, TC, GW>, kThreads, smem)) !=
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = (r.M + r.P - 1) / r.P;
   const long long most = (long long)sms * per_sm;
   const int grid = (int)(tiles < most ? tiles : most);
-  edge_rows_kernel<KM, TC><<<grid, kThreads, smem, stream>>>(r);
+  edge_rows_kernel<KM, TC, GW><<<grid, kThreads, smem, stream>>>(r);
   return cudaGetLastError();
 }
 
-// the widths kernel C takes, but for C's limit of shared memory
-bool widths_ok(int B, int N, int C, int F2, int F, int k) {
-  return B > 0 && N > 0 && C > 0 && k > 0 && k <= 32 && F2 > 0 &&
-         F2 % 4 == 0 && (F == 64 || F == 128);
+// the widths kernel C takes, but for C's limit of shared memory: k <= 64
+// in f32 mode, k <= 32 in bf16 mode
+bool widths_ok(int B, int N, int C, int F2, int F, int k, int bf16) {
+  return B > 0 && N > 0 && C > 0 && k > 0 && k <= (bf16 ? 32 : 64) &&
+         F2 > 0 && F2 % 4 == 0 && (F == 64 || F == 128);
+}
+
+// The designs spgan_edge_tail takes, as spgan_edge_tail_route numbers them
+enum Route { kTf32 = 0, kTcBf16 = 1, kFma = 2, kFmaGlobal = 3 };
+
+// The FMA kernels' plan at these widths: the points P a block of
+// edge_rows_kernel holds, whether the weights stay in global memory (gw)
+// and the block's shared memory; 0 or a cudaError_t.
+int fma_plan(int C, int F2, int F, int k, int bf16, int* P, bool* gw,
+             size_t* smem) {
+  const int Cp = (C + 3) / 4 * 4;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t pbytes = 4 * (size_t)point_floats(Cp, F2, k);
+  // the weights in shared memory where one point's rows fit beside them;
+  // else, in f32 mode, read from global memory
+  *gw = !bf16 &&
+        4 * (size_t)weight_floats(Cp, F2, F) + pbytes > (size_t)limit;
+  const size_t wbytes = 4 * (size_t)weight_floats(Cp, F2, F, *gw);
+  int p = kMaxPoints;
+  while (p > 1 && wbytes + p * pbytes > (size_t)limit) p /= 2;
+  if (wbytes + p * pbytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  *P = p;
+  *smem = wbytes + p * pbytes;
+  return 0;
+}
+
+// The design a launch at these widths takes (a Route), with the FMA
+// kernels' plan where it is one of theirs; a negative cudaError_t where
+// none takes them.
+int route(int B, int N, int C, int F2, int F, int k, int bf16, int* P,
+          bool* gw, size_t* smem) {
+  if (!widths_ok(B, N, C, F2, F, k, bf16))
+    return -(int)cudaErrorInvalidValue;
+  if (!bf16 && ebt_tf_fits(C, F2, F, k)) return kTf32;
+  if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k)) return kTcBf16;
+  const int err = fma_plan(C, F2, F, k, bf16, P, gw, smem);
+  return err ? -err : (*gw ? kFmaGlobal : kFma);
 }
 
 }  // namespace
+
+// The design spgan_edge_tail takes at these widths, decided as it decides
+// it: 0 the tensor cores in f32 mode (edgeblock_tf32.cu), 1 the tensor
+// cores in bf16 mode (edgeblock_train_tc.cu), 2 the FMA kernels with the
+// weights in shared memory, 3 the FMA kernels with the weights in global
+// memory (f32 mode only); a negative cudaError_t where it refuses them.
+extern "C" int spgan_edge_tail_route(int B, int N, int C, int F2, int F,
+                                     int k, int bf16) {
+  int P = 0;
+  bool gw = false;
+  size_t smem = 0;
+  return route(B, N, C, F2, F, k, bf16, &P, &gw, &smem);
+}
 
 // Floats of the scratch spgan_edge_tail takes at these widths in the mode
 // `bf16` names, or a negative cudaError_t: on the tensor cores in f32 mode
@@ -344,7 +489,7 @@ bool widths_ok(int B, int N, int C, int F2, int F, int k) {
 // else an f32 v [B, N, k, F].
 extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
                                              int F, int k, int bf16) {
-  if (!widths_ok(B, N, C, F2, F, k))
+  if (!widths_ok(B, N, C, F2, F, k, bf16))
     return -(long long)cudaErrorInvalidValue;
   if (!bf16 && ebt_tf_fits(C, F2, F, k))
     return ebt_tf_scratch(B, N, C, F2, F, k);
@@ -358,8 +503,9 @@ extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
 // as spgan_edge_tail_scratch says; out [B, N, F]. All f32 except ee, which
 // is bf16 when `bf16` is set; all contiguous, on the device. Launches its
 // kernels on `stream` and returns the first nonzero cudaError_t (0 on
-// success). Takes F in {64, 128}, F2 a multiple of 4, 1 <= k <= 32, and C
-// small enough that the weights and one point's rows fit in shared memory.
+// success). Takes F in {64, 128}, F2 a multiple of 4, 1 <= k <= 64 in f32
+// mode and 1 <= k <= 32 in bf16 mode, and C small enough that one point's
+// rows fit in shared memory (in bf16 mode, with the weights beside them).
 //
 // bf16 mode, the JAX kernel's `cd = bfloat16`: the operands of the chain's
 // matmuls (the edge rows, w1, w2, wx, the activations before @ w2) and v
@@ -378,8 +524,12 @@ extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
                                const void* bout, void* vbuf, void* out, int B,
                                int N, int C, int F2, int F, int k, float neg,
                                int bf16, void* stream) {
-  if (!widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
-  if (!bf16 && ebt_tf_fits(C, F2, F, k))
+  int P = 0;
+  bool gw = false;
+  size_t smem = 0;
+  const int how = route(B, N, C, F2, F, k, bf16, &P, &gw, &smem);
+  if (how < 0) return -how;
+  if (how == kTf32)
     return ebt_tf_tail(
         static_cast<const float*>(ee), static_cast<const float*>(w1),
         static_cast<const float*>(a1), static_cast<const float*>(w2),
@@ -388,7 +538,7 @@ extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
         static_cast<const float*>(bout), static_cast<float*>(out),
         static_cast<float*>(vbuf), B, N, C, F2, F, k, neg,
         static_cast<cudaStream_t>(stream));
-  if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
+  if (how == kTcBf16)
     return ebt_tc_tail(
         ee, static_cast<const float*>(w1), static_cast<const float*>(a1),
         static_cast<const float*>(w2), static_cast<const float*>(a2),
@@ -397,26 +547,19 @@ extern "C" int spgan_edge_tail(const void* ee, const void* w1, const void* a1,
         static_cast<float*>(out), static_cast<float*>(vbuf), B, N, C, F2, F,
         k, neg, static_cast<cudaStream_t>(stream));
   const int Cp = (C + 3) / 4 * 4;
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t wbytes = 4 * (size_t)weight_floats(Cp, F2, F);
-  const size_t pbytes = 4 * (size_t)point_floats(Cp, F2, k);
-  int P = kMaxPoints;
-  while (P > 1 && wbytes + P * pbytes > (size_t)limit) P /= 2;
-  if (wbytes + P * pbytes > (size_t)limit) return (int)cudaErrorInvalidValue;
 
   const Rows r{ee, static_cast<const float*>(w1),
                static_cast<const float*>(a1), static_cast<const float*>(w2),
                static_cast<const float*>(a2), static_cast<const float*>(wx),
                static_cast<const float*>(ax), static_cast<float*>(vbuf),
                (long long)B * N, C, Cp, F2, F, k, P, neg, bf16 ? 1 : 0};
-  const size_t smem = wbytes + P * pbytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k > 16)
+  cudaError_t err;
+  if (gw)
+    err = launch_rows<64, 1, true>(r, smem, s);
+  else if (k > 32)
+    err = launch_rows<64, 1>(r, smem, s);
+  else if (k > 16)
     err = launch_rows<32, 1>(r, smem, s);
   else if (F == 128)
     err = launch_rows<16, 4>(r, smem, s);

@@ -47,7 +47,10 @@
 //        (YH, YL)
 //      h2 = y1 @ w2 -> S over y1 (after a barrier); att =
 //        softmax_k(lrelu(p2)) in place, one (point, channel) pair a
-//        thread, so the k rows meet without shuffles
+//        thread, so the k rows meet without shuffles (up to k = 32 its k
+//        values in registers, past it in three passes over S's column:
+//        64 values beside the rest would pass the 128 registers a thread
+//        of a 512-thread block may have)
 //      hx = ee @ wx, and from its fragments v = lrelu(px) att -> the f32
 //        scratch v [B N k, F]
 //  - tf_tail_gemm_kernel<F>: out = bout + v [B N, k F] @ wout in 128-row
@@ -57,9 +60,9 @@
 //    shared memory beside the chain's weights, so the contraction is a
 //    second pass over v, as in the FMA design.
 // Widths whose weights and a tile of one point do not fit (ebt_tf_fits:
-// at F = 128, F2 = 64, k = 10, C > 120), and F2 = 256, stay on the FMA
-// kernels of edgeblock.cu, which take them; none is refused that those
-// take.
+// at F = 128, F2 = 64, C > 120 at k = 10, C > 64 at k = 64), and F2 = 256,
+// stay on the FMA kernels of edgeblock.cu, which take them; none is
+// refused that those take.
 //
 // Shared memory of tf_tile_kernel, in bytes, Cp = C rounded up to 8 and
 // F2p = F2 rounded up to 16: the weights w1^T F2p (Cp + 4) 4, w2^T F
@@ -67,8 +70,11 @@
 // S Rp max(F + 8, 2 (F2p + 4)) 4 (y1's pair, then h2 and att). At
 // EdgeConv2's widths (C = 64, F2 = 64, F = 128, k = 10) the weights take
 // 119,808 B and a tile of TP = 6 points (60 rows, Rp = 64) 102,400 B: ee's
-// pair 67,584, S 34,816; 222,208 B of the 232,448 a block may have. At
-// EdgeConv1's (C = 3, F2 = 32, F = 64) a tile holds 12 points (Rp = 128).
+// pair 67,584, S 34,816; 222,208 B of the 232,448 a block may have. Past
+// k = 32 a tile holds one point there: at k = 40, 40 rows in Rp = 48
+// (196,608 B), at k = 64, 64 rows (222,208 B, as at k = 10). At
+// EdgeConv1's (C = 3, F2 = 32, F = 64) a tile holds 12 points (Rp = 128),
+// 3 at k = 40 and 2 at k = 64.
 // tf_tail_gemm_kernel takes TSTAGES (TM + F) (TK + 4) 4 B: 147,456 at F =
 // 128.
 //
@@ -77,7 +83,8 @@
 // port's three TF32 products make it 354, 0.72 ms at the TF32 tensor-core
 // peak of 495 TFLOP/s (1.76 ms at the 67 TFLOP/s f32 rate of the FMA
 // design). Its bytes: ee read once (0.67 GB), v written and read (0.67 GB
-// each way) and out written, 0.62 ms at 3.35 TB/s. Operations, then.
+// each way) and out written, 0.62 ms at 3.35 TB/s. Operations, then; at
+// k = 40 both four times as large (ee 2.7 GB, 1416 GFLOP of products).
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -373,7 +380,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
     asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + o));
 }
 
-// KM is k itself where k is 10, else a bound of it (32)
+// KM is k itself where k is 10, else a bound of it (32 or 64)
 template <int KM>
 __global__ void __launch_bounds__(kTile, 1) tf_tile_kernel(const Args a) {
   extern __shared__ __align__(16) float sm[];
@@ -475,27 +482,45 @@ __global__ void __launch_bounds__(kTile, 1) tf_tile_kernel(const Args a) {
     __syncthreads();
     for (int pp = tid / F; pp < np; pp += kTile / F) {
       float* s = S + pp * k * ls + cf;
-      float h[KM];
-      float mx = -INFINITY;
+      if constexpr (KM <= 32) {
+        float h[KM];
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        if (j < k) {
-          h[j] = lrelu(s[j * ls] * s2 + sh2, neg);
-          mx = fmaxf(mx, h[j]);
+        for (int j = 0; j < KM; ++j) {
+          if (j < k) {
+            h[j] = lrelu(s[j * ls] * s2 + sh2, neg);
+            mx = fmaxf(mx, h[j]);
+          }
         }
-      }
-      float sum = 0.f;
+        float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        if (j < k) {
-          h[j] = expf(h[j] - mx);
-          sum += h[j];
+        for (int j = 0; j < KM; ++j) {
+          if (j < k) {
+            h[j] = expf(h[j] - mx);
+            sum += h[j];
+          }
         }
-      }
-      const float isum = 1.f / sum;
+        const float isum = 1.f / sum;
 #pragma unroll
-      for (int j = 0; j < KM; ++j)
-        if (j < k) s[j * ls] = h[j] * isum;
+        for (int j = 0; j < KM; ++j)
+          if (j < k) s[j * ls] = h[j] * isum;
+      } else {
+        // past 32 rows the k values would not stay in registers under the
+        // block's cap of 128 a thread: three passes over the column of S
+        // instead (the same operations in the same order), the exponents
+        // stored in place between the second and the third
+        float mx = -INFINITY;
+        for (int j = 0; j < k; ++j)
+          mx = fmaxf(mx, lrelu(s[j * ls] * s2 + sh2, neg));
+        float sum = 0.f;
+        for (int j = 0; j < k; ++j) {
+          const float e = expf(lrelu(s[j * ls] * s2 + sh2, neg) - mx);
+          s[j * ls] = e;
+          sum += e;
+        }
+        const float isum = 1.f / sum;
+        for (int j = 0; j < k; ++j) s[j * ls] *= isum;
+      }
     }
     __syncthreads();
     // hx = ee @ wx; v = lrelu(px) att, from the fragments to the scratch
@@ -655,8 +680,9 @@ __global__ void __launch_bounds__(kTile, 1)
 }
 
 void* tile_kernel(int k) {
-  return k == 10 ? reinterpret_cast<void*>(tf_tile_kernel<10>)
-                 : reinterpret_cast<void*>(tf_tile_kernel<32>);
+  return k == 10   ? reinterpret_cast<void*>(tf_tile_kernel<10>)
+         : k <= 32 ? reinterpret_cast<void*>(tf_tile_kernel<32>)
+                   : reinterpret_cast<void*>(tf_tile_kernel<64>);
 }
 
 const void* tail_kernel(int F) {
@@ -723,7 +749,7 @@ int allow_smem(const void* fn, int bytes, int threads, int* per_sm) {
 }
 
 bool widths_ok(int C, int F2, int F, int k) {
-  return C > 0 && k >= 1 && k <= 32 && F2 > 0 && F2 % 4 == 0 &&
+  return C > 0 && k >= 1 && k <= 64 && F2 > 0 && F2 % 4 == 0 &&
          128 % F2 == 0 && (F == 64 || F == 128);
 }
 

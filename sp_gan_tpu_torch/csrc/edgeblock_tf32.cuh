@@ -6,9 +6,9 @@
 #include <cuda_runtime.h>
 
 // Whether the split-TF32 path takes these widths: C >= 1, F2 a multiple
-// of 4 dividing 128, F in {64, 128}, 1 <= k <= 32, and the block's f32
-// weights and a tile of one point fit in its shared memory (at F = 128,
-// F2 = 64 and k = 10, C <= 120).
+// of 4 dividing 128, F in {64, 128}, 1 <= k <= 64, and the block's f32
+// weights and a tile of one point fit in its shared memory (at F = 128 and
+// F2 = 64: C <= 120 at k = 10, 96 at k = 32, 80 at k = 40, 64 at k = 64).
 bool ebt_tf_fits(int C, int F2, int F, int k);
 
 // Floats of scratch the path takes: v [B, N, k, F] and wout transposed

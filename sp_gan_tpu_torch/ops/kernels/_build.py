@@ -62,6 +62,8 @@ SIGNATURES = {
     "spgan_knn_edge_window": (_P,) * 5 + (_I,) * 9 + (_F, _F, _P),
     # B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
     "spgan_edge_tail_scratch": (_I,) * 7,
+    # B, N, C, F2, F, k, bf16 -> the design a launch takes (int)
+    "spgan_edge_tail_route": (_I,) * 7,
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, scratch, out, B, N, C, F2, F,
     # k, neg, bf16, stream
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P),

@@ -28,12 +28,17 @@ every product of the chain and the contraction as three TF32 products,
 x = hi + lo with hi = tf32(x), lo = tf32(x - hi), a b = ah bh + ah bl +
 al bh, never one (a single TF32 product keeps about 11 bits and misses
 the f32 gate, `tests/test_torch_edge_tail.py`), wherever F2 divides 128
-and the weights fit in shared memory (C <= 120 at F = 128, F2 = 64,
-k = 10; both serving calls). bf16 mode (`csrc/edgeblock_train_tc.cu`,
-with wout kept as a bf16 pair hi + lo, about 16 of its bits) takes C a
-multiple of 4, F2 dividing 256 and C <= 224 at F = 128, F2 = 64, k = 10.
-The CUDA sources say how their passes are laid out; the scratch each call
-takes is sized for the path that runs.
+and the weights and one point's k rows fit in shared memory: at F = 128,
+F2 = 64, C <= 120 at k = 10, C <= 96 at k = 32, C <= 80 at k = 40 and
+C <= 64 at k = 64, so both serving calls up to k = 64 (--nk 128). The
+FMA design takes the other f32 widths; where its weights and one point's
+rows do not fit in shared memory it reads the weights from global memory,
+so it holds only the rows (C <= 416 at F = 128, F2 = 64, k = 64). bf16
+mode (`csrc/edgeblock_train_tc.cu`, with wout kept as a bf16 pair hi +
+lo, about 16 of its bits) takes C a multiple of 4, F2 dividing 256 and
+C <= 224 at F = 128, F2 = 64, k = 10, and k <= 32 (`--nk` <= 64), as
+kernels I-L do. The CUDA sources say how their passes are laid out; the
+scratch each call takes is sized for the path that runs.
 
 `edge_tail` launches the kernel for CUDA tensors and runs `edge_tail_plain`,
 the same function in plain PyTorch, for CPU tensors. `edge_tail.launches`
@@ -47,8 +52,22 @@ import torch
 from sp_gan_tpu_torch.ops.kernels import _build
 
 WIDTHS = (64, 128)      # output widths F the CUDA kernel is built for
-MAX_K = 32
+# the most neighbours a point the CUDA kernel takes, by the dtype of ee: f32
+# (serving) and bf16 (the fused training forward, with kernels I-L)
+MAX_K = {torch.float32: 64, torch.bfloat16: 32}
 EE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_kernel_limits(k: int, dtype: torch.dtype) -> None:
+    """Kernel C's limit, checked before a launch: k <= 64 on an f32 ee (the
+    generator's --nk <= 128), k <= 32 on a bf16 ee (--nk <= 64). The plain
+    version has none, but a CUDA tensor never falls back to it."""
+    if k > MAX_K[dtype]:
+        mode = "f32" if dtype == torch.float32 else "bf16"
+        raise ValueError(
+            f"kernel C (edge_tail) takes k <= {MAX_K[dtype]} (--nk <= "
+            f"{2 * MAX_K[dtype]}) in {mode} mode on CUDA; got k={k} (from "
+            f"--nk {2 * k})")
 
 
 def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
@@ -76,6 +95,23 @@ def _check(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
             raise ValueError(f"{name} must be contiguous")
         if t.device != ee.device:
             raise ValueError(f"{name} is on {t.device}, ee on {ee.device}")
+
+
+# the designs a launch takes, by the code spgan_edge_tail_route returns
+ROUTES = ("tensor cores, f32", "tensor cores, bf16", "FMA",
+          "FMA, weights in global memory")
+
+
+def edge_tail_route(B: int, N: int, C: int, F2: int, F: int, k: int,
+                    bf16: bool = False) -> str:
+    """The design kernel C launches at these widths on the current CUDA
+    device (one of ROUTES), as `edge_tail` would decide it; raises where it
+    refuses them."""
+    check_kernel_limits(k, torch.bfloat16 if bf16 else torch.float32)
+    r = _build.library().spgan_edge_tail_route(B, N, C, F2, F, k, int(bf16))
+    if r < 0:
+        _build.check(-r, "spgan_edge_tail_route")
+    return ROUTES[r]
 
 
 def edge_tail_plain(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
@@ -112,10 +148,7 @@ def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
     if ee.device.type != "cuda":
         raise ValueError(f"edge_tail runs on cuda or cpu, not {ee.device}")
     B, N, _, C2 = ee.shape
-    if k > MAX_K:
-        raise ValueError(f"kernel C (edge_tail) takes k <= {MAX_K} (--nk <= "
-                         f"{2 * MAX_K}) on CUDA; got k={k} (from --nk "
-                         f"{2 * k})")
+    check_kernel_limits(k, ee.dtype)
     F2, F = w1.shape[-1], w2.shape[-1]
     bf16 = int(ee.dtype == torch.bfloat16)
     out = torch.empty((B, N, F), dtype=torch.float32, device=ee.device)

@@ -7,6 +7,11 @@ starts `world` ranks that meet through a `file://` rendezvous in a
 temporary directory (no port), runs one suite on each and returns every
 rank's results, a dict of numpy arrays and numbers. Each suite runs all
 the cases of its test module in that one spawn.
+
+Every wait is bounded: a collective by the group's TIMEOUT_S, a rank's
+teardown by TIMEOUT_S, and the whole spawn by SPAWN_DEADLINE_S, past which
+the ranks are killed and the test fails with each rank's exit code and
+the last lines of its stderr (kept in the temporary directory).
 """
 
 from __future__ import annotations
@@ -15,22 +20,46 @@ import contextlib
 import os
 import pickle
 import tempfile
+import threading
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-# seconds a rank waits for the others at a collective
+# seconds a rank waits for the others at a collective, and for its own
+# teardown
 TIMEOUT_S = 120
+# seconds a spawn may take from its start to its last rank's exit: the
+# largest suite takes 30-80 s with six test workers on eight cores
+SPAWN_DEADLINE_S = 420
+# lines of each rank's stderr a failed spawn reports
+STDERR_TAIL = 25
 
 
 def spawn(world: int, suite: str, *args) -> list:
     """Runs `SUITES[suite](rank, world, *args)` on `world` gloo ranks and
-    returns their results in rank order."""
+    returns their results in rank order. Raises if a rank fails or the
+    ranks have not all exited within SPAWN_DEADLINE_S; the ranks are
+    killed in either case."""
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_main, args=(world, tmp, suite, args), nprocs=world,
-                 join=True)
+        ctx = mp.start_processes(_main, args=(world, tmp, suite, args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        end = time.monotonic() + SPAWN_DEADLINE_S
+        try:
+            while not ctx.join(timeout=max(end - time.monotonic(), 0.0)):
+                if time.monotonic() >= end:
+                    raise TimeoutError(
+                        f"suite {suite!r} on {world} ranks did not end "
+                        f"within {SPAWN_DEADLINE_S} s")
+        except Exception as e:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+            raise AssertionError(f"{e}\n{_report(tmp, ctx)}") from e
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -38,21 +67,58 @@ def spawn(world: int, suite: str, *args) -> list:
         return out
 
 
+def _report(tmp: str, ctx) -> str:
+    """Each rank's exit code, its traceback where it raised, and the last
+    STDERR_TAIL lines of its stderr."""
+    lines = []
+    for r, p in enumerate(ctx.processes):
+        try:
+            with open(os.path.join(tmp, f"rank{r}.err"), errors="replace") \
+                    as f:
+                tail = f.readlines()[-STDERR_TAIL:]
+        except OSError:
+            tail = ["(no stderr file)\n"]
+        raised = ""
+        if os.path.exists(ctx.error_files[r]):
+            with open(ctx.error_files[r], "rb") as f:
+                raised = "raised:\n" + pickle.load(f)
+        lines.append(f"-- rank {r}: exit code {p.exitcode}; {raised}"
+                     "stderr ends:\n" + "".join(tail))
+    return "\n".join(lines)
+
+
+def _bounded(fn, seconds: float) -> bool:
+    """Runs fn() on a daemon thread and waits for it at most `seconds`;
+    whether it returned in time."""
+    t = threading.Thread(target=fn, daemon=True)
+    t.start()
+    t.join(seconds)
+    return not t.is_alive()
+
+
 def _main(rank: int, world: int, tmp: str, suite: str, args) -> None:
     import datetime
     import sys
+    # the rank's stderr into a file the parent reports from if the spawn
+    # fails (a rank's exception also reaches the parent whole, through
+    # torch.multiprocessing's error file)
+    err = open(os.path.join(tmp, f"rank{rank}.err"), "w", buffering=1)
+    os.dup2(err.fileno(), 2)
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(tmp, "rendezvous"),
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    try:
-        res = SUITES[suite](rank, world, *args)
-        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(res, f)
-        dist.barrier()   # every rank's collectives done before any leaves
-    finally:
-        dist.destroy_process_group()
+    # a suite that raises ends the rank at once, its traceback written for
+    # the parent before any teardown can delay it
+    res = SUITES[suite](rank, world, *args)
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()   # every rank's collectives done before any leaves
+    # destroy_process_group has no deadline of its own
+    if not _bounded(dist.destroy_process_group, TIMEOUT_S):
+        print(f"rank {rank}: destroy_process_group still running after "
+              f"{TIMEOUT_S} s", file=sys.stderr, flush=True)
     _wait_all(tmp, "torn_down", rank, world)
     # gloo's loop threads can outlive destroy_process_group, and the
     # interpreter's teardown at exit then sometimes destroys one that is
@@ -70,7 +136,6 @@ def _main(rank: int, world: int, tmp: str, suite: str, args) -> None:
 def _wait_all(tmp: str, name: str, rank: int, world: int) -> None:
     """Marks `name` done for this rank and waits, up to TIMEOUT_S, until
     every rank of the spawn has marked it."""
-    import time
     open(os.path.join(tmp, f"{name}{rank}"), "w").close()
     end = time.monotonic() + TIMEOUT_S
     while time.monotonic() < end and not all(
@@ -431,5 +496,23 @@ def _trainer(mesh, log_dir):
             "params": {n: _np(p) for n, p in st.G.named_parameters()}}
 
 
+# ---------------------------------------------------------------- faults
+def stall_suite(rank, world, who):
+    """Rank `who` never returns; the others return at once and wait for it
+    at the barrier (tests/test_torch_parallel_spawn.py)."""
+    import sys
+    print(f"rank {rank} of {world} started", file=sys.stderr, flush=True)
+    if rank == who:
+        time.sleep(3600)
+    return {}
+
+
+def raise_suite(rank, world, who):
+    """Rank `who` raises; the others wait for it at the barrier."""
+    if rank == who:
+        raise ValueError(f"rank {rank} fails on purpose")
+    return {}
+
+
 SUITES = {"ops": ops_suite, "bn": bn_suite, "step2": step2_suite,
-          "step4": step4_suite}
+          "step4": step4_suite, "stall": stall_suite, "raise": raise_suite}
