@@ -228,12 +228,27 @@ Phases, in order; any failure raises and the script exits nonzero:
               through the route `edge_tail_route` names: the tensor cores
               at both EdgeBlocks' widths, the FMA kernels at F2 = 48 and,
               weights in global memory, at C = 124; at k = 40 also on the
-              request's own edges; f32 at k = 65, bf16 at k = 33 and a
+              request's own edges; f32 and bf16 at k = 65 and a
               Manipulator at --nk 130 refused; the Trainer's sample rows
               and the generate CLI on the --nk 80 checkpoint (launches
               counted); the routines' fused forwards at --nk 80 with their
               launches, part_exchange and interpolate against the CPU in
-              float32 with EdgeConv2's picks pinned; C's k = 40 row.
+              float32 with EdgeConv2's picks pinned; C's k = 40 row. Its
+              fused half (slice 23, the tensor-core engine of I-L and C's
+              bf16 mode past k = 32): ptxas of the five
+              tc_tile_kernel<PASS, 64> instantiations (no spill); I-L and
+              C-bf16 at k = 33, 40 and 64 within 5e-3 relative L2 of their
+              plain versions and twice alike on bf16 concat edges, at
+              EdgeConv2's widths and at F = 64 (C on its FMA kernels),
+              each on the route `edge_train_route` and `edge_tail_route`
+              name, at k = 40 also on offset and scaled clouds; kernel B's
+              concat bf16 form at k = 40 bit for bit; the fused block under
+              autograd at k = 40 against its plain versions; bf16 at k =
+              65, f32 I-L at k = 33 and bf16 at C = 128, k = 64 refused;
+              --fused_dphase (F2-80) and --fused_train (F1-80) at --nk 80,
+              2 + 5 steps each with their launches and one profile; small
+              mixed_edge --fused_train steps at --nk 80 against the CPU with
+              EdgeConv2's picks pinned; I-L and C-bf16's k = 40 rows.
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -1144,6 +1159,55 @@ def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
     return res
 
 
+# kernels I-L and C's bf16 mode: their source (on the tensor cores at the
+# fused path's widths) and the TPU kernels they replace
+TRAIN_SOURCE = "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu"
+TRAIN_REPLACES = {
+    "edge_train_stats2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:152 "
+                         "(_stats2_pallas, _stats2_kernel :111)",
+    "edge_tail": "sp_gan_tpu/ops/pallas/edgeblock.py:102 "
+                 "(edge_tail_pallas bf16 mode, _edge_tail_kernel :28)",
+    "edge_train_bwd1": "sp_gan_tpu/ops/pallas/edgeblock_train.py:450 "
+                       "(edge_block_train_backward pass 1, "
+                       "_bwd_pass1_kernel :242)",
+    "edge_train_bwd2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:461 "
+                       "(edge_block_train_backward pass 2, "
+                       "_bwd_pass2_kernel :288)",
+    "edge_train_bwd3": "sp_gan_tpu/ops/pallas/edgeblock_train.py:471 "
+                       "(edge_block_train_backward pass 3, "
+                       "_bwd_pass3_kernel :328)"}
+
+
+def train_kernel_bound(name: str, a: dict) -> tuple:
+    """(bound ms, "bytes" or "operations", the same products' bound at the
+    f32 rate) of kernel `name` (I-L or C) on `train_kernel_inputs`' `a`, a
+    bf16 ee [B, N, k, 2C]: the matmul work the port kernel computes at the
+    bf16 tensor-core peak, each input read and each output written once
+    (the f32 d_u is J's output and K's and L's input)."""
+    ee = a["ee"]
+    B, N, k, c2 = ee.shape
+    f2, f = a["w1"].shape[1], a["w2"].shape[1]
+    rows, c1 = B * N * k, c2 // 2
+    # multiply-adds per edge row: the chain (w1, w2, wx); conv_out (C);
+    # d_u = d_out @ wout[j]^T and d_wout (J); d_y1 and d_w2 (K); d_y1,
+    # d_diff, d_w1, d_full and d_wx (L)
+    chain = c1 * f2 + f2 * f + c2 * f
+    macs = {"edge_train_stats2": c1 * f2 + f2 * f,
+            "edge_tail": chain + f * f,
+            "edge_train_bwd1": chain + 2 * f * f,
+            "edge_train_bwd2": chain + 2 * f2 * f,
+            "edge_train_bwd3": chain + f2 * f + 2 * c1 * f2 + 2 * c2 * f}
+    ee_bytes, dout_bytes = ee.numel() * 2, B * N * f * 4
+    du_bytes = rows * f * 4
+    moved = {"edge_train_stats2": ee_bytes // 2,
+             "edge_tail": ee_bytes + dout_bytes,
+             "edge_train_bwd1": ee_bytes + dout_bytes + du_bytes,
+             "edge_train_bwd2": ee_bytes + du_bytes,
+             "edge_train_bwd3": 2 * ee_bytes + du_bytes}
+    b, by = bound(2 * macs[name] * rows, moved[name], BF16_FLOPS)
+    return b, by, bound(2 * macs[name] * rows, moved[name])[0]
+
+
 def torch_edge_block_oracle(block, ee, k, neg=0.01, eps=1e-5, slopes=None,
                             pre=None):
     """Plain autograd train-mode EdgeBlock on the edge tensor, two-pass
@@ -1386,9 +1450,13 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
     after its Adam step. With `pinned` (a record of another run), the
     D phase takes that run's fakes and D takes its weights right after
     D's Adam step, so that each phase here sees the other run's inputs.
-    With `pin_knn` as well, EdgeConv2's diff edges (kernel B's or F's op)
-    take the other run's selections (its plain versions' edge rounding and
-    kernel D's backward), while its own are recorded."""
+    With `pin_knn` as well, EdgeConv2's edges (kernel B's diff or concat
+    op, or F's) take the other run's selections (the plain edge rounding
+    and the op's own backward, kernel D's), while its own are recorded,
+    and on the fused path EdgeConv2's fused EdgeBlock takes the other run's
+    output values, its gradient flowing through its own backward; the
+    block is then also run here on the other run's input edges, its output
+    recorded ("block_on_pinned")."""
     import copy
 
     import torch
@@ -1399,9 +1467,11 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
     from sp_gan_tpu_torch.nn import fused_train as ft_mod
     G, D = copy.deepcopy(G0), copy.deepcopy(D0)
     state = create_train_state(cfg, device=device, G=G, D=D)
-    rec = {"knn": [], "pools": [], "grads": [], "fakes": [], "lrelu": []}
+    rec = {"knn": [], "pools": [], "grads": [], "fakes": [], "lrelu": [],
+           "block": [], "block_in": [], "block_on_pinned": []}
     fused, window = edge_mod.edge_diff_fused, edge_mod.edge_diff_window
     concat, adain = edge_mod.edge_concat_fused, ft_mod._adain
+    block = ft_mod.fused_edge_block
     gft = step_mod.generator_forward_train
     apply = step_mod._apply
     lrelu = disc_mod.lrelu
@@ -1411,19 +1481,37 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
         rec["lrelu"].append(x.detach().float().cpu())
         return lrelu(x, slope)
 
-    def recording(op, pin=False):
+    def recording(op, pin=False, concat=False):
         """EdgeConv2's fused op (kernel B's diff or, on the fused train
         path, concat form, or kernel F's on the band of knn_mode approx),
-        recording its input and selection; with `pin`, the diff form
-        returns the pinned run's selection instead."""
+        recording its input and selection; with `pin`, the op returns the
+        edges of the pinned run's selection instead, in its own form."""
         def run(x, *args):
             diff, idx = op(x, *args)
             rec["knn"].append((x.detach().cpu(), idx.cpu()))
             if pin:
                 idx = pinned["knn"][len(rec["knn"]) - 1][1].to(idx.device)
-                diff = PinnedEdgeDiff.apply(x, idx, diff.dtype)
+                diff = (PinnedEdgeConcat if concat else PinnedEdgeDiff) \
+                    .apply(x, idx, diff.dtype)
             return diff, idx
         return run
+
+    def recording_block(p, ee, k, neg):
+        """EdgeConv2's fused EdgeBlock, recording its input and output;
+        with `pin_knn` and a pinned run, its output takes that run's values
+        (the gradient still flows through this run's own backward), and
+        the block's output on that run's input is recorded."""
+        out, stats = block(p, ee, k, neg)
+        rec["block"].append(out.detach().cpu())
+        rec["block_in"].append(ee.detach().cpu())
+        if pin_knn and pinned is not None:
+            i = len(rec["block"]) - 1
+            with torch.no_grad():
+                rec["block_on_pinned"].append(block(
+                    p, pinned["block_in"][i].to(ee.device), k, neg)[0].cpu())
+            want = pinned["block"][i].to(out.device)
+            out = want + (out - out.detach())
+        return out, stats
 
     def recording_apply(opt, params, grads, lr, nan_guard):
         rec["grads"].append([g.detach().cpu() for g in grads])
@@ -1461,8 +1549,9 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
         lambda m, a: rec["pools"].append(a[0].detach().float().cpu()))
     edge_mod.edge_diff_fused = recording(fused, pin_knn)
     edge_mod.edge_diff_window = recording(window, pin_knn)
-    edge_mod.edge_concat_fused = recording(concat)
+    edge_mod.edge_concat_fused = recording(concat, pin_knn, concat=True)
     ft_mod._adain = recording_adain
+    ft_mod.fused_edge_block = recording_block
     step_mod.generator_forward_train = recording_gft
     step_mod._apply = recording_apply
     disc_mod.lrelu = recording_lrelu
@@ -1476,6 +1565,7 @@ def small_step(device, cfg, G0, D0, sphere, real, z_d, z_g, pinned=None,
     finally:
         edge_mod.edge_diff_fused, edge_mod.edge_diff_window = fused, window
         edge_mod.edge_concat_fused, ft_mod._adain = concat, adain
+        ft_mod.fused_edge_block = block
         step_mod.generator_forward_train = gft
         step_mod._apply = apply
         disc_mod.lrelu = lrelu
@@ -1517,6 +1607,41 @@ class PinnedEdgeDiff:
                     (idx,) = ctx.saved_tensors
                     return (scatter_diff_bwd(d.contiguous(), idx)
                             .to(ctx.dtype), None, None)
+            cls._fn = Fn
+        return cls._fn.apply(x, idx, dtype)
+
+
+class PinnedEdgeConcat:
+    """`[central, nbr - central]` at given indices, differentiable in x as
+    the concat edges are (`ops.edge.EdgeConcat`: the plain edge rounding
+    forward, EdgeConcat's own backward on the given indices), for
+    `small_step`'s pinned selections on the fused train path."""
+
+    _fn = None
+
+    @classmethod
+    def apply(cls, x, idx, dtype):
+        if cls._fn is None:
+            import types
+
+            import torch
+            from sp_gan_tpu_torch.ops.edge import EdgeConcat
+            from sp_gan_tpu_torch.ops.kernels.knn_edge import edges_from_idx
+
+            class Fn(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x, idx, dtype):
+                    ctx.save_for_backward(idx)
+                    ctx.dtype = x.dtype
+                    return edges_from_idx(x.detach().float(), idx, dtype,
+                                          False)
+
+                @staticmethod
+                def backward(ctx, d):
+                    (idx,) = ctx.saved_tensors
+                    saved = types.SimpleNamespace(saved_tensors=(idx,),
+                                                  dtype=ctx.dtype)
+                    return EdgeConcat.backward(saved, d, None)[0], None, None
             cls._fn = Fn
         return cls._fn.apply(x, idx, dtype)
 
@@ -1603,7 +1728,20 @@ def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
     ("knn_pinned_flips"), and the chains start at the global pool. At
     --nk 80 (40 of 256 points) the G phase's kNN parts the devices in
     every seed of 0-7 on the H100, so only pinned can G's gradients be
-    compared there."""
+    compared there.
+
+    Under mixed_edge (`cfg_kw`'s dtype; the fused path at --nk 80, where
+    kernels I-L take bf16 edges only) EdgeConv1's bf16 output parts the
+    devices by bf16 roundings, which AdaIN carries into EdgeConv2's input:
+    on the H100 (seeds 0-7) up to 2.3e-2 of its max-abs, 580-2240 of
+    EdgeConv2's picks and, unpinned, half of G's pool channels moved. So
+    with `pin_knn` the CPU's EdgeConv2 also takes the card's fused
+    EdgeBlock output (`small_step`), and its pinned picks are counted
+    ("knn_pinned_flips", their inputs' disagreement "knn_input_err") but
+    not held to the near-tie rule; the rest is held as in float32. The
+    card's fused block (kernels I and C forward) is held instead against
+    the CPU's on the card's own input edges, in each phase, by `hold` at
+    the kernels' 5e-3 relative L2 ("block_on_card_edges")."""
     import numpy as np
     import torch
     from sp_gan_tpu_torch.config import Config
@@ -1646,6 +1784,14 @@ def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
            "fail": []}
     if pin_knn:
         res["knn_pinned_flips"] = 0
+    if cpu["block_on_pinned"]:
+        try:
+            res["block_on_card_edges"] = hold(
+                f"small step (N={cfg.np}, bs=4, {cfg.dtype}): EdgeConv2's "
+                "fused block on the card's edges, cuda against cpu",
+                card["block"], cpu["block_on_pinned"], 5e-3)
+        except AssertionError as e:
+            res["fail"].append(str(e))
     if cfg.gan == "wgan" and cfg.lambda_gp > 0:
         # D's third forward of the D phase is the penalty's; D runs
         # 2 + regs forwards in the D phase and one in the G phase
@@ -1701,9 +1847,14 @@ def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
         for what, i in chain:
             n, err = flips(what, i)
             if n and pin_knn and what == "knn":
-                # the CPU went on with the card's picks: a near-tie each
+                # the CPU went on with the card's picks: a near-tie each in
+                # float32; under mixed_edge only counted (see above)
                 res["knn_pinned_flips"] += n
-                res["flip_input_err"] = max(res["flip_input_err"], err)
+                if cfg.dtype == "float32":
+                    res["flip_input_err"] = max(res["flip_input_err"], err)
+                else:
+                    res["knn_input_err"] = max(
+                        res.get("knn_input_err", 0.0), err)
                 continue
             if n:
                 res["g_flips"] += n
@@ -1739,7 +1890,7 @@ def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
             ok &= res[tag]["elem"][0] <= elem and res[tag]["l2"][0] <= l2
     if not ok:
         res["fail"].append("beyond the step-parity tolerances")
-    log(f"  small step (N={cfg.np}, bs=4, f32) cuda vs cpu: {res}"
+    log(f"  small step (N={cfg.np}, bs=4, {cfg.dtype}) cuda vs cpu: {res}"
         + ("" if d_ok else "; D's gradients not compared (flips in D)")
         + ("; d_loss not compared (a flip in the penalty's D forward)"
            if res["gp_flips"] else "")
@@ -4627,6 +4778,8 @@ def wide_k_phase(seed: int) -> tuple:
     torch.cuda.empty_cache()
     res["serving"], row_c = wide_serve(seed, lap)
     rows.append(row_c)
+    res["fused"], rows_f = wide_fused(seed, lap)
+    rows.extend(rows_f)
     log(f"  wide_k seconds by part: {res['seconds']}")
     return res, rows
 
@@ -4846,9 +4999,9 @@ def check_wide_tails(served: dict, gen) -> dict:
 
 
 def check_wide_tail_limits(seed: int) -> dict:
-    """On CUDA tensors kernel C refuses f32 edges at k = 65 and bf16 edges
-    at k = 33, naming the limit, and a Manipulator at --nk 130 refuses to
-    serve; none of them launches a kernel."""
+    """On CUDA tensors kernel C refuses f32 and bf16 edges at k = 65 (bf16
+    past k = 32 since slice 23), naming the limit, and a Manipulator at
+    --nk 130 refuses to serve; none of them launches a kernel."""
     import torch
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.manipulate import Manipulator
@@ -4865,8 +5018,8 @@ def check_wide_tail_limits(seed: int) -> dict:
     man = Manipulator(cfg, Generator(cfg, seed=seed), device="cuda")
     calls = {"f32, k = 65": (tail(65, torch.float32),
                              "k <= 64 (--nk <= 128) in f32 mode"),
-             "bf16, k = 33": (tail(33, torch.bfloat16),
-                              "k <= 32 (--nk <= 64) in bf16 mode"),
+             "bf16, k = 65": (tail(65, torch.bfloat16),
+                              "k <= 64 (--nk <= 128) in bf16 mode"),
              "Manipulator.generate at --nk 130": (
                  lambda: man.generate(1, seed=seed), "--nk <= 128")}
     kernels.reset_launch_counts()
@@ -5198,6 +5351,312 @@ def wide_serve(seed: int, lap) -> tuple:
     return res, row
 
 
+# slice 23: kernels I-L and C's bf16 mode past k = 32 on the tensor-core
+# engine (`tc_tile_kernel<PASS, 64>`), --fused_train and --fused_dphase at
+# --nk 80. The widths of the checks, (C, F2, F): EdgeConv2's, where all
+# five take the tensor cores, and F = 64, where I-L take them and kernel C
+# its FMA kernels in bf16 mode (its tensor-core tail is built for F = 128);
+# the routes each must take there, asked of `edge_train_route` and
+# `edge_tail_route`: (I-L's, C's)
+WIDE_FUSED_WIDTHS = {"EdgeConv2": (64, 64, 128), "F 64": (64, 32, 64)}
+WIDE_FUSED_ROUTES = {"EdgeConv2": ("tensor cores, bf16", "tensor cores, bf16"),
+                     "F 64": ("tensor cores, bf16", "FMA")}
+# clouds of 2048 points a drawn check takes
+WIDE_FUSED_B = 8
+# the tile kernel's five instantiations past k = 32, by their mangled
+# names, and the most bytes any may spill: none spilled in this slice's
+# runs (72 to 104 registers, the softmax in passes over shared memory)
+WIDE_FUSED_KERNELS = re.compile(r"tc_tile_kernelILi[0-4]ELi64E")
+WIDE_FUSED_MAX_SPILL = 0
+# draws of the fused block under autograd at k = 40
+WIDE_FUSED_DRAWS = 4
+
+
+def wide_fused_ptxas(text: str) -> list:
+    """ptxas's lines for the tensor-core tile kernel's instantiations past
+    k = 32 (I, J, K, L and C); raises if one is missing or spills more
+    than WIDE_FUSED_MAX_SPILL bytes."""
+    lines = [line for line in ptxas_report(text, 400)
+             if WIDE_FUSED_KERNELS.search(line)]
+    if len(lines) != 5:
+        raise AssertionError(f"ptxas reported {len(lines)} of the five "
+                             "tc_tile_kernel instantiations past k = 32")
+    for line in lines:
+        spill = re.search(r"spill (\d+)/(\d+) bytes", line)
+        if not spill or max(map(int, spill.groups())) > WIDE_FUSED_MAX_SPILL:
+            raise AssertionError(f"tc_tile_kernel spills: {line}")
+    return lines
+
+
+def wide_block(C: int, F: int, k: int, seed: int):
+    """An EdgeBlock(C, F, k) on the card, its weights drawn from `seed`."""
+    import numpy as np
+    from sp_gan_tpu_torch.nn import layers
+    rng = np.random.default_rng(seed)
+    blk = layers.EdgeBlock(C, F, k)
+    for m in blk.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(rng)
+    return blk.cuda()
+
+
+def check_wide_train_kernels(seed: int, gen) -> dict:
+    """I-L and C's bf16 mode at k = 33, 40 and 64 at each of
+    WIDE_FUSED_WIDTHS, on the routes WIDE_FUSED_ROUTES names (asked of
+    `edge_train_route` and `edge_tail_route`, which decide as a launch
+    does), on bf16 concat edges of WIDE_FUSED_B normal clouds from kernel
+    B: `check_train_kernels` (5e-3 relative L2 against the plain versions,
+    twice alike, C's contraction within TAIL_PAIR_TOL); at k = 40 and
+    EdgeConv2's widths also on the clouds offset by +10 and scaled by 10
+    (TAIL_HARD)."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail_route
+    from sp_gan_tpu_torch.ops.kernels.edgeblock_train import edge_train_route
+    res = {}
+    for k in WIDE_K:
+        for name, (C, F2, F) in WIDE_FUSED_WIDTHS.items():
+            routes = ({edge_train_route(p, WIDE_FUSED_B, 2048, C, F2, F, k,
+                                        True) for p in range(4)},
+                      edge_tail_route(WIDE_FUSED_B, 2048, C, F2, F, k, True))
+            want = WIDE_FUSED_ROUTES[name]
+            if routes != ({want[0]}, want[1]):
+                raise AssertionError(f"I-L and C at {name}, k={k} take "
+                                     f"{routes}")
+            blk = wide_block(C, F, k, seed)
+            x = torch.randn(WIDE_FUSED_B, 2048, C, generator=gen,
+                            device="cuda")
+            moves = {"normal": (0.0, 1.0)}
+            if k == 40 and name == "EdgeConv2":
+                moves.update(TAIL_HARD)
+            for label, (offset, scale) in moves.items():
+                tag = f"{name}, k={k}, {label}"
+                a = train_kernel_inputs(blk, x * scale + offset, k,
+                                        torch.bfloat16, gen)
+                res[tag] = check_train_kernels(a, 5e-3, tag)
+                del a
+            torch.cuda.empty_cache()
+    worst = max(r["rel_l2"] for c in res.values() for n, r in c.items()
+                if n != "wout_pair")
+    log(f"  I-L and C-bf16 past k = 32: {len(res)} cases, worst relative "
+        f"L2 {worst:.3g}")
+    return res
+
+
+def check_fused_block_plain(block, x, k: int, gen, draws: int) -> dict:
+    """`FusedEdgeBlock` under autograd (kernels I, C forward; J, K, L
+    backward) on bf16 concat edges at k on `draws` draws of x and the
+    cotangent, against the same block with the kernels' plain versions on
+    the card (the f32 oracle of `check_fused_block_autograd` holds f32
+    edges, which I-L take up to k = 32): the output, every parameter
+    gradient and d_ee by `hold` at 5e-3 relative L2, the conv biases'
+    gradients exactly zero in both."""
+    import torch
+    from sp_gan_tpu_torch.ops import edgeblock_train as ebt
+    from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
+    from sp_gan_tpu_torch.ops.kernels.edgeblock import edge_tail_plain
+    from sp_gan_tpu_torch.ops.kernels.knn_edge import knn_edge
+    params = [p for _, p in block.named_parameters()]
+    names = [n for n, _ in block.named_parameters()]
+    bias = [n.startswith("conv") and n.endswith("bias") for n in names]
+    plain = dict(edge_train_stats2=kt.edge_train_stats2_plain,
+                 edge_train_bwd1=kt.edge_train_bwd1_plain,
+                 edge_train_bwd2=kt.edge_train_bwd2_plain,
+                 edge_train_bwd3=kt.edge_train_bwd3_plain,
+                 edge_tail=edge_tail_plain)
+
+    def run(ee, ct):
+        e = ee.clone().requires_grad_()
+        out, _ = ebt.fused_edge_block(ebt.block_params(block), e, k)
+        grads = torch.autograd.grad((out * ct).sum(), params + [e])
+        return [out.detach()] + list(grads)
+    res = []
+    for i in range(draws):
+        ee = knn_edge(x, k, torch.bfloat16, False, "packed")[0]
+        ct = torch.randn(*x.shape[:2], block.fout, generator=gen,
+                         device=x.device)
+        ours = run(ee, ct)
+        with mock.patch.multiple(ebt, **plain):
+            ref = run(ee, ct)
+        torch.cuda.synchronize()
+        if any(bool(g.any()) for g, b in zip(ours[1:], bias + [False])
+               if b) or any(bool(g.any()) for g, b in zip(
+                   ref[1:], bias + [False]) if b):
+            raise AssertionError("fused block: a conv bias's gradient is "
+                                 "not zero")
+        keep = [True] + [not b for b in bias] + [True]
+        res.append(hold(f"fused block under autograd [{list(ee.shape)}, "
+                        f"bf16], draw {i}, against its plain versions",
+                        [t for t, kp in zip(ours, keep) if kp],
+                        [t for t, kp in zip(ref, keep) if kp], 5e-3))
+        x = torch.randn(x.shape, generator=gen, device=x.device)
+    return {"draws": res}
+
+
+def check_wide_fused_limits() -> dict:
+    """On CUDA tensors kernel I refuses bf16 edges at k = 65 (kernel C's
+    refusal is `check_wide_tail_limits`'), kernels I and L f32 edges at
+    k = 33 (the FMA kernels' limit), and kernels L and C a bf16 width past
+    the tensor cores' layout at k = 64 (C = 128, F2 = 64, F = 128: L holds
+    one point's rows there only up to C = 64, and C's FMA kernels hold no
+    bf16 weights beside them), each naming its limit; none of them
+    launches a kernel."""
+    import torch
+    from sp_gan_tpu_torch.ops import kernels
+    from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
+
+    def t(*s, dtype=torch.float32):
+        return torch.zeros(*s, device="cuda", dtype=dtype)
+
+    def stats2(C, F2, F, k, dtype):
+        return lambda: kt.edge_train_stats2(t(1, 8, k, 2 * C, dtype=dtype),
+                                            t(C, F2), t(2, F2), t(F2, F), k)
+
+    def bwd3(C, F2, F, k, dtype):
+        return lambda: kt.edge_train_bwd3(
+            t(1, 8, k, 2 * C, dtype=dtype), t(1, 8, k, F), t(C, F2),
+            t(2, F2), t(F2, F), t(2, F), t(2 * C, F), t(2, F), t(4, F),
+            t(4, F), t(2, F2), t(2, F2), k)
+
+    def tail(C, F2, F, k, dtype):
+        return lambda: kernels.edge_tail(
+            t(1, 8, k, 2 * C, dtype=dtype), t(C, F2), t(2, F2), t(F2, F),
+            t(2, F), t(2 * C, F), t(2, F), t(k, F, F), t(1, F), k=k)
+    bf16, f32 = torch.bfloat16, torch.float32
+    calls = {
+        "I, bf16, k = 65": (stats2(64, 64, 128, 65, bf16),
+                            "k <= 64 (--nk <= 128) in bf16 mode"),
+        "I, f32, k = 33": (stats2(64, 64, 128, 33, f32),
+                           "k <= 32 (--nk <= 64) in f32 mode"),
+        "L, f32, k = 33": (bwd3(64, 64, 128, 33, f32),
+                           "k <= 32 (--nk <= 64) in f32 mode"),
+        "L, bf16, C = 128, k = 64": (bwd3(128, 64, 128, 64, bf16),
+                                     "only on the tensor cores"),
+        "C, bf16, C = 128, k = 64": (tail(128, 64, 128, 64, bf16),
+                                     "no design whose shared memory holds")}
+    kernels.reset_launch_counts()
+    out = {}
+    for name, (call, limit) in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            out[name] = str(e)
+            if limit not in str(e):
+                raise AssertionError(f"{name}: {e}") from e
+        else:
+            raise AssertionError(f"{name} was not refused on CUDA")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError("a refused call launched a kernel")
+    log(f"  refused: {out}")
+    return out
+
+
+def wide_fused_steps(seed: int) -> dict:
+    """WIDE_WARMUP + WIDE_STEPS steps of --fused_dphase (F2-80) and of
+    --fused_train (F1-80) at --nk 80 and `Config()` widths (mixed_edge:
+    EdgeConv2's fused EdgeBlock on bf16 edges at k = 40), each with its
+    launches (PER_STEP_DPHASE, PER_STEP_FUSED), finite losses, every weight
+    moved but EdgeConv2's conv biases under --fused_train (FUSED_STILL),
+    and one profiled step, its tensor-core launches split by kernel and
+    part (`tc_part`)."""
+    from sp_gan_tpu_torch.config import Config
+    res = {}
+    for label, flag, expected, still in (
+            ("F2-80", "fused_dphase", PER_STEP_DPHASE, ()),
+            ("F1-80", "fused_train", PER_STEP_FUSED, FUSED_STILL)):
+        tag = f"--{flag} step at --nk {NK80}"
+        tr, res[label] = timed_training(
+            Config(seed=seed, nk=NK80, **{flag: True}), WIDE_STEPS,
+            WIDE_WARMUP, expected, tag, still)
+        prof = res[label]["profile"] = profile_call(
+            lambda: tr.time_steps(1), tag, tc_part)
+        prof["tc_split_ms"] = {}
+        for key, ms in prof["groups"].items():
+            kern, part = key.split(": ")
+            prof["tc_split_ms"].setdefault(kern, {})[part] = ms
+        del tr
+    return res
+
+
+def wide_fused_rows(full: dict, held: dict, steps: dict) -> list:
+    """The kernels line's k = 40 rows of I, J, K, L and C's bf16 mode at the
+    F1-80 step's EdgeConv2 (`full`: ee [24, 2048, 40, 128] bf16 from kernel
+    B, the block's weights and the affines of its own batch statistics):
+    ms (CUDA events), plain ms, the bound (`train_kernel_bound`), the
+    largest error of `held` (`check_train_kernels` on `full`), the
+    launches of the F1-80 run and each kernel's device ms in its profiled
+    step by part."""
+    f1 = steps["F1-80"]
+    split = f1["profile"]["tc_split_ms"]
+    rows = []
+    for name, (fn, plain, fargs) in train_kernel_calls(full).items():
+        b, by, old = train_kernel_bound(name, full)
+        kern = {"edge_train_stats2": "I", "edge_train_bwd1": "J",
+                "edge_train_bwd2": "K", "edge_train_bwd3": "L",
+                "edge_tail": "C"}[name]
+        rows.append(dict(
+            name=name, route="cuda", source=TRAIN_SOURCE,
+            replaces=TRAIN_REPLACES[name], mode="bf16 edges",
+            launches=f1["launches"][name],
+            launches_per_step=f1["launches_per_step"][name], k=full["k"],
+            max_abs_err=held[name]["max_abs_err"],
+            ms=cuda_ms(lambda: fn(*fargs), 10),
+            plain_ms=cuda_ms(lambda: plain(*fargs), 3),
+            bound_ms=b, bound_by=by, library_ms=None, old_bound_ms=old,
+            split_ms=split.get(kern), split_calls=PER_STEP_FUSED[name],
+            shape=list(full["ee"].shape),
+            path=f"--fused_train step at k = {full['k']} (--nk "
+                 f"{2 * full['k']})"))
+        r = rows[-1]
+        log(f"  {name} (F1-80): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
+            f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return rows
+
+
+def wide_fused(seed: int, lap) -> tuple:
+    """The fused half of wide_k (slice 23): ptxas of the tensor-core tile
+    kernel past k = 32, I-L and C-bf16 at k = 33, 40 and 64 on their routes
+    (`check_wide_train_kernels`), kernel B's concat bf16 form at k = 40 bit
+    for bit, the fused block under autograd at k = 40 against its plain
+    versions, the refusals, the F2-80 and F1-80 steps, small mixed_edge
+    --fused_train steps at --nk 80 against the CPU with EdgeConv2's picks
+    pinned, I-L and C-bf16 on the F1-80 step's EdgeConv2 at bs 24
+    (`check_train_kernels`) and their k = 40 rows. Returns the figures and
+    the rows."""
+    import torch
+    from sp_gan_tpu_torch.config import Config
+    from sp_gan_tpu_torch.nn.generator import Generator
+    from sp_gan_tpu_torch.ops.kernels import _build
+    res = {"ptxas_tc_km64": wide_fused_ptxas(_build.last_log)}
+    for line in res["ptxas_tc_km64"]:
+        log("  ptxas (tc_tile_kernel, KM = 64): " + line)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 43)
+    res["checks"] = check_wide_train_kernels(seed, gen)
+    cfg = Config(seed=seed, nk=NK80)
+    k = cfg.k
+    x_t = torch.randn(cfg.bs, cfg.np, 64, generator=gen, device="cuda")
+    res["concat_bf16"] = check_knn_edge(x_t, k,
+                                        [("packed", torch.bfloat16, False)])
+    G = Generator(cfg, seed=seed).cuda()
+    res["autograd"] = check_fused_block_plain(
+        G.edge2, x_t[:4].contiguous(), k, gen, WIDE_FUSED_DRAWS)
+    res["refused"] = check_wide_fused_limits()
+    lap("I-L and C-bf16 past k = 32")
+    res["steps"] = wide_fused_steps(seed)
+    lap("F2-80 and F1-80")
+    res["small_step"] = check_small_steps(
+        seed, 1, {"nk": NK80, "fused_train": True, "dtype": "mixed_edge"},
+        pin_knn=True)
+    lap("small fused steps")
+    full = train_kernel_inputs(G.edge2, x_t, k, torch.bfloat16, gen)
+    tag = f"EdgeConv2 of F1-80, {list(full['ee'].shape)}"
+    res["checks"][tag] = check_train_kernels(full, 5e-3, tag)
+    rows = wide_fused_rows(full, res["checks"][tag], res["steps"])
+    lap("I-L and C-bf16 k = 40 rows")
+    del full, G
+    torch.cuda.empty_cache()
+    return res, rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="GPU smoke test of the port")
     ap.add_argument("--seed", type=int, default=0,
@@ -5466,7 +5925,8 @@ def main() -> None:
     wide, wide_rows_k40 = wide_k_phase(args.seed)
     log(json.dumps({"wide_k": {k: wide[k] for k in (
         "ptxas_km64", "checks", "margin", "refused", "d_at_k40", "loop",
-        "step", "p1", "style", "small_step", "serving", "seconds")}}))
+        "step", "p1", "style", "small_step", "serving", "fused",
+        "seconds")}}))
     ph.end()
 
     # --------------------------------------------------------------- 10
@@ -5822,53 +6282,12 @@ def main() -> None:
         hard_input_max_abs_err=max(res_h["hard"].values()),
         shape=[Bh, Sh, Fh], n=n_h, path="N=16384 approx training"))
     # kernels I-L and C's bf16 mode at the default --fused_train step's
-    # EdgeConv2: ee [24, 2048, 10, 128] bf16, F2 = 64, F = 128; the matmul
-    # work each port kernel computes at the bf16 tensor-core peak, each
-    # input read and each output written once (the f32 d_u is J's output
-    # and K's and L's input)
+    # EdgeConv2: ee [24, 2048, 10, 128] bf16, F2 = 64, F = 128, all five on
+    # the tensor cores (their bounds: `train_kernel_bound`)
     ee_f = fused_in["ee"]
-    Bt, Nt, kt_, c2 = ee_f.shape
-    f2, f = fused_in["w1"].shape[1], fused_in["w2"].shape[1]
-    rows_f = Bt * Nt * kt_
-    c1 = c2 // 2
-    # multiply-adds per edge row: the chain (w1, w2, wx); conv_out (C);
-    # d_u = d_out @ wout[j]^T and d_wout (J); d_y1 and d_w2 (K); d_y1,
-    # d_diff, d_w1, d_full and d_wx (L)
-    chain = c1 * f2 + f2 * f + c2 * f
-    macs = {"edge_train_stats2": c1 * f2 + f2 * f,
-            "edge_tail": chain + f * f,
-            "edge_train_bwd1": chain + 2 * f * f,
-            "edge_train_bwd2": chain + 2 * f2 * f,
-            "edge_train_bwd3": chain + f2 * f + 2 * c1 * f2 + 2 * c2 * f}
-    ee_bytes, dout_bytes = ee_f.numel() * 2, Bt * Nt * f * 4
-    du_bytes = rows_f * f * 4
-    moved = {"edge_train_stats2": ee_bytes // 2,
-             "edge_tail": ee_bytes + dout_bytes,
-             "edge_train_bwd1": ee_bytes + dout_bytes + du_bytes,
-             "edge_train_bwd2": ee_bytes + du_bytes,
-             "edge_train_bwd3": 2 * ee_bytes + du_bytes}
-    replaces = {
-        "edge_train_stats2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:152 "
-                             "(_stats2_pallas, _stats2_kernel :111)",
-        "edge_tail": "sp_gan_tpu/ops/pallas/edgeblock.py:102 "
-                     "(edge_tail_pallas bf16 mode, _edge_tail_kernel :28)",
-        "edge_train_bwd1": "sp_gan_tpu/ops/pallas/edgeblock_train.py:450 "
-                           "(edge_block_train_backward pass 1, "
-                           "_bwd_pass1_kernel :242)",
-        "edge_train_bwd2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:461 "
-                           "(edge_block_train_backward pass 2, "
-                           "_bwd_pass2_kernel :288)",
-        "edge_train_bwd3": "sp_gan_tpu/ops/pallas/edgeblock_train.py:471 "
-                           "(edge_block_train_backward pass 3, "
-                           "_bwd_pass3_kernel :328)"}
-    # bf16 mode, all five on the tensor cores at these widths
-    source = {n: "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu" for n in macs}
     ft_launches = fused["fused_train"]["launches"]
     for name, (fn, plain, fargs) in train_kernel_calls(fused_in).items():
-        f_bound, f_by = bound(2 * macs[name] * rows_f, moved[name],
-                              BF16_FLOPS)
-        # the same products at the f32 rate, the FMA route's own bound
-        old_bound, _ = bound(2 * macs[name] * rows_f, moved[name])
+        f_bound, f_by, old_bound = train_kernel_bound(name, fused_in)
         # I, J, K, L and C: the device ms of each part of their calls in
         # the profiled --fused_train step (I and C: two calls), by launch
         split = fused["fused_train"]["profile"]["tc_split_ms"].get(
@@ -5876,8 +6295,8 @@ def main() -> None:
              "edge_train_bwd2": "K", "edge_train_bwd3": "L",
              "edge_tail": "C"}.get(name))
         rows.append(dict(
-            name=name, route="cuda", source=source[name],
-            replaces=replaces[name], mode="bf16 edges",
+            name=name, route="cuda", source=TRAIN_SOURCE,
+            replaces=TRAIN_REPLACES[name], mode="bf16 edges",
             launches=ft_launches[name],
             launches_per_step=fused["fused_train"]["launches_per_step"][
                 name],

@@ -8,9 +8,11 @@
 // (ebt_tf_fits: F2 dividing 128, F in {64, 128}, k <= 64; at F = 128,
 // F2 = 64, C <= 120 at k = 10 and C <= 64 at k = 64, which takes both
 // serving calls), bf16 mode in edgeblock_train_tc.cu (ebt_tc_fits(
-// kEbtTail, ...): C a multiple of 4, F2 dividing 256, F = 128, k <= 32, at
-// the default widths C <= 224). The two kernels here are both modes at the
-// other widths, f32 mode up to k = 64 and bf16 mode up to k = 32.
+// kEbtTail, ...): C a multiple of 4, F2 dividing 256, F = 128, k <= 64; at
+// F2 = 64, C <= 224 at k = 10, C <= 144 at k = 40 and C <= 96 at k = 64).
+// The two kernels here are both modes at the other widths, up to k = 64;
+// in bf16 mode where the weights fit in shared memory beside one point's
+// rows (bf16 mode has no variant with the weights in global memory).
 //
 // Replaces the TPU kernel sp_gan_tpu/ops/pallas/edgeblock.py::
 // edge_tail_pallas (_edge_tail_kernel). Per point, with diff = ee[..., C:],
@@ -419,10 +421,10 @@ cudaError_t launch_rows(const Rows& r, size_t smem, cudaStream_t stream) {
 }
 
 // the widths kernel C takes, but for C's limit of shared memory: k <= 64
-// in f32 mode, k <= 32 in bf16 mode
-bool widths_ok(int B, int N, int C, int F2, int F, int k, int bf16) {
-  return B > 0 && N > 0 && C > 0 && k > 0 && k <= (bf16 ? 32 : 64) &&
-         F2 > 0 && F2 % 4 == 0 && (F == 64 || F == 128);
+// in both modes
+bool widths_ok(int B, int N, int C, int F2, int F, int k) {
+  return B > 0 && N > 0 && C > 0 && k > 0 && k <= 64 && F2 > 0 &&
+         F2 % 4 == 0 && (F == 64 || F == 128);
 }
 
 // The designs spgan_edge_tail takes, as spgan_edge_tail_route numbers them
@@ -459,8 +461,7 @@ int fma_plan(int C, int F2, int F, int k, int bf16, int* P, bool* gw,
 // none takes them.
 int route(int B, int N, int C, int F2, int F, int k, int bf16, int* P,
           bool* gw, size_t* smem) {
-  if (!widths_ok(B, N, C, F2, F, k, bf16))
-    return -(int)cudaErrorInvalidValue;
+  if (!widths_ok(B, N, C, F2, F, k)) return -(int)cudaErrorInvalidValue;
   if (!bf16 && ebt_tf_fits(C, F2, F, k)) return kTf32;
   if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k)) return kTcBf16;
   const int err = fma_plan(C, F2, F, k, bf16, P, gw, smem);
@@ -486,15 +487,17 @@ extern "C" int spgan_edge_tail_route(int B, int N, int C, int F2, int F,
 // `bf16` names, or a negative cudaError_t: on the tensor cores in f32 mode
 // (where ebt_tf_fits) an f32 v [B, N, k, F] and wout transposed, in bf16
 // mode (where ebt_tc_fits(kEbtTail, ...)) a bf16 v and wout's bf16 pair;
-// else an f32 v [B, N, k, F].
+// else an f32 v [B, N, k, F]. Refuses (cudaErrorInvalidValue) what
+// spgan_edge_tail_route and spgan_edge_tail refuse.
 extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
                                              int F, int k, int bf16) {
-  if (!widths_ok(B, N, C, F2, F, k, bf16))
-    return -(long long)cudaErrorInvalidValue;
-  if (!bf16 && ebt_tf_fits(C, F2, F, k))
-    return ebt_tf_scratch(B, N, C, F2, F, k);
-  if (bf16 && ebt_tc_fits(kEbtTail, C, F2, F, k))
-    return ebt_tc_scratch(kEbtTail, B, N, C, F2, F, k);
+  int P = 0;
+  bool gw = false;
+  size_t smem = 0;
+  const int how = route(B, N, C, F2, F, k, bf16, &P, &gw, &smem);
+  if (how < 0) return how;
+  if (how == kTf32) return ebt_tf_scratch(B, N, C, F2, F, k);
+  if (how == kTcBf16) return ebt_tc_scratch(kEbtTail, B, N, C, F2, F, k);
   return (long long)B * N * k * F;
 }
 
@@ -503,9 +506,9 @@ extern "C" long long spgan_edge_tail_scratch(int B, int N, int C, int F2,
 // as spgan_edge_tail_scratch says; out [B, N, F]. All f32 except ee, which
 // is bf16 when `bf16` is set; all contiguous, on the device. Launches its
 // kernels on `stream` and returns the first nonzero cudaError_t (0 on
-// success). Takes F in {64, 128}, F2 a multiple of 4, 1 <= k <= 64 in f32
-// mode and 1 <= k <= 32 in bf16 mode, and C small enough that one point's
-// rows fit in shared memory (in bf16 mode, with the weights beside them).
+// success). Takes F in {64, 128}, F2 a multiple of 4, 1 <= k <= 64, and C
+// small enough that one point's rows fit in shared memory (in bf16 mode,
+// with the weights beside them, where the tensor cores do not take it).
 //
 // bf16 mode, the JAX kernel's `cd = bfloat16`: the operands of the chain's
 // matmuls (the edge rows, w1, w2, wx, the activations before @ w2) and v

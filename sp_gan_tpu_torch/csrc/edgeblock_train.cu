@@ -45,9 +45,10 @@
 //  - reduce_kernel: the partials summed in slice (or block) order.
 // No float atomics: two launches on one card give bit-identical results.
 //
-// bf16 mode of I, J, K and L: edgeblock_train_tc.cu (tensor cores); the
-// entry points below hand a bf16 ee to it wherever its shared-memory
-// layout fits (ebt_tc_fits), else run the FMA path here. The rest here is
+// bf16 mode of I, J, K and L: edgeblock_train_tc.cu (tensor cores, k <=
+// 64); the entry points below hand a bf16 ee to it wherever its
+// shared-memory layout fits (ebt_tc_fits), else run the FMA path here (k
+// <= 32: its threads keep a point's k values in registers). The rest here is
 // the f32 mode of I, J, K and L (train_tile_kernel; its FMA order is what
 // chip_smoke.py's kernel_slopes re-derives) and their bf16 mode at widths
 // too wide for the tensor cores' layout.
@@ -660,7 +661,8 @@ struct Scratch {
 
 int scratch_plan(int pass, int B, int N, int C, int F2, int F, int k,
                  Scratch* sc, TilePlan* tp) {
-  if (!ebt_widths_ok(B, N, C, F2, F, k)) return (int)cudaErrorInvalidValue;
+  if (!ebt_widths_ok(B, N, C, F2, F) || k < 1 || k > kEbtFmaMaxK)
+    return (int)cudaErrorInvalidValue;
   int sms = 0;
   int err = sm_count(&sms);
   if (err) return err;
@@ -731,12 +733,26 @@ Args base_args(const void* ee, float* scratch, const Scratch& sc,
 
 }  // namespace
 
+// The engine pass `pass` (0: I, 1: J, 2: K, 3: L) takes at these widths in
+// the mode `bf16` names, decided as its entry point decides it: 0 the
+// tensor cores (bf16 mode, where ebt_tc_fits: k <= 64), 1 the FMA kernels
+// here (f32 mode, and bf16 mode at widths the tensor cores' layout does
+// not hold; k <= 32); a negative cudaError_t where neither takes them.
+extern "C" int spgan_ebt_route(int pass, int B, int N, int C, int F2, int F,
+                               int k, int bf16) {
+  if (pass < kStats || pass > kBwd3) return -(int)cudaErrorInvalidValue;
+  if (bf16 && ebt_tc_fits(pass, C, F2, F, k)) return 0;
+  if (ebt_widths_ok(B, N, C, F2, F) && k >= 1 && k <= kEbtFmaMaxK) return 1;
+  return -(int)cudaErrorInvalidValue;
+}
+
 // Floats of scratch that pass `pass` (0: I, 1: J, 2: K, 3: L) needs at
 // these widths in the mode `bf16` names (a bf16 ee when set), or a
-// negative cudaError_t: in bf16 mode J, K and L take the tensor-core
+// negative cudaError_t: in bf16 mode the passes take the tensor-core
 // path's scratch where its layout fits. The widths the kernels take: C a
-// multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128},
-// 1 <= k <= 32.
+// multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128}; 1 <= k
+// <= 64 on the tensor cores, 1 <= k <= 32 on the FMA kernels
+// (spgan_ebt_route).
 extern "C" long long spgan_ebt_scratch(int pass, int B, int N, int C, int F2,
                                        int F, int k, int bf16) {
   if (bf16 && ebt_tc_fits(pass, C, F2, F, k))

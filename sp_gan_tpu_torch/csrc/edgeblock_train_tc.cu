@@ -39,7 +39,8 @@
 //  - tc_tile_kernel<pass, KM>: one persistent block an SM (8 warps) walks
 //    tiles of TP points (R = TP * k edge rows, padded to Rp, a multiple of
 //    16); KM is k where k is 10, the default step's (the loops over a
-//    point's k rows unroll exactly), else 32 with k checked at run time.
+//    point's k rows unroll exactly), else 32 with k checked at run time,
+//    or 64 past k = 32 (k <= kEbtTcMaxK, `--nk` up to 128).
 //    w1, w2, wx sit in shared memory as bf16 for the block's life, each
 //    once: the forward products read them through ldmatrix.trans, the
 //    transposed ones of K and L through ldmatrix. C and F2 are padded with
@@ -48,7 +49,11 @@
 //    computes, and its d_u rows (J: and d_out rows) are prefetched into
 //    L2. Each product runs on the tensor cores into an f32 staging tile;
 //    the elementwise stages between products take one (point, channel)
-//    pair a thread, so the k rows of a point meet without shuffles, and
+//    pair a thread, so the k rows of a point meet without shuffles (past
+//    k = 32, where a tile holds one or two points, the F-wide stage gives
+//    a pair G = kThreads / (TP F) adjacent threads, 2 at one point and F =
+//    128, which meet by shuffles, and takes its softmax in passes over the
+//    staging tiles rather than in per-thread arrays of k values), and
 //    write the next product's operand as bf16, rounded where the plain
 //    version rounds:
 //      h1 = diff @ w1 -> y1 = bf16(lrelu(p1)) (K: also to the scratch)
@@ -102,8 +107,11 @@
 // 18,432, staging 2 x 34,816, sums 5,120, 216,064 B; L takes TP = 6: as K
 // with d_hx 17,408 and without the sums, 228,352 B; C takes TP = 9 (Rp =
 // 96): ee 2 x 26,112, y1 13,824, staging 2 x 52,224, 231,936 B; of the
-// 232,448 a block may have. tc_tail_gemm_kernel takes 3 x (64 x 40 + 2 x
-// 32 x (F + 8)) bf16: 67,584 B at F = 128.
+// 232,448 a block may have. At k = 40 (`--nk` 80) the same widths give I
+// TP = 4 (Rp = 160), J and C TP = 2 (Rp = 80), K and L TP = 1 (Rp = 48);
+// at k = 64 I TP = 2, the others TP = 1 (Rp = 64); L at k = 64 takes
+// 228,352 B. tc_tail_gemm_kernel takes 3 x (64 x 40 + 2 x 32 x (F + 8))
+// bf16: 67,584 B at F = 128.
 //
 // What bounds it: at that step (ee [24, 2048, 10, 128] bf16, 491,520 edge
 // rows) I's products are 12.1 GFLOP, J's 60.4, K's 44.3, L's 76.5 and C's
@@ -111,7 +119,8 @@
 // each input read and each output written once, the f32 d_u [24, 2048,
 // 10, 128] that J writes and K and L read (252 MB) among them, I moves
 // 0.063 GB (the diff half of ee), J 0.40, K 0.38, L 0.50 and C 0.15
-// (0.019 to 0.150 ms at 3.35 TB/s): bytes.
+// (0.019 to 0.150 ms at 3.35 TB/s): bytes. At k = 40 every count is
+// about four times as large (the d_u J writes 1.01 GB).
 // The kernels also move the bf16 operands of the weight gradients (u, y1,
 // d_h2, d_h1, d_hx) and C's bf16 v (126 MB each way) through device
 // memory, and C multiplies by wout twice (hi and lo).
@@ -148,6 +157,19 @@ __device__ __forceinline__ float lrelu(float v, float neg) {
 
 __device__ __forceinline__ float dlrelu(float v, float neg) {
   return v >= 0.f ? 1.f : neg;
+}
+
+// the max and the sum of v over the G adjacent lanes (G a power of two)
+// that share a (point, channel) pair; every lane of the warp calls it
+__device__ __forceinline__ float group_max(float v, int G) {
+  for (int o = 1; o < G; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -456,8 +478,13 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
   }
 
   // a thread keeps one channel cf of the F-wide stage and one channel c1
-  // of the F2-wide stages (F and F2 divide kThreads), and their constants
-  const int cf = tid % F, c1 = tid % F2;
+  // of the F2-wide stages (F and F2 divide kThreads), and their constants.
+  // Past k = 32 (KM = 64) G adjacent threads share a (point, channel) pair
+  // of the F-wide stage (J, K, L, C), as many as leave no thread idle at
+  // TP points a tile: 2 at one point and F = 128, else 1 where TP F >=
+  // kThreads
+  const int G = KM > 32 && PASS != kI ? imax(1, kThreads / (TP * F)) : 1;
+  const int cf = (tid / G) % F, c1 = tid % F2;
   float s2 = 0.f, sh2 = 0.f, sx = 0.f, shx = 0.f;  // (J, K, L, C)
   if (PASS != kI) {
     s2 = a.a2[cf];
@@ -535,71 +562,144 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     }
 
     // the F-wide chain, one channel of one point per thread
-    for (int pp = tid / F; pp < np; pp += kThreads / F) {
-      const int c = cf;
-      const long long row0 = r0 + pp * k;
-      float h2[KM], hx[KM];
-      float mx = -INFINITY;
+    if constexpr (KM <= 32) {
+      for (int pp = tid / F; pp < np; pp += kThreads / F) {
+        const int c = cf;
+        const long long row0 = r0 + pp * k;
+        float h2[KM], hx[KM];
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        if (j < k) {
-          const int o = (pp * k + j) * (F + 8) + c;
-          h2[j] = H2[o] * s2 + sh2;  // p2
-          hx[j] = HX[o] * sx + shx;  // px
-          mx = fmaxf(mx, lrelu(h2[j], neg));
+        for (int j = 0; j < KM; ++j) {
+          if (j < k) {
+            const int o = (pp * k + j) * (F + 8) + c;
+            h2[j] = H2[o] * s2 + sh2;  // p2
+            hx[j] = HX[o] * sx + shx;  // px
+            mx = fmaxf(mx, lrelu(h2[j], neg));
+          }
         }
-      }
-      float w[KM];
-      float sum = 0.f;
+        float w[KM];
+        float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        w[j] = 0.f;
-        if (j < k) {
-          w[j] = expf(lrelu(h2[j], neg) - mx);
-          sum += w[j];
+        for (int j = 0; j < KM; ++j) {
+          w[j] = 0.f;
+          if (j < k) {
+            w[j] = expf(lrelu(h2[j], neg) - mx);
+            sum += w[j];
+          }
         }
-      }
-      const float isum = 1.f / sum;
-#pragma unroll
-      for (int j = 0; j < KM; ++j)
-        if (j < k) w[j] = w[j] * isum;
-      if (PASS == kJ || PASS == kC) {
+        const float isum = 1.f / sum;
 #pragma unroll
         for (int j = 0; j < KM; ++j)
-          if (j < k)
-            a.u[(row0 + j) * F + c] =
-                __float2bfloat16_rn(lrelu(hx[j], neg) * w[j]);
+          if (j < k) w[j] = w[j] * isum;
+        if (PASS == kJ || PASS == kC) {
+#pragma unroll
+          for (int j = 0; j < KM; ++j)
+            if (j < k)
+              a.u[(row0 + j) * F + c] =
+                  __float2bfloat16_rn(lrelu(hx[j], neg) * w[j]);
+        }
+        if (PASS == kJ) acc[4] += a.dout[(p0 + pp) * F + c];
+        if (PASS == kC) continue;
+        // softmax backward over k
+        const float* du = a.du + row0 * F + c;
+        float sw = 0.f;
+#pragma unroll
+        for (int j = 0; j < KM; ++j)
+          if (j < k) sw += w[j] * (du[j * F] * lrelu(hx[j], neg));
+#pragma unroll
+        for (int j = 0; j < KM; ++j) {
+          if (j < k) {
+            const float d = du[j * F];
+            const float dp2 =
+                w[j] * (d * lrelu(hx[j], neg) - sw) * dlrelu(h2[j], neg);
+            const float dpx = d * w[j] * dlrelu(hx[j], neg);
+            const float xh2 = (h2[j] - b2) * ig2;
+            const float xhx = (hx[j] - bx) * igx;
+            if (PASS == kJ) {
+              acc[0] += dp2;
+              acc[1] += dp2 * xh2;
+              acc[2] += dpx;
+              acc[3] += dpx * xhx;
+            } else if (PASS == kK) {
+              const int row = pp * k + j;
+              const bf16 dh2 =
+                  __float2bfloat16_rn(s2 * (dp2 - S2a - xh2 * S2b));
+              DH[row * lwf + c] = dh2;
+              a.dh2[(row0 + j) * F + c] = dh2;
+            } else {
+              const int row = pp * k + j;
+              DH[row * lwf + c] =
+                  __float2bfloat16_rn(s2 * (dp2 - S2a - xh2 * S2b));
+              const bf16 dhx =
+                  __float2bfloat16_rn(sx * (dpx - Sxa - xhx * Sxb));
+              DHX[row * lwf + c] = dhx;
+              a.dhx[(row0 + j) * F + c] = dhx;
+            }
+          }
+        }
       }
-      if (PASS == kJ) acc[4] += a.dout[(p0 + pp) * F + c];
-      if (PASS == kC) continue;
-      // softmax backward over k
-      const float* du = a.du + row0 * F + c;
-      float sw = 0.f;
-#pragma unroll
-      for (int j = 0; j < KM; ++j)
-        if (j < k) sw += w[j] * (du[j * F] * lrelu(hx[j], neg));
-#pragma unroll
-      for (int j = 0; j < KM; ++j) {
-        if (j < k) {
-          const float d = du[j * F];
-          const float dp2 =
-              w[j] * (d * lrelu(hx[j], neg) - sw) * dlrelu(h2[j], neg);
-          const float dpx = d * w[j] * dlrelu(hx[j], neg);
-          const float xh2 = (h2[j] - b2) * ig2;
-          const float xhx = (hx[j] - bx) * igx;
+    } else {
+      // past k = 32 a pair's k values would not stay in registers under
+      // the block's cap: its G threads take rows g, g + G, ... of it,
+      // combine their max, sum and sw by shuffles, and read p2 and px from
+      // the staging tiles in passes (the max; the sum of the exponentials;
+      // J and C: u, and J, K, L: sw; J, K, L: the backward), each
+      // exponential taken again where it is needed (the same operations
+      // as above, the sums over k in another order); the loops unrolled
+      // by 8 and d_u read through the read-only path, so that a thread
+      // has several of its rows' loads in flight
+      const int g = tid % G, ls = F + 8;
+      for (int t = tid; t < np * F * G; t += kThreads) {  // warp-uniform
+        const int pp = t / G / F, c = cf;
+        const long long row0 = r0 + pp * k;
+        const float* h2s = H2 + pp * k * ls + c;
+        const float* hxs = HX + pp * k * ls + c;
+        float mx = -INFINITY;
+#pragma unroll 8
+        for (int j = g; j < k; j += G)
+          mx = fmaxf(mx, lrelu(h2s[j * ls] * s2 + sh2, neg));
+        mx = group_max(mx, G);
+        float sum = 0.f;
+#pragma unroll 8
+        for (int j = g; j < k; j += G)
+          sum += expf(lrelu(h2s[j * ls] * s2 + sh2, neg) - mx);
+        const float isum = 1.f / group_sum(sum, G);
+        const float* du = a.du + row0 * F + c;
+        float sw = 0.f;
+#pragma unroll 8
+        for (int j = g; j < k; j += G) {
+          const float w =
+              expf(lrelu(h2s[j * ls] * s2 + sh2, neg) - mx) * isum;
+          const float v = lrelu(hxs[j * ls] * sx + shx, neg);
+          if (PASS == kJ || PASS == kC)
+            a.u[(row0 + j) * F + c] = __float2bfloat16_rn(v * w);
+          if (PASS != kC) sw += w * (__ldg(du + j * F) * v);
+        }
+        if (PASS == kJ && g == 0) acc[4] += a.dout[(p0 + pp) * F + c];
+        if (PASS == kC) continue;
+        sw = group_sum(sw, G);
+#pragma unroll 8
+        for (int j = g; j < k; j += G) {
+          const float p2 = h2s[j * ls] * s2 + sh2;
+          const float px = hxs[j * ls] * sx + shx;
+          const float w = expf(lrelu(p2, neg) - mx) * isum;
+          const float d = __ldg(du + j * F);
+          const float dp2 = w * (d * lrelu(px, neg) - sw) * dlrelu(p2, neg);
+          const float dpx = d * w * dlrelu(px, neg);
+          const float xh2 = (p2 - b2) * ig2;
+          const float xhx = (px - bx) * igx;
+          const int row = pp * k + j;
           if (PASS == kJ) {
             acc[0] += dp2;
             acc[1] += dp2 * xh2;
             acc[2] += dpx;
             acc[3] += dpx * xhx;
           } else if (PASS == kK) {
-            const int row = pp * k + j;
             const bf16 dh2 =
                 __float2bfloat16_rn(s2 * (dp2 - S2a - xh2 * S2b));
             DH[row * lwf + c] = dh2;
             a.dh2[(row0 + j) * F + c] = dh2;
           } else {
-            const int row = pp * k + j;
             DH[row * lwf + c] =
                 __float2bfloat16_rn(s2 * (dp2 - S2a - xh2 * S2b));
             const bf16 dhx =
@@ -663,7 +763,13 @@ __global__ void __launch_bounds__(kThreads, 1) tc_tile_kernel(const Args a) {
     for (int i = tid; i < nacc * width; i += kThreads) {
       const int q = i / width, c = i - q * width;
       float s = 0.f;
-      for (int t = c; t < kThreads; t += width) s += RED[t * kAcc + q];
+      if constexpr (KM > 32 && PASS == kJ) {
+        // J's sums past k = 32: a channel's threads in groups of G
+        for (int t = c * G; t < kThreads; t += width * G)
+          for (int g = 0; g < G; ++g) s += RED[(t + g) * kAcc + q];
+      } else {
+        for (int t = c; t < kThreads; t += width) s += RED[t * kAcc + q];
+      }
       a.part[(long long)blockIdx.x * nacc * width + i] = s;
     }
   }
@@ -979,7 +1085,9 @@ void* tile_fn() {
 
 template <int PASS>
 void* tile_fn_k(int k) {
-  return k == 10 ? tile_fn<PASS, 10>() : tile_fn<PASS, 32>();
+  return k == 10   ? tile_fn<PASS, 10>()
+         : k <= 32 ? tile_fn<PASS, 32>()
+                   : tile_fn<PASS, 64>();
 }
 
 void* tile_kernel_of(int pass, int k) {
@@ -1087,8 +1195,8 @@ struct Plan {
 };
 
 int plan(int pass, int B, int N, int C, int F2, int F, int k, Plan* p) {
-  if (!ebt_widths_ok(B, N, C, F2, F, k) || pass < kI || pass > kC ||
-      (pass == kC && F != TG_F))
+  if (!ebt_widths_ok(B, N, C, F2, F) || k < 1 || k > kEbtTcMaxK ||
+      pass < kI || pass > kC || (pass == kC && F != TG_F))
     return (int)cudaErrorInvalidValue;
   int limit = 0, per_sm = 0;
   int err = device_attrs(&p->sms, &limit);
@@ -1215,7 +1323,8 @@ Args base_args(const void* ee, const float* w1, const float* a1,
 
 bool ebt_tc_fits(int pass, int C, int F2, int F, int k) {
   int sms = 0, limit = 0;
-  return ebt_widths_ok(1, 1, C, F2, F, k) && (pass != kC || F == TG_F) &&
+  return ebt_widths_ok(1, 1, C, F2, F) && k >= 1 && k <= kEbtTcMaxK &&
+         (pass != kC || F == TG_F) &&
          device_attrs(&sms, &limit) == 0 &&
          layout(pass, C, F2, F, k, 1).total <= limit;
 }

@@ -7,12 +7,20 @@
 
 #include <cuda_runtime.h>
 
-// The widths kernels I-L take: C a multiple of 4, F2 a multiple of 4
-// dividing 256, F in {64, 128}, 1 <= k <= 32.
-inline bool ebt_widths_ok(int B, int N, int C, int F2, int F, int k) {
-  return B > 0 && N > 0 && C > 0 && C % 4 == 0 && k >= 1 && k <= 32 &&
-         F2 > 0 && F2 % 4 == 0 && 256 % F2 == 0 && (F == 64 || F == 128);
+// The widths kernels I-L take on either engine: C a multiple of 4, F2 a
+// multiple of 4 dividing 256, F in {64, 128}; k from 1 to the engine's own
+// limit below.
+inline bool ebt_widths_ok(int B, int N, int C, int F2, int F) {
+  return B > 0 && N > 0 && C > 0 && C % 4 == 0 && F2 > 0 && F2 % 4 == 0 &&
+         256 % F2 == 0 && (F == 64 || F == 128);
 }
+
+// The most neighbours a point each engine takes: the tensor cores
+// (edgeblock_train_tc.cu, bf16 mode, and kernel C's bf16 tail there) and
+// the FMA kernels of edgeblock_train.cu (f32 mode, and bf16 mode at widths
+// the tensor cores' layout does not hold).
+constexpr int kEbtTcMaxK = 64;
+constexpr int kEbtFmaMaxK = 32;
 
 // Kernel I (the statistics sweep) and kernel C's tail in bf16 mode,
 // numbered beside passes 1 (J), 2 (K) and 3 (L) for ebt_tc_fits and
@@ -21,13 +29,15 @@ constexpr int kEbtStats = 0;
 constexpr int kEbtTail = 4;
 
 // Whether the tensor-core pass 0 (I), 1 (J), 2 (K), 3 (L) or kEbtTail (C)
-// takes these widths: they are among ebt_widths_ok's (C's tail: at F =
-// 128 only, the one width its contraction is built for), and its resident
-// weights and a tile of one point fit in a block's shared memory (at F =
-// 128, F2 = 64 and k = 10, C <= 192 for J and L, C <= 208 for K, C <= 224
+// takes these widths: they are among ebt_widths_ok's with k <= kEbtTcMaxK
+// (C's tail: at F = 128 only, the one width its contraction is built for),
+// and its resident weights and a tile of one point fit in a block's shared
+// memory (at F = 128, F2 = 64 and k = 10, C <= 192 for J and L, C <= 208
+// for K, C <= 224 for C; at k = 40 C <= 112 for J and K, C <= 80 for L,
+// C <= 144 for C; at k = 64 C <= 80 for J, C <= 64 for K and L, C <= 96
 // for C; I holds no wx and half of ee, and fits far wider). Other widths
 // take the FMA paths of edgeblock_train.cu and edgeblock.cu in bf16 mode
-// too.
+// too, I-L's up to k = kEbtFmaMaxK.
 bool ebt_tc_fits(int pass, int C, int F2, int F, int k);
 
 // Floats of scratch that pass 0 (I: its blocks' sums), 1 (J), 2 (K), 3 (L)

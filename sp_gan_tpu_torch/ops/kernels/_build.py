@@ -67,6 +67,8 @@ SIGNATURES = {
     # ee, w1, a1, w2, a2, wx, ax, wout, bout, scratch, out, B, N, C, F2, F,
     # k, neg, bf16, stream
     "spgan_edge_tail": (_P,) * 11 + (_I,) * 6 + (_F, _I, _P),
+    # pass, B, N, C, F2, F, k, bf16 -> the engine a launch takes (int)
+    "spgan_ebt_route": (_I,) * 8,
     # pass, B, N, C, F2, F, k, bf16 -> floats of scratch (long long)
     "spgan_ebt_scratch": (_I,) * 8,
     # ee, w1, a1, w2, out, scratch, B, N, C, F2, F, k, neg, bf16, stream
@@ -194,6 +196,11 @@ def library() -> ctypes.CDLL:
                 fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
+
+
+# cudaErrorInvalidValue, which the kernels' route and scratch queries return
+# (negated) for widths they refuse
+CUDA_ERROR_INVALID_VALUE = 1
 
 
 def check(err: int, name: str) -> None:

@@ -35,10 +35,14 @@ FMA design takes the other f32 widths; where its weights and one point's
 rows do not fit in shared memory it reads the weights from global memory,
 so it holds only the rows (C <= 416 at F = 128, F2 = 64, k = 64). bf16
 mode (`csrc/edgeblock_train_tc.cu`, with wout kept as a bf16 pair hi +
-lo, about 16 of its bits) takes C a multiple of 4, F2 dividing 256 and
-C <= 224 at F = 128, F2 = 64, k = 10, and k <= 32 (`--nk` <= 64), as
-kernels I-L do. The CUDA sources say how their passes are laid out; the
-scratch each call takes is sized for the path that runs.
+lo, about 16 of its bits) takes C a multiple of 4, F2 dividing 256, F =
+128 and k <= 64 (`--nk` <= 128), as kernels I-L do, wherever the weights
+and one point's rows fit in shared memory (at F2 = 64, C <= 224 at k =
+10, C <= 144 at k = 40, C <= 96 at k = 64); the FMA design takes the other
+bf16 widths where its weights fit beside one point's rows (bf16 mode has
+no variant with the weights in global memory) and refuses the rest by
+name. The CUDA sources say how their passes are laid out; the scratch
+each call takes is sized for the path that runs.
 
 `edge_tail` launches the kernel for CUDA tensors and runs `edge_tail_plain`,
 the same function in plain PyTorch, for CPU tensors. `edge_tail.launches`
@@ -54,14 +58,14 @@ from sp_gan_tpu_torch.ops.kernels import _build
 WIDTHS = (64, 128)      # output widths F the CUDA kernel is built for
 # the most neighbours a point the CUDA kernel takes, by the dtype of ee: f32
 # (serving) and bf16 (the fused training forward, with kernels I-L)
-MAX_K = {torch.float32: 64, torch.bfloat16: 32}
+MAX_K = {torch.float32: 64, torch.bfloat16: 64}
 EE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_kernel_limits(k: int, dtype: torch.dtype) -> None:
-    """Kernel C's limit, checked before a launch: k <= 64 on an f32 ee (the
-    generator's --nk <= 128), k <= 32 on a bf16 ee (--nk <= 64). The plain
-    version has none, but a CUDA tensor never falls back to it."""
+    """Kernel C's limit, checked before a launch: k <= 64 on an f32 or a
+    bf16 ee (the generator's --nk <= 128). The plain version has none, but
+    a CUDA tensor never falls back to it."""
     if k > MAX_K[dtype]:
         mode = "f32" if dtype == torch.float32 else "bf16"
         raise ValueError(
@@ -102,16 +106,44 @@ ROUTES = ("tensor cores, f32", "tensor cores, bf16", "FMA",
           "FMA, weights in global memory")
 
 
+def _refusal(B: int, N: int, C: int, F2: int, F: int, k: int,
+             bf16: bool) -> ValueError:
+    """The error of a call within `_check` and `check_kernel_limits` that
+    no design takes (the route and scratch queries'
+    cudaErrorInvalidValue)."""
+    mode = "bf16" if bf16 else "f32"
+    if B < 1 or N < 1:
+        return ValueError(f"kernel C (edge_tail) in {mode} mode takes no "
+                          f"launch at B={B}, N={N}")
+    held = ("the weights and one point's rows (bf16 mode has no variant "
+            "with the weights in global memory)" if bf16
+            else "one point's rows")
+    return ValueError(
+        f"kernel C (edge_tail) in {mode} mode has no design whose shared "
+        f"memory holds {held} at C={C}, F2={F2}, F={F}, k={k} (from --nk "
+        f"{2 * k})")
+
+
+def _route(B: int, N: int, C: int, F2: int, F: int, k: int,
+           bf16: bool) -> int:
+    """The design's code (an index of ROUTES) kernel C takes on the current
+    CUDA device; raises a ValueError naming the widths where no design's
+    shared memory holds them."""
+    check_kernel_limits(k, torch.bfloat16 if bf16 else torch.float32)
+    r = _build.library().spgan_edge_tail_route(B, N, C, F2, F, k, int(bf16))
+    if r == -_build.CUDA_ERROR_INVALID_VALUE:
+        raise _refusal(B, N, C, F2, F, k, bf16)
+    if r < 0:
+        _build.check(-r, "spgan_edge_tail_route")
+    return r
+
+
 def edge_tail_route(B: int, N: int, C: int, F2: int, F: int, k: int,
                     bf16: bool = False) -> str:
     """The design kernel C launches at these widths on the current CUDA
     device (one of ROUTES), as `edge_tail` would decide it; raises where it
     refuses them."""
-    check_kernel_limits(k, torch.bfloat16 if bf16 else torch.float32)
-    r = _build.library().spgan_edge_tail_route(B, N, C, F2, F, k, int(bf16))
-    if r < 0:
-        _build.check(-r, "spgan_edge_tail_route")
-    return ROUTES[r]
+    return ROUTES[_route(B, N, C, F2, F, k, bf16)]
 
 
 def edge_tail_plain(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout,
@@ -154,7 +186,11 @@ def edge_tail(ee: torch.Tensor, w1, a1, w2, a2, wx, ax, wout, bout, k: int,
     out = torch.empty((B, N, F), dtype=torch.float32, device=ee.device)
     lib = _build.library()
     with torch.cuda.device(ee.device):
+        # the scratch query refuses, before any launch, exactly what the
+        # route query refuses
         n = lib.spgan_edge_tail_scratch(B, N, C2 // 2, F2, F, k, bf16)
+        if n == -_build.CUDA_ERROR_INVALID_VALUE:
+            raise _refusal(B, N, C2 // 2, F2, F, k, bool(bf16))
         if n < 0:
             _build.check(-n, "spgan_edge_tail_scratch")
         # scratch for v (and, on the tensor cores, wout's bf16 pair);

@@ -26,15 +26,21 @@ row, shift row), gb2x [4, F] (BN2 and BNx gamma, beta) and gb1 [2, F2].
 On an H100 the four are bound by bytes in bf16 mode (the CUDA sources
 have the counts and the design). In bf16 mode I, J, K and L run their
 products on the tensor cores (`csrc/edgeblock_train_tc.cu`; I reads only
-the diff half of ee) wherever the block's weights fit in shared memory
-(at F = 128, F2 = 64, k = 10: C <= 192 for J and L, C <= 208 for K, and
-wider for I); the f32 mode and wider blocks run them as f32 FMAs
-(`csrc/edgeblock_train.cu`). The scratch each call
-takes is sized for the path that runs. Each wrapper launches its kernel
-for CUDA tensors and runs its plain PyTorch version (`*_plain`, the same
-arithmetic) for CPU tensors; `fn.launches` counts kernel launches. The
-CUDA kernels take C a multiple of 4, F2 a multiple of 4 dividing 256, F
-in {64, 128} and k <= 32; the plain versions any widths.
+the diff half of ee) wherever the block's weights and one point's rows fit
+in shared memory (at F = 128, F2 = 64: C <= 192 for J and L and C <= 208
+for K at k = 10, C <= 112 for J and K and C <= 80 for L at k = 40, C <= 80
+for J and C <= 64 for K and L at k = 64; I far wider); the f32 mode and
+wider blocks run them as f32 FMAs (`csrc/edgeblock_train.cu`), whose
+threads keep a point's k values in registers. `edge_train_route` names
+the engine a launch takes. The scratch each call takes is sized for the
+path that runs. Each wrapper launches its kernel for CUDA tensors and runs
+its plain PyTorch version (`*_plain`, the same arithmetic) for CPU
+tensors; `fn.launches` counts kernel launches. The CUDA kernels take C a
+multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128} and k <=
+64 (`--nk` <= 128) on bf16 edges, on the tensor cores past k = 32, and k
+<= 32 (`--nk` <= 64) on f32 edges (`MAX_K`); a call that no engine takes
+raises a ValueError before any launch and never falls back to the plain
+version. The plain versions take any widths.
 """
 
 from __future__ import annotations
@@ -44,8 +50,17 @@ import torch
 from sp_gan_tpu_torch.ops.kernels import _build
 
 WIDTHS = (64, 128)      # output widths F the CUDA kernels are built for
-MAX_K = 32
+# the most neighbours a point the CUDA kernels take, by the dtype of ee: the
+# tensor cores (bf16) take k <= 64, the FMA kernels (f32, and bf16 at widths
+# the tensor cores' layout does not hold) k <= 32
+MAX_K = {torch.float32: 32, torch.bfloat16: 64}
+FMA_MAX_K = MAX_K[torch.float32]
 EE_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels by pass, as the CUDA entry points number them
+PASSES = ("I (edge_train_stats2)", "J (edge_train_bwd1)",
+          "K (edge_train_bwd2)", "L (edge_train_bwd3)")
+# the engines a launch takes, by the code spgan_ebt_route returns
+ROUTES = ("tensor cores, bf16", "FMA")
 
 
 def mm(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
@@ -211,20 +226,82 @@ def _check(ee: torch.Tensor, k: int, **named) -> tuple:
     return B, N, C, F2, F
 
 
+def check_kernel_limits(pass_: int, k: int, dtype: torch.dtype) -> None:
+    """The limit of kernel I, J, K or L (`pass_` 0-3) on k, checked before
+    a launch: k <= 64 on a bf16 ee (the generator's --nk <= 128), k <= 32
+    on an f32 ee (--nk <= 64). The plain versions have none, but a CUDA
+    tensor never falls back to them."""
+    if k > MAX_K[dtype]:
+        mode = "f32" if dtype == torch.float32 else "bf16"
+        raise ValueError(
+            f"kernel {PASSES[pass_]} takes k <= {MAX_K[dtype]} (--nk <= "
+            f"{2 * MAX_K[dtype]}) in {mode} mode on CUDA; got k={k} (from "
+            f"--nk {2 * k})")
+
+
+def _check_limits(pass_: int, C: int, F2: int, F: int, k: int,
+                  bf16: bool) -> None:
+    """The widths and k limit both engines share, checked before a launch
+    or a route query; raises a ValueError naming them."""
+    if F not in WIDTHS or F2 % 4 or 256 % F2 or C % 4:
+        raise ValueError(
+            f"kernel {PASSES[pass_]} takes F in {WIDTHS}, F2 a multiple of "
+            f"4 dividing 256 and C a multiple of 4 on CUDA; got F={F}, "
+            f"F2={F2}, C={C}")
+    check_kernel_limits(pass_, k, torch.bfloat16 if bf16 else torch.float32)
+
+
+def _refusal(pass_: int, B: int, N: int, C: int, F2: int, F: int, k: int,
+             bf16: bool) -> ValueError:
+    """The error of a call within `_check_limits` that no engine takes
+    (the route and scratch queries' cudaErrorInvalidValue)."""
+    if bf16 and k > FMA_MAX_K:
+        return ValueError(
+            f"kernel {PASSES[pass_]} in bf16 mode takes k > {FMA_MAX_K} "
+            "only on the tensor cores, whose shared memory does not hold "
+            f"the weights and one point's rows at C={C}, F2={F2}, F={F}, "
+            f"k={k} (from --nk {2 * k}); the FMA kernels take k <= "
+            f"{FMA_MAX_K}")
+    return ValueError(
+        f"kernel {PASSES[pass_]} in {'bf16' if bf16 else 'f32'} mode takes "
+        f"no launch at B={B}, N={N}, C={C}, F2={F2}, F={F}, k={k}")
+
+
+def _route(pass_: int, B: int, N: int, C: int, F2: int, F: int, k: int,
+           bf16: bool) -> int:
+    """The engine's code (an index of ROUTES) that pass `pass_` takes on
+    the current CUDA device; raises a ValueError naming the widths and the
+    limits where none takes them."""
+    _check_limits(pass_, C, F2, F, k, bf16)
+    r = _build.library().spgan_ebt_route(pass_, B, N, C, F2, F, k, int(bf16))
+    if r == -_build.CUDA_ERROR_INVALID_VALUE:
+        raise _refusal(pass_, B, N, C, F2, F, k, bf16)
+    if r < 0:
+        _build.check(-r, "spgan_ebt_route")
+    return r
+
+
+def edge_train_route(pass_: int, B: int, N: int, C: int, F2: int, F: int,
+                     k: int, bf16: bool = False) -> str:
+    """The engine kernel I, J, K or L (`pass_` 0-3) launches at these
+    widths on the current CUDA device (one of ROUTES), as its wrapper would
+    decide it; raises a ValueError where none takes them."""
+    return ROUTES[_route(pass_, B, N, C, F2, F, k, bf16)]
+
+
 def _launch(pass_: int, name: str, ee, k, neg, widths, fn_args,
             outs: list):
     """Launches `spgan_ebt_<name>` with its scratch; checks the kernels'
-    limits first."""
+    limits first. The scratch query refuses, before any launch, exactly
+    what the route query refuses."""
     B, N, C, F2, F = widths
-    if F not in WIDTHS or F2 % 4 or 256 % F2 or C % 4 or k > MAX_K:
-        raise ValueError(
-            f"kernel {name} takes F in {WIDTHS}, F2 a multiple of 4 "
-            f"dividing 256, C a multiple of 4 and k <= {MAX_K} on CUDA; got "
-            f"F={F}, F2={F2}, C={C}, k={k}")
-    lib = _build.library()
+    bf16 = int(ee.dtype == torch.bfloat16)
     with torch.cuda.device(ee.device):
-        bf16 = int(ee.dtype == torch.bfloat16)
+        _check_limits(pass_, C, F2, F, k, bf16)
+        lib = _build.library()
         n = lib.spgan_ebt_scratch(pass_, B, N, C, F2, F, k, bf16)
+        if n == -_build.CUDA_ERROR_INVALID_VALUE:
+            raise _refusal(pass_, B, N, C, F2, F, k, bf16)
         if n < 0:
             _build.check(-n, "spgan_ebt_scratch")
         # freeing the scratch on return is safe: the caching allocator

@@ -10,8 +10,8 @@ to 128) on the CPU, where the port runs its plain version:
   8192): with TF32 rounding emulated as tests/test_torch_edge_tail.py
   emulates it, three TF32 products a product hold the f32 gate |err| <=
   1e-5 + 1e-4 |plain| and one does not;
-- the wrapper's limits, checked before any launch: k <= 64 on f32 edges,
-  k <= 32 on bf16 edges (the fused training forward's, with kernels I-L);
+- the wrapper's limits, checked before any launch: k <= 64 on f32 edges
+  and on bf16 edges (the fused training forward's, with kernels I-L);
 - the fused eval forward (the serving path, both EdgeBlock tails in kernel
   C) at --nk 80 against the JAX package's `generator_forward_eval` in
   interpret mode on the same weights and codes (JAX jitted: run op by op,
@@ -153,18 +153,19 @@ def test_three_tf32_products_hold_the_f32_gate(k, inputs):
 
 class TestLimits:
     def test_f32_takes_k_up_to_64(self):
-        """The check passes f32 edges at k = 64 (--nk 128) and bf16 edges
-        at k = 32 (--nk 64), the largest each mode launches."""
-        assert MAX_K == {torch.float32: 64, torch.bfloat16: 32}
+        """The check passes f32 edges and bf16 edges at k = 64 (--nk 128),
+        the largest either mode launches (bf16 past k = 32 since the
+        tensor-core engine of kernels I-L and C's bf16 mode took it)."""
+        assert MAX_K == {torch.float32: 64, torch.bfloat16: 64}
         check_kernel_limits(64, torch.float32)
-        check_kernel_limits(32, torch.bfloat16)
+        check_kernel_limits(64, torch.bfloat16)
 
     @pytest.mark.parametrize("k, dtype, limit", [
         (65, torch.float32, "k <= 64 (--nk <= 128) in f32 mode"),
-        (33, torch.bfloat16, "k <= 32 (--nk <= 64) in bf16 mode")])
+        (65, torch.bfloat16, "k <= 64 (--nk <= 128) in bf16 mode")])
     def test_refused_past_the_limit(self, k, dtype, limit):
-        """f32 at k = 65 and bf16 at k = 33 are refused before a launch,
-        naming the limit and the --nk they came from."""
+        """f32 and bf16 at k = 65 are refused before a launch, naming the
+        limit and the --nk they came from."""
         with pytest.raises(ValueError) as e:
             check_kernel_limits(k, dtype)
         assert limit in str(e.value) and f"(from --nk {2 * k})" in str(e.value)

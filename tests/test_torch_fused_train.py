@@ -123,10 +123,12 @@ def test_edge_block_xla_keeps_f32_sums():
 
 
 # ------------------------------------------------ the fused generator
-def port_generator(dtype: str, x, z, ct, idx, ee):
-    """The port's fused forward and VJP from Generator(seed=0) weights:
-    (results, EdgeConv2's picks, the global pool's choices)."""
-    cfg = Config(**KW, dtype=dtype)
+def port_generator(dtype: str, x, z, ct, idx, ee, kw=KW):
+    """The port's fused forward and VJP from Generator(seed=0) weights of
+    Config(**kw): (results, EdgeConv2's picks, the global pool's
+    choices)."""
+    cfg = Config(**kw, dtype=dtype)
+    gb = x.shape[0]
     G = Generator(cfg, seed=0)
     params0, stats0 = trees(G)
     picks, pools = [], []
@@ -150,8 +152,8 @@ def port_generator(dtype: str, x, z, ct, idx, ee):
         mp.setattr(tfused, "_adain", rec_adain)
         out = tfused.generator_forward_train(
             G, torch.from_numpy(x), torch.from_numpy(z),
-            edge1_idx=idx.expand(GB, -1, -1),
-            edge1_ee=ee.expand(GB, -1, -1, -1))
+            edge1_idx=idx.expand(gb, -1, -1),
+            edge1_ee=ee.expand(gb, -1, -1, -1))
     names = [n for n, _ in G.named_parameters()]
     grads = torch.autograd.grad((out * torch.from_numpy(ct)).sum(),
                                 list(G.parameters()))
@@ -161,11 +163,12 @@ def port_generator(dtype: str, x, z, ct, idx, ee):
     return res, picks, pools, (params0, stats0)
 
 
-def jax_generator(dtype: str, weights, x, z, ct, idx, ee, replay):
+def jax_generator(dtype: str, weights, x, z, ct, idx, ee, replay, kw=KW):
     """JAX's `generator_forward_train` in interpret mode and its VJP, the
     port's choices replayed."""
     params, stats = weights
-    cfg = JaxConfig(**KW, dtype=dtype)
+    cfg = JaxConfig(**kw, dtype=dtype)
+    gb = x.shape[0]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdispatch, "knn", replay.knn)
         mp.setattr(jfused, "jnp", replay)
@@ -174,8 +177,8 @@ def jax_generator(dtype: str, weights, x, z, ct, idx, ee, replay):
         def fwd(p):
             return jfused.generator_forward_train(
                 cfg, p, stats, jnp.asarray(x), jnp.asarray(z),
-                edge1_idx=jnp.broadcast_to(idx, (GB,) + idx.shape[1:]),
-                edge1_ee=jnp.broadcast_to(ee, (GB,) + ee.shape[1:]))
+                edge1_idx=jnp.broadcast_to(idx, (gb,) + idx.shape[1:]),
+                edge1_ee=jnp.broadcast_to(ee, (gb,) + ee.shape[1:]))
 
         with pltpu.force_tpu_interpret_mode():
             out, vjp, new_stats = jax.vjp(jax.jit(fwd), params, has_aux=True)
@@ -185,27 +188,29 @@ def jax_generator(dtype: str, weights, x, z, ct, idx, ee, replay):
             "stats": base.flat(jax.device_get(new_stats))}
 
 
-@pytest.fixture(scope="module")
-def generator_runs():
+def run_generators(kw=KW, gb=GB):
     """The port in float32 and mixed_edge, JAX in the same, and JAX in
-    float32 on the port's mixed_edge choices (the witness)."""
-    sph = torch.from_numpy(sphere_template(KW["np"]))
-    idx, ee = template_edges(sph, KW["nk"] // 2)
+    float32 on the port's mixed_edge choices (the witness), at Config(**kw)
+    and a batch of gb."""
+    cfg = Config(**kw)
+    sph = torch.from_numpy(sphere_template(cfg.np))
+    idx, ee = template_edges(sph, cfg.k)
     rng = np.random.default_rng(2)
-    x = np.broadcast_to(sph.numpy()[None], (GB, KW["np"], 3)).copy()
-    z = (0.2 * rng.standard_normal((GB, KW["np"], KW["nz"]))).astype(
+    x = np.broadcast_to(sph.numpy()[None], (gb, cfg.np, 3)).copy()
+    z = (0.2 * rng.standard_normal((gb, cfg.np, cfg.nz))).astype(
         np.float32)
-    ct = rng.standard_normal((GB, KW["np"], 3)).astype(np.float32)
+    ct = rng.standard_normal((gb, cfg.np, 3)).astype(np.float32)
     args = (x, z, ct, idx, ee)
     out = {}
     for dtype in ("float32", "mixed_edge"):
-        ours, picks, pools, weights = port_generator(dtype, *args)
+        ours, picks, pools, weights = port_generator(dtype, *args, kw=kw)
         if dtype == "float32":
             # the port's own response to one ulp of z, same choices
             out["one_ulp"] = []
             for eps in (2.0 ** -23, -2.0 ** -23):
                 ulp, p2, pl2, _ = port_generator(
-                    dtype, x, (z * (1 + eps)).astype(np.float32), ct, idx, ee)
+                    dtype, x, (z * (1 + eps)).astype(np.float32), ct, idx, ee,
+                    kw=kw)
                 assert all(np.array_equal(a, b) for a, b in zip(picks, p2))
                 assert all(np.array_equal(a[1], b[1])
                            for a, b in zip(pools, pl2))
@@ -214,15 +219,22 @@ def generator_runs():
         replay.load(picks, pools)
         out["port", dtype] = ours
         out["jax", dtype] = jax_generator(dtype, weights, *args[:3],
-                                          idx.numpy(), ee.numpy(), replay)
+                                          idx.numpy(), ee.numpy(), replay,
+                                          kw=kw)
         if dtype == "float32":
             # under mixed_edge the packages' EdgeConv1 outputs differ by
             # bf16 rounding, more than a near-tie
             replay.assert_near_ties([("knn", 0), ("pool", 0, 1)])
         if dtype == "mixed_edge":
             out["witness"] = jax_generator("float32", weights, *args[:3],
-                                           idx.numpy(), ee.numpy(), replay)
+                                           idx.numpy(), ee.numpy(), replay,
+                                           kw=kw)
     return out
+
+
+@pytest.fixture(scope="module")
+def generator_runs():
+    return run_generators()
 
 
 class TestFusedGenerator:
