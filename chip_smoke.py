@@ -244,11 +244,31 @@ Phases, in order; any failure raises and the script exits nonzero:
               name, at k = 40 also on offset and scaled clouds; kernel B's
               concat bf16 form at k = 40 bit for bit; the fused block under
               autograd at k = 40 against its plain versions; bf16 at k =
-              65, f32 I-L at k = 33 and bf16 at C = 128, k = 64 refused;
+              65 and C-bf16 at C = 128, k = 64 refused;
               --fused_dphase (F2-80) and --fused_train (F1-80) at --nk 80,
               2 + 5 steps each with their launches and one profile; small
               mixed_edge --fused_train steps at --nk 80 against the CPU with
-              EdgeConv2's picks pinned; I-L and C-bf16's k = 40 rows.
+              EdgeConv2's picks pinned; I-L and C-bf16's k = 40 rows. Its
+              float32 part (slice 24, I-L's FMA engine past k = 32,
+              train_wide_kernel): ptxas of the four instantiations (no
+              spill); I-L in f32 mode at k = 33, 40 and 64 at EdgeConv2's
+              widths and at F = 64 on the FMA route within 1e-5 relative
+              L2 of their plain versions run in float64 on the kernels'
+              own leaky ReLU slopes (`hold_exact`) and twice alike; J-L's
+              bf16 FMA route at C = 128, k = 64 (5e-3); the fused block under
+              autograd on f32 edges at k = 40 against the plain oracle on
+              the kernels' own slopes (24 draws of one cloud); f32 and
+              bf16 at k = 65 and L at C = 232, k = 64 (past the FMA
+              engine's shared memory; C = 228 on the FMA route) refused;
+              --fused_dphase (F2-80-f32) and --fused_train (F1-80-f32) in
+              float32 at --nk 80, 2 + 5 steps each with their launches and
+              one profile (I-L's FMA parts, C's f32 parts); small float32
+              --fused_train steps at --nk 80 against the CPU with
+              EdgeConv2's picks pinned; I-L on the F1-80-f32 step's
+              EdgeConv2 (ee [24, 2048, 40, 128] f32, `hold_exact`) and
+              their f32 k = 40 rows; K and L at bs 28 (2,293,760 rows,
+              past 512 x 4096: the weight gradients' slices grow to 560
+              rows, 4096 of them, `hold_exact`).
 10. timings - median kernel times (CUDA events) beside their plain
               versions, the card's bound for the same work and, where one
               PyTorch call computes the same function, that call's time;
@@ -837,6 +857,27 @@ def tc_part(name: str):
     return f"{TC_OWN.get(part) or TC_PASSES[m.group(3)]}: {TC_PARTS[part]}"
 
 
+# the launches of kernels I-L on their FMA engine (csrc/edgeblock_train.cu:
+# f32 mode, and bf16 at widths the tensor cores' layout does not hold) by
+# part: the tile passes by pass (train_tile_kernel's first template
+# argument, train_wide_kernel's), the rest shared by the four entry points
+# (named in the library's anonymous namespace: PyTorch has a reduce_kernel)
+FMA_PARTS = {"prep_weights": "weights and their transposes",
+             "gemm": "products (J's d_u, the weight gradients)",
+             "reduce": "reductions"}
+
+
+def fma_part(name: str):
+    """"<kernel> (FMA): tile pass" or "I-L (FMA): <part>" of a launch of
+    kernels I-L's FMA engine, else None."""
+    m = re.search(r"\btrain_(?:tile|wide)_kernel<(\d)", name)
+    if m:
+        return f"{TC_PASSES[m.group(1)]} (FMA): tile pass"
+    m = re.search(r"\(anonymous namespace\)::(prep_weights|gemm|reduce)(64)?"
+                  r"_kernel\b", name)
+    return f"I-L (FMA): {FMA_PARTS[m.group(1)]}" if m else None
+
+
 # idle seconds before the marker launch of each attempt of profile_call
 # idle leads before a profile's marker kernel; in a run of this script
 # on the H100 every profile after the first lost its marker at leads of
@@ -1062,6 +1103,47 @@ def hold(tag, out, ref, l2_tol, again=None) -> dict:
     return worst
 
 
+# I-L in f32 mode at the fused path's sizes against their plain version run
+# in float64 on the kernels' own leaky ReLU slopes (`plain_on_slopes`): each
+# output within F32_EXACT_TOL relative L2 of it. Against the plain f32 run
+# the gate would not hold at these sizes: a leaky ReLU input within
+# rounding of 0 takes one slope in the kernel and the other there, and
+# the channel sums over millions of edge rows cancel, so that one such
+# input moves K's BN1 sums by about 1e-4 in relative L2 at ee [8, 2048,
+# 33, 128]; on the H100 the plain f32 run lay 3.4e-5 from the k <= 32
+# kernels at k = 10 (its own f32 sums) and up to 6.9e-4 from its float64
+# run.
+F32_EXACT_TOL = 1e-5
+
+
+def hold_exact(tag, out, ref, ref64, again) -> dict:
+    """A kernel's f32 outputs against its plain version in float64 on the
+    kernels' slopes (`ref64`, F32_EXACT_TOL): finite, bit-identical to a
+    second launch's (`again`); also read against the plain f32 run `ref`
+    (rel_l2, max_abs_err, and its own distance from ref64,
+    plain_exact_rel_l2)."""
+    import torch
+    worst = {"rel_l2": 0.0, "max_abs_err": 0.0, "exact_rel_l2": 0.0,
+             "plain_exact_rel_l2": 0.0}
+
+    def rel(x, y):
+        return ((x.double() - y).norm() / y.norm().clamp_min(1e-300)).item()
+    for i, (a, r, e) in enumerate(zip(out, ref, ref64)):
+        if not torch.equal(a, again[i]):
+            raise AssertionError(f"{tag}[{i}]: two launches differ")
+        res = {"rel_l2": rel(a, r.double()),
+               "max_abs_err": (a.float() - r.float()).abs().max().item(),
+               "exact_rel_l2": rel(a, e), "plain_exact_rel_l2": rel(r, e)}
+        if not (bool(torch.isfinite(a).all())
+                and res["exact_rel_l2"] <= F32_EXACT_TOL):
+            raise AssertionError(f"{tag}[{i}]: {res} (limit "
+                                 f"{F32_EXACT_TOL})")
+        for key in worst:
+            worst[key] = max(worst[key], res[key])
+    log(f"  {tag}: {worst}; bit-identical over two launches")
+    return worst
+
+
 def train_kernel_inputs(block, x, k, cd, gen) -> dict:
     """The arguments kernels I-L and C take at EdgeConv2 of the fused
     forward: the concat edges of x from kernel B in `cd`, the block's
@@ -1140,18 +1222,38 @@ def check_wout_pair(a: dict, out, ref) -> dict:
     return res
 
 
-def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
-    """I-L and kernel C against their plain versions on the same inputs
-    (TF32 off); each bit-identical over two launches (fixed-order sums, no
-    float atomics), C's bf16 contraction also by `check_wout_pair`. See
-    `hold`."""
+# kernels I-L by wrapper name, without kernel C
+I_TO_L = ("edge_train_stats2", "edge_train_bwd1", "edge_train_bwd2",
+          "edge_train_bwd3")
+
+
+def check_train_kernels(a: dict, l2_tol: float, label: str,
+                        names=None, exact: bool = False) -> dict:
+    """I-L and kernel C (or the kernels `names` names) against their plain
+    versions on the same inputs (TF32 off); each bit-identical over two
+    launches (fixed-order sums, no float atomics), C's bf16 contraction
+    also by `check_wout_pair`. See `hold`; with `exact` (f32 edges), each
+    against its plain version in float64 on the kernels' own slopes
+    instead, by `hold_exact`."""
     import torch
     res = {}
+    if exact:
+        pre = fma_pre(a["ee"], a["w1"], a["a1"], a["w2"], a["a2"], a["wx"],
+                      a["ax"])
     for name, (fn, plain, args) in train_kernel_calls(a).items():
+        if names is not None and name not in names:
+            continue
         out, again = fn(*args), fn(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
         as_list = lambda t: [t] if torch.is_tensor(t) else list(t)
+        if exact:
+            ref64 = plain_on_slopes(plain, args, pre)
+            res[name] = hold_exact(f"{name}[{label}]", as_list(out),
+                                   as_list(ref), as_list(ref64),
+                                   as_list(again))
+            del ref64
+            continue
         res[name] = hold(f"{name}[{label}]", as_list(out), as_list(ref),
                          l2_tol, as_list(again))
         if name == "edge_tail" and a["ee"].dtype == torch.bfloat16:
@@ -1162,6 +1264,8 @@ def check_train_kernels(a: dict, l2_tol: float, label: str) -> dict:
 # kernels I-L and C's bf16 mode: their source (on the tensor cores at the
 # fused path's widths) and the TPU kernels they replace
 TRAIN_SOURCE = "sp_gan_tpu_torch/csrc/edgeblock_train_tc.cu"
+# and of I-L in f32 mode (the FMA engine)
+FMA_SOURCE = "sp_gan_tpu_torch/csrc/edgeblock_train.cu"
 TRAIN_REPLACES = {
     "edge_train_stats2": "sp_gan_tpu/ops/pallas/edgeblock_train.py:152 "
                          "(_stats2_pallas, _stats2_kernel :111)",
@@ -1180,10 +1284,12 @@ TRAIN_REPLACES = {
 
 def train_kernel_bound(name: str, a: dict) -> tuple:
     """(bound ms, "bytes" or "operations", the same products' bound at the
-    f32 rate) of kernel `name` (I-L or C) on `train_kernel_inputs`' `a`, a
-    bf16 ee [B, N, k, 2C]: the matmul work the port kernel computes at the
-    bf16 tensor-core peak, each input read and each output written once
-    (the f32 d_u is J's output and K's and L's input)."""
+    f32 rate) of kernel `name` (I-L or C) on `train_kernel_inputs`' `a`, ee
+    [B, N, k, 2C]: the matmul work the port kernel computes at the bf16
+    tensor-core peak on a bf16 ee, at the f32 rate on an f32 ee (the FMA
+    engine), each input read and each output written once (the f32 d_u is
+    J's output and K's and L's input)."""
+    import torch
     ee = a["ee"]
     B, N, k, c2 = ee.shape
     f2, f = a["w1"].shape[1], a["w2"].shape[1]
@@ -1197,14 +1303,15 @@ def train_kernel_bound(name: str, a: dict) -> tuple:
             "edge_train_bwd1": chain + 2 * f * f,
             "edge_train_bwd2": chain + 2 * f2 * f,
             "edge_train_bwd3": chain + f2 * f + 2 * c1 * f2 + 2 * c2 * f}
-    ee_bytes, dout_bytes = ee.numel() * 2, B * N * f * 4
+    ee_bytes, dout_bytes = ee.numel() * ee.element_size(), B * N * f * 4
     du_bytes = rows * f * 4
     moved = {"edge_train_stats2": ee_bytes // 2,
              "edge_tail": ee_bytes + dout_bytes,
              "edge_train_bwd1": ee_bytes + dout_bytes + du_bytes,
              "edge_train_bwd2": ee_bytes + du_bytes,
              "edge_train_bwd3": 2 * ee_bytes + du_bytes}
-    b, by = bound(2 * macs[name] * rows, moved[name], BF16_FLOPS)
+    rate = BF16_FLOPS if ee.dtype == torch.bfloat16 else F32_FLOPS
+    b, by = bound(2 * macs[name] * rows, moved[name], rate)
     return b, by, bound(2 * macs[name] * rows, moved[name])[0]
 
 
@@ -1238,19 +1345,16 @@ def torch_edge_block_oracle(block, ee, k, neg=0.01, eps=1e-5, slopes=None,
         + block.out_bias
 
 
-def kernel_slopes(block, ee, stats, neg=0.01, eps=1e-5) -> list:
-    """Where the three leaky ReLU inputs are >= 0 as kernels J, K and L
-    compute them (their gradients take these slopes): each product a chain
-    of f32 FMAs over the input channels in ascending order from 0
-    (`rows_dot` of csrc/edgeblock_train.cu), then p = fma(h, scale, shift)
-    with the batch statistics folded by `_fold_all`, as the kernels take
-    them. An FMA is taken in f64 (the product of two f32 exact, the sum
-    rounded to f64, then to f32), which is the f32 FMA up to a double
-    rounding (about 2^-29 of the operations)."""
+def fma_pre(ee, w1, a1, w2, a2, wx, ax, neg=0.01) -> list:
+    """The three leaky ReLU inputs p1 [R, F2], p2 and px [R, F] (R = B N k
+    edge rows) of f32 edges as kernels I-L's FMA engine computes them:
+    each product a chain of f32 FMAs over the input channels in ascending
+    order from 0 (`rows_dot` of csrc/edgeblock_train.cu), then p =
+    fma(h, scale, shift) with the affines a1, a2, ax. An FMA is taken in
+    f64 (the product of two f32 exact, the sum rounded to f64, then to
+    f32), which is the f32 FMA up to a double rounding (about 2^-29 of the
+    operations)."""
     import torch
-    from sp_gan_tpu_torch.ops import edgeblock_train as ebt
-    f = {n: t.detach().float() for n, t in ebt.block_params(block).items()}
-    a1, a2, ax, _, _ = ebt._fold_all(f, stats, eps)
     C2 = ee.shape[-1]
     rows = ee.reshape(-1, C2)
 
@@ -1260,10 +1364,40 @@ def kernel_slopes(block, ee, stats, neg=0.01, eps=1e-5) -> list:
         for i in range(W.shape[0]):
             h = (x[:, i, None].double() * W[i] + h).float()
         return (h.double() * a[0].double() + a[1]).float()
-    p1 = chain(rows[:, C2 // 2:], f["conv_w1.kernel"], a1)
-    p2 = chain(torch.where(p1 >= 0, p1, neg * p1), f["conv_w2.kernel"], a2)
-    px = chain(rows, f["conv_x.kernel"], ax)
-    return [(p >= 0).reshape(*ee.shape[:-1], -1) for p in (p1, p2, px)]
+    p1 = chain(rows[:, C2 // 2:], w1, a1)
+    p2 = chain(torch.where(p1 >= 0, p1, neg * p1), w2, a2)
+    px = chain(rows, wx, ax)
+    return [p1, p2, px]
+
+
+def kernel_slopes(block, ee, stats, neg=0.01, eps=1e-5) -> list:
+    """Where the three leaky ReLU inputs are >= 0 as kernels J, K and L
+    compute them (their gradients take these slopes; `fma_pre`), with the
+    batch statistics folded by `_fold_all`, as the kernels take them."""
+    from sp_gan_tpu_torch.ops import edgeblock_train as ebt
+    f = {n: t.detach().float() for n, t in ebt.block_params(block).items()}
+    a1, a2, ax, _, _ = ebt._fold_all(f, stats, eps)
+    pre = fma_pre(ee, f["conv_w1.kernel"], a1, f["conv_w2.kernel"], a2,
+                  f["conv_x.kernel"], ax, neg)
+    return [(p >= 0).reshape(*ee.shape[:-1], -1) for p in pre]
+
+
+def plain_on_slopes(plain, args, pre):
+    """`plain` (a plain version of I-L) on `args` in float64, each of its
+    leaky ReLUs and their slopes (the module's `lrelu` and `dlrelu`) taking
+    the signs of the input of `pre` (`fma_pre`: the kernels' own inputs to
+    them) of its argument's shape that lies nearest to its argument."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
+
+    def pos(v):
+        return min((p for p in pre if p.shape == v.shape),
+                   key=lambda p: (v - p).abs().max().item()) >= 0
+    with mock.patch.multiple(
+            kt, lrelu=lambda v, neg: torch.where(pos(v), v, neg * v),
+            dlrelu=lambda v, neg: torch.where(pos(v), 1.0, neg)):
+        return plain(*[t.double() if torch.is_tensor(t) else t
+                       for t in args])
 
 
 def fused_block_draw(block, ee, ct, k) -> dict:
@@ -1730,8 +1864,8 @@ def check_small_step(seed: int, cfg_kw=None, pin_knn: bool = False) -> dict:
     every seed of 0-7 on the H100, so only pinned can G's gradients be
     compared there.
 
-    Under mixed_edge (`cfg_kw`'s dtype; the fused path at --nk 80, where
-    kernels I-L take bf16 edges only) EdgeConv1's bf16 output parts the
+    Under mixed_edge (`cfg_kw`'s dtype; the fused path at --nk 80 on the
+    tensor cores) EdgeConv1's bf16 output parts the
     devices by bf16 roundings, which AdaIN carries into EdgeConv2's input:
     on the H100 (seeds 0-7) up to 2.3e-2 of its max-abs, 580-2240 of
     EdgeConv2's picks and, unpinned, half of G's pool channels moved. So
@@ -5370,21 +5504,48 @@ WIDE_FUSED_KERNELS = re.compile(r"tc_tile_kernelILi[0-4]ELi64E")
 WIDE_FUSED_MAX_SPILL = 0
 # draws of the fused block under autograd at k = 40
 WIDE_FUSED_DRAWS = 4
+# slice 24: kernels I-L's FMA engine past k = 32 (`train_wide_kernel<PASS>`
+# in csrc/edgeblock_train.cu), float32 --fused_train and --fused_dphase at
+# --nk 80. The route I-L must take on f32 edges at WIDE_FUSED_WIDTHS:
+WIDE_F32_ROUTE = "FMA"
+# a bf16 width past the tensor cores' layout at k = 64, (C, F2, F, k), and
+# the routes of I, J, K and L there: I's tile of one point still fits the
+# tensor cores (no wx, half of ee), J's, K's and L's take the FMA engine
+WIDE_FMA_BF16 = (128, 64, 128, 64)
+WIDE_FMA_BF16_ROUTES = ("tensor cores, bf16", "FMA", "FMA", "FMA")
+# the FMA engine's four instantiations past k = 32, and the most bytes any
+# may spill
+WIDE_FMA_KERNELS = re.compile(r"train_wide_kernelILi[0-3]E")
+WIDE_FMA_MAX_SPILL = 0
+# draws of the fused block under autograd on f32 edges at k = 40, each of
+# WIDE_F32_CLOUDS clouds (as many edge rows as the k = 10 check's draws of
+# four clouds)
+WIDE_F32_DRAWS, WIDE_F32_CLOUDS = 24, 1
+# L at F2 = 64, F = 128, k = 64: the widest C the FMA engine takes (one
+# point's rows and intermediates, 2 C + 448 floats a row, in 232,448 bytes
+# of shared memory) and the next multiple of 4, which no engine takes
+WIDE_FMA_SMEM_C = (228, 232)
+# a batch of EdgeConv2 at --nk 80 whose B N k rows pass 512 x 4096, where
+# K's and L's weight gradients take slices longer than 512 rows so that
+# there are at most 4096 (the gemm's grid.z)
+WIDE_FMA_GROW_BS = 28
 
 
-def wide_fused_ptxas(text: str) -> list:
-    """ptxas's lines for the tensor-core tile kernel's instantiations past
-    k = 32 (I, J, K, L and C); raises if one is missing or spills more
-    than WIDE_FUSED_MAX_SPILL bytes."""
+def wide_fused_ptxas(text: str, kernels=WIDE_FUSED_KERNELS, count: int = 5,
+                     max_spill: int = WIDE_FUSED_MAX_SPILL,
+                     what: str = "tc_tile_kernel") -> list:
+    """ptxas's lines for a tile kernel's instantiations past k = 32 (by
+    default the tensor cores' of I, J, K, L and C); raises if one is
+    missing or spills more than `max_spill` bytes."""
     lines = [line for line in ptxas_report(text, 400)
-             if WIDE_FUSED_KERNELS.search(line)]
-    if len(lines) != 5:
-        raise AssertionError(f"ptxas reported {len(lines)} of the five "
-                             "tc_tile_kernel instantiations past k = 32")
+             if kernels.search(line)]
+    if len(lines) != count:
+        raise AssertionError(f"ptxas reported {len(lines)} of the {count} "
+                             f"{what} instantiations past k = 32")
     for line in lines:
         spill = re.search(r"spill (\d+)/(\d+) bytes", line)
-        if not spill or max(map(int, spill.groups())) > WIDE_FUSED_MAX_SPILL:
-            raise AssertionError(f"tc_tile_kernel spills: {line}")
+        if not spill or max(map(int, spill.groups())) > max_spill:
+            raise AssertionError(f"{what} spills: {line}")
     return lines
 
 
@@ -5442,6 +5603,49 @@ def check_wide_train_kernels(seed: int, gen) -> dict:
     return res
 
 
+def check_wide_f32_kernels(seed: int, gen) -> dict:
+    """I-L on their FMA engine past k = 32: in f32 mode at k = 33, 40 and
+    64 at each of WIDE_FUSED_WIDTHS on f32 concat edges of WIDE_FUSED_B
+    normal clouds from kernel B, on the route WIDE_F32_ROUTE (asked of
+    `edge_train_route`), by `check_train_kernels` against their plain
+    versions in float64 on the kernels' own slopes (`hold_exact`: 1e-5
+    relative L2) and twice alike; then in bf16 mode at
+    WIDE_FMA_BF16, on WIDE_FMA_BF16_ROUTES, at 5e-3 against the plain
+    versions."""
+    import torch
+    from sp_gan_tpu_torch.ops.kernels.edgeblock_train import edge_train_route
+    res = {}
+
+    def case(C, F2, F, k, cd, want, tol, tag):
+        routes = tuple(edge_train_route(p, WIDE_FUSED_B, 2048, C, F2, F, k,
+                                        cd == torch.bfloat16)
+                       for p in range(4))
+        if routes != want:
+            raise AssertionError(f"I-L at {tag} take {routes}")
+        blk = wide_block(C, F, k, seed)
+        x = torch.randn(WIDE_FUSED_B, 2048, C, generator=gen, device="cuda")
+        a = train_kernel_inputs(blk, x, k, cd, gen)
+        res[tag] = check_train_kernels(a, tol, tag, I_TO_L,
+                                       cd == torch.float32)
+        del a
+        torch.cuda.empty_cache()
+    for k in WIDE_K:
+        for name, (C, F2, F) in WIDE_FUSED_WIDTHS.items():
+            case(C, F2, F, k, torch.float32, (WIDE_F32_ROUTE,) * 4, 1e-5,
+                 f"{name}, k={k}, f32")
+    C, F2, F, k = WIDE_FMA_BF16
+    case(C, F2, F, k, torch.bfloat16, WIDE_FMA_BF16_ROUTES, 5e-3,
+         f"C={C}, F2={F2}, F={F}, k={k}, bf16")
+    worst = {cd: max(r["rel_l2"] for tag, c in res.items() if cd in tag
+                     for r in c.values()) for cd in ("f32", "bf16")}
+    worst["f32 against float64 on the kernels' slopes"] = max(
+        r["exact_rel_l2"] for tag, c in res.items() if "f32" in tag
+        for r in c.values())
+    log(f"  I-L on the FMA engine past k = 32: {len(res)} cases, worst "
+        f"relative L2 {worst}")
+    return res
+
+
 def check_fused_block_plain(block, x, k: int, gen, draws: int) -> dict:
     """`FusedEdgeBlock` under autograd (kernels I, C forward; J, K, L
     backward) on bf16 concat edges at k on `draws` draws of x and the
@@ -5493,13 +5697,16 @@ def check_fused_block_plain(block, x, k: int, gen, draws: int) -> dict:
 
 
 def check_wide_fused_limits() -> dict:
-    """On CUDA tensors kernel I refuses bf16 edges at k = 65 (kernel C's
-    refusal is `check_wide_tail_limits`'), kernels I and L f32 edges at
-    k = 33 (the FMA kernels' limit), and kernels L and C a bf16 width past
-    the tensor cores' layout at k = 64 (C = 128, F2 = 64, F = 128: L holds
-    one point's rows there only up to C = 64, and C's FMA kernels hold no
-    bf16 weights beside them), each naming its limit; none of them
-    launches a kernel."""
+    """On CUDA tensors kernel I refuses bf16 and f32 edges at k = 65 and
+    kernel L f32 edges at k = 65 (kernel C's k refusal is
+    `check_wide_tail_limits`'); kernel L refuses, in f32 and in bf16 mode,
+    the first C past the FMA engine's shared memory at k = 64
+    (WIDE_FMA_SMEM_C: C = 232 at F2 = 64, F = 128), naming the widest C
+    it takes there (228, which the route query puts on the FMA engine);
+    and kernel C refuses a bf16 width past the tensor cores' layout at k
+    = 64 (C = 128, F2 = 64, F = 128: its FMA kernels hold no bf16 weights
+    beside one point's rows). Each names its limit; none launches a
+    kernel."""
     import torch
     from sp_gan_tpu_torch.ops import kernels
     from sp_gan_tpu_torch.ops.kernels import edgeblock_train as kt
@@ -5522,17 +5729,23 @@ def check_wide_fused_limits() -> dict:
             t(1, 8, k, 2 * C, dtype=dtype), t(C, F2), t(2, F2), t(F2, F),
             t(2, F), t(2 * C, F), t(2, F), t(k, F, F), t(1, F), k=k)
     bf16, f32 = torch.bfloat16, torch.float32
+    widest, past = WIDE_FMA_SMEM_C
+    smem = f"takes C <= {widest} at F2=64, F=128, k=64"
     calls = {
         "I, bf16, k = 65": (stats2(64, 64, 128, 65, bf16),
                             "k <= 64 (--nk <= 128) in bf16 mode"),
-        "I, f32, k = 33": (stats2(64, 64, 128, 33, f32),
-                           "k <= 32 (--nk <= 64) in f32 mode"),
-        "L, f32, k = 33": (bwd3(64, 64, 128, 33, f32),
-                           "k <= 32 (--nk <= 64) in f32 mode"),
-        "L, bf16, C = 128, k = 64": (bwd3(128, 64, 128, 64, bf16),
-                                     "only on the tensor cores"),
+        "I, f32, k = 65": (stats2(64, 64, 128, 65, f32),
+                           "k <= 64 (--nk <= 128) in f32 mode"),
+        "L, f32, k = 65": (bwd3(64, 64, 128, 65, f32),
+                           "k <= 64 (--nk <= 128) in f32 mode"),
+        f"L, f32, C = {past}, k = 64": (bwd3(past, 64, 128, 64, f32), smem),
+        f"L, bf16, C = {past}, k = 64": (bwd3(past, 64, 128, 64, bf16),
+                                         smem),
         "C, bf16, C = 128, k = 64": (tail(128, 64, 128, 64, bf16),
                                      "no design whose shared memory holds")}
+    route = kt.edge_train_route(3, 1, 8, widest, 64, 128, 64)
+    if route != "FMA":
+        raise AssertionError(f"L at C = {widest}, k = 64 takes {route}")
     kernels.reset_launch_counts()
     out = {}
     for name, (call, limit) in calls.items():
@@ -5550,25 +5763,29 @@ def check_wide_fused_limits() -> dict:
     return out
 
 
-def wide_fused_steps(seed: int) -> dict:
+def wide_fused_steps(seed: int, f32: bool = False) -> dict:
     """WIDE_WARMUP + WIDE_STEPS steps of --fused_dphase (F2-80) and of
-    --fused_train (F1-80) at --nk 80 and `Config()` widths (mixed_edge:
-    EdgeConv2's fused EdgeBlock on bf16 edges at k = 40), each with its
-    launches (PER_STEP_DPHASE, PER_STEP_FUSED), finite losses, every weight
-    moved but EdgeConv2's conv biases under --fused_train (FUSED_STILL),
-    and one profiled step, its tensor-core launches split by kernel and
-    part (`tc_part`)."""
+    --fused_train (F1-80) at --nk 80 and `Config()` widths, under
+    mixed_edge (EdgeConv2's fused EdgeBlock on bf16 edges at k = 40, I-L
+    on the tensor cores) or, with `f32`, in float32 (F2-80-f32, F1-80-f32:
+    f32 edges, I-L on their FMA engine, C's f32 mode), each with its
+    launches (PER_STEP_DPHASE, PER_STEP_FUSED), finite losses, every
+    weight moved but EdgeConv2's conv biases under --fused_train
+    (FUSED_STILL), and one profiled step, its launches of I-L and C split
+    by kernel and part (`tc_part`; in float32 `fma_part` and `tf_part`)."""
     from sp_gan_tpu_torch.config import Config
     res = {}
+    suffix, kw = ("-f32", {"dtype": "float32"}) if f32 else ("", {})
+    group = (lambda n: fma_part(n) or tf_part(n)) if f32 else tc_part
     for label, flag, expected, still in (
             ("F2-80", "fused_dphase", PER_STEP_DPHASE, ()),
             ("F1-80", "fused_train", PER_STEP_FUSED, FUSED_STILL)):
-        tag = f"--{flag} step at --nk {NK80}"
-        tr, res[label] = timed_training(
-            Config(seed=seed, nk=NK80, **{flag: True}), WIDE_STEPS,
+        tag = f"--{flag} step at --nk {NK80}" + (", float32" if f32 else "")
+        tr, res[label + suffix] = timed_training(
+            Config(seed=seed, nk=NK80, **{flag: True}, **kw), WIDE_STEPS,
             WIDE_WARMUP, expected, tag, still)
-        prof = res[label]["profile"] = profile_call(
-            lambda: tr.time_steps(1), tag, tc_part)
+        prof = res[label + suffix]["profile"] = profile_call(
+            lambda: tr.time_steps(1), tag, group)
         prof["tc_split_ms"] = {}
         for key, ms in prof["groups"].items():
             kern, part = key.split(": ")
@@ -5577,60 +5794,79 @@ def wide_fused_steps(seed: int) -> dict:
     return res
 
 
-def wide_fused_rows(full: dict, held: dict, steps: dict) -> list:
+def wide_fused_rows(full: dict, held: dict, steps: dict,
+                    f32: bool = False) -> list:
     """The kernels line's k = 40 rows of I, J, K, L and C's bf16 mode at the
     F1-80 step's EdgeConv2 (`full`: ee [24, 2048, 40, 128] bf16 from kernel
-    B, the block's weights and the affines of its own batch statistics):
-    ms (CUDA events), plain ms, the bound (`train_kernel_bound`), the
-    largest error of `held` (`check_train_kernels` on `full`), the
-    launches of the F1-80 run and each kernel's device ms in its profiled
-    step by part."""
-    f1 = steps["F1-80"]
+    B, the block's weights and the affines of its own batch statistics), or
+    with `f32` those of I-L in f32 mode at the F1-80-f32 step's (ee f32,
+    the FMA engine): ms (CUDA events), plain ms, the bound
+    (`train_kernel_bound`), the largest error of `held`
+    (`check_train_kernels` on `full`), the launches of the F1-80 (-f32)
+    run and each kernel's device ms in its profiled step by part."""
+    f1 = steps["F1-80-f32" if f32 else "F1-80"]
     split = f1["profile"]["tc_split_ms"]
     rows = []
     for name, (fn, plain, fargs) in train_kernel_calls(full).items():
+        if name not in held:
+            continue
         b, by, old = train_kernel_bound(name, full)
         kern = {"edge_train_stats2": "I", "edge_train_bwd1": "J",
                 "edge_train_bwd2": "K", "edge_train_bwd3": "L",
                 "edge_tail": "C"}[name]
         rows.append(dict(
-            name=name, route="cuda", source=TRAIN_SOURCE,
-            replaces=TRAIN_REPLACES[name], mode="bf16 edges",
+            name=name, route="cuda",
+            source=FMA_SOURCE if f32 else TRAIN_SOURCE,
+            replaces=TRAIN_REPLACES[name],
+            mode="f32 edges" if f32 else "bf16 edges",
             launches=f1["launches"][name],
             launches_per_step=f1["launches_per_step"][name], k=full["k"],
             max_abs_err=held[name]["max_abs_err"],
             ms=cuda_ms(lambda: fn(*fargs), 10),
             plain_ms=cuda_ms(lambda: plain(*fargs), 3),
             bound_ms=b, bound_by=by, library_ms=None, old_bound_ms=old,
-            split_ms=split.get(kern), split_calls=PER_STEP_FUSED[name],
+            split_ms=split.get(f"{kern} (FMA)" if f32 else kern),
+            split_calls=PER_STEP_FUSED[name],
             shape=list(full["ee"].shape),
             path=f"--fused_train step at k = {full['k']} (--nk "
-                 f"{2 * full['k']})"))
+                 f"{2 * full['k']})" + (", float32" if f32 else "")))
         r = rows[-1]
-        log(f"  {name} (F1-80): {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}"
-            f" ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+        log(f"  {name} (F1-80{'-f32' if f32 else ''}): {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']})")
     return rows
 
 
 def wide_fused(seed: int, lap) -> tuple:
-    """The fused half of wide_k (slice 23): ptxas of the tensor-core tile
-    kernel past k = 32, I-L and C-bf16 at k = 33, 40 and 64 on their routes
-    (`check_wide_train_kernels`), kernel B's concat bf16 form at k = 40 bit
-    for bit, the fused block under autograd at k = 40 against its plain
-    versions, the refusals, the F2-80 and F1-80 steps, small mixed_edge
+    """The fused half of wide_k (slices 23 and 24): ptxas of the tensor-core
+    tile kernel and of the FMA engine past k = 32, I-L and C-bf16 at k =
+    33, 40 and 64 on their routes (`check_wide_train_kernels`), I-L in f32
+    mode there and J-L's bf16 FMA route (`check_wide_f32_kernels`), kernel
+    B's concat bf16 form at k = 40 bit for bit, the fused block under
+    autograd at k = 40 against its plain versions (bf16) and against the
+    plain autograd oracle on the kernels' own slopes (f32,
+    `check_fused_block_autograd`), the refusals, the F2-80 and F1-80 steps
+    under mixed_edge and in float32, small mixed_edge and float32
     --fused_train steps at --nk 80 against the CPU with EdgeConv2's picks
-    pinned, I-L and C-bf16 on the F1-80 step's EdgeConv2 at bs 24
-    (`check_train_kernels`) and their k = 40 rows. Returns the figures and
-    the rows."""
+    pinned, I-L and C-bf16 on the F1-80 step's EdgeConv2 and I-L on the
+    F1-80-f32 step's at bs 24 (`check_train_kernels`) and their k = 40
+    rows, and K and L in f32 at bs WIDE_FMA_GROW_BS. Returns the figures
+    and the rows."""
     import torch
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.nn.generator import Generator
     from sp_gan_tpu_torch.ops.kernels import _build
-    res = {"ptxas_tc_km64": wide_fused_ptxas(_build.last_log)}
+    res = {"ptxas_tc_km64": wide_fused_ptxas(_build.last_log),
+           "ptxas_fma_wide": wide_fused_ptxas(
+               _build.last_log, WIDE_FMA_KERNELS, 4, WIDE_FMA_MAX_SPILL,
+               "train_wide_kernel")}
     for line in res["ptxas_tc_km64"]:
         log("  ptxas (tc_tile_kernel, KM = 64): " + line)
+    for line in res["ptxas_fma_wide"]:
+        log("  ptxas (train_wide_kernel): " + line)
     gen = torch.Generator(device="cuda").manual_seed(seed + 43)
     res["checks"] = check_wide_train_kernels(seed, gen)
+    res["checks_fma"] = check_wide_f32_kernels(seed, gen)
     cfg = Config(seed=seed, nk=NK80)
     k = cfg.k
     x_t = torch.randn(cfg.bs, cfg.np, 64, generator=gen, device="cuda")
@@ -5639,20 +5875,40 @@ def wide_fused(seed: int, lap) -> tuple:
     G = Generator(cfg, seed=seed).cuda()
     res["autograd"] = check_fused_block_plain(
         G.edge2, x_t[:4].contiguous(), k, gen, WIDE_FUSED_DRAWS)
+    res["autograd_f32"] = check_fused_block_autograd(
+        G.edge2, x_t[:WIDE_F32_CLOUDS].contiguous(), k, gen, WIDE_F32_DRAWS)
     res["refused"] = check_wide_fused_limits()
     lap("I-L and C-bf16 past k = 32")
     res["steps"] = wide_fused_steps(seed)
-    lap("F2-80 and F1-80")
+    res["steps"].update(wide_fused_steps(seed, f32=True))
+    lap("F2-80 and F1-80, mixed_edge and float32")
     res["small_step"] = check_small_steps(
         seed, 1, {"nk": NK80, "fused_train": True, "dtype": "mixed_edge"},
         pin_knn=True)
+    res["small_step_f32"] = check_small_steps(
+        seed, 1, {"nk": NK80, "fused_train": True, "dtype": "float32"},
+        pin_knn=True)
     lap("small fused steps")
-    full = train_kernel_inputs(G.edge2, x_t, k, torch.bfloat16, gen)
-    tag = f"EdgeConv2 of F1-80, {list(full['ee'].shape)}"
-    res["checks"][tag] = check_train_kernels(full, 5e-3, tag)
-    rows = wide_fused_rows(full, res["checks"][tag], res["steps"])
-    lap("I-L and C-bf16 k = 40 rows")
-    del full, G
+    rows = []
+    for cd, f32 in ((torch.bfloat16, False), (torch.float32, True)):
+        full = train_kernel_inputs(G.edge2, x_t, k, cd, gen)
+        tag = (f"EdgeConv2 of F1-80{'-f32' if f32 else ''}, "
+               f"{list(full['ee'].shape)}")
+        res["checks"][tag] = check_train_kernels(
+            full, 5e-3, tag, I_TO_L if f32 else None, f32)
+        rows += wide_fused_rows(full, res["checks"][tag], res["steps"], f32)
+        del full
+        torch.cuda.empty_cache()
+    x_g = torch.randn(WIDE_FMA_GROW_BS, cfg.np, 64, generator=gen,
+                      device="cuda")
+    full = train_kernel_inputs(G.edge2, x_g, k, torch.float32, gen)
+    tag = f"EdgeConv2 f32, {list(full['ee'].shape)}"
+    res["checks"][tag] = check_train_kernels(
+        full, 5e-3, tag, ("edge_train_bwd2", "edge_train_bwd3"), True)
+    del full, x_g
+    torch.cuda.empty_cache()
+    lap("I-L, C-bf16 and I-L f32 k = 40 rows; K and L at bs 28")
+    del G
     torch.cuda.empty_cache()
     return res, rows
 

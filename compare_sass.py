@@ -6,10 +6,11 @@ by function, so that a change can show which kernels it left untouched:
 builds both libraries from their sources (each checkout's
 `sp_gan_tpu_torch/ops/kernels/_build.py`, one nvcc per source; an unchanged
 library is loaded as it is), disassembles each with `cuobjdump -sass`,
-drops the instruction addresses and the hash in each anonymous namespace's
-name, and prints the functions that are identical, differ, were added and
-are gone (OTHER_CHECKOUT is the "before" side), then one JSON line. Needs
-nvcc and cuobjdump (the CUDA toolkit), no GPU.
+drops the instruction addresses, the column padding (which follows the
+widest instruction of the object) and the hash in each anonymous
+namespace's name, and prints the functions that are identical, differ,
+were added and are gone (OTHER_CHECKOUT is the "before" side), then one
+JSON line. Needs nvcc and cuobjdump (the CUDA toolkit), no GPU.
 """
 
 import argparse
@@ -46,7 +47,10 @@ def sass(lib: str, cuobjdump: str) -> dict:
                          r"[0-9a-f]+", "ANON", m.group(1))
             funcs[cur] = []
         elif cur:
-            funcs[cur].append(re.sub(r"/\*[0-9a-f]{4}\*/", "", line).strip())
+            # the padding before each encoding comment follows the widest
+            # instruction of the whole object, so it is dropped too
+            funcs[cur].append(" ".join(
+                re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split()))
     return funcs
 
 

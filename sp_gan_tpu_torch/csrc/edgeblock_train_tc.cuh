@@ -9,7 +9,11 @@
 
 // The widths kernels I-L take on either engine: C a multiple of 4, F2 a
 // multiple of 4 dividing 256, F in {64, 128}; k from 1 to the engine's own
-// limit below.
+// limit below; and a tile of one point within a block's shared memory
+// (ebt_tc_fits for the tensor cores; for the FMA kernels of
+// edgeblock_train.cu, at F = 128 and F2 = 64: I C <= 856, J C <= 856, K C
+// <= 760, L C <= 664 at k = 32; I C <= 692, J C <= 564, K C <= 532, L C <=
+// 500 at k = 40; I C <= 420, J C <= 292, K C <= 260, L C <= 228 at k = 64).
 inline bool ebt_widths_ok(int B, int N, int C, int F2, int F) {
   return B > 0 && N > 0 && C > 0 && C % 4 == 0 && F2 > 0 && F2 % 4 == 0 &&
          256 % F2 == 0 && (F == 64 || F == 128);
@@ -18,9 +22,10 @@ inline bool ebt_widths_ok(int B, int N, int C, int F2, int F) {
 // The most neighbours a point each engine takes: the tensor cores
 // (edgeblock_train_tc.cu, bf16 mode, and kernel C's bf16 tail there) and
 // the FMA kernels of edgeblock_train.cu (f32 mode, and bf16 mode at widths
-// the tensor cores' layout does not hold).
+// the tensor cores' layout does not hold; past k = 32 on their
+// shared-memory design, train_wide_kernel).
 constexpr int kEbtTcMaxK = 64;
-constexpr int kEbtFmaMaxK = 32;
+constexpr int kEbtFmaMaxK = 64;
 
 // Kernel I (the statistics sweep) and kernel C's tail in bf16 mode,
 // numbered beside passes 1 (J), 2 (K) and 3 (L) for ebt_tc_fits and
@@ -37,7 +42,8 @@ constexpr int kEbtTail = 4;
 // C <= 144 for C; at k = 64 C <= 80 for J, C <= 64 for K and L, C <= 96
 // for C; I holds no wx and half of ee, and fits far wider). Other widths
 // take the FMA paths of edgeblock_train.cu and edgeblock.cu in bf16 mode
-// too, I-L's up to k = kEbtFmaMaxK.
+// too, I-L's up to k = kEbtFmaMaxK and their own shared-memory limit
+// (ebt_widths_ok's comment).
 bool ebt_tc_fits(int pass, int C, int F2, int F, int k);
 
 // Floats of scratch that pass 0 (I: its blocks' sums), 1 (J), 2 (K), 3 (L)

@@ -23,24 +23,32 @@ arithmetic stay f32. The other inputs are f32: w1 [C, F2], w2 [F2, F],
 wx [2C, F], wout [k, F, F], the affines a1 [2, F2], a2 and ax [2, F] (scale
 row, shift row), gb2x [4, F] (BN2 and BNx gamma, beta) and gb1 [2, F2].
 
-On an H100 the four are bound by bytes in bf16 mode (the CUDA sources
-have the counts and the design). In bf16 mode I, J, K and L run their
-products on the tensor cores (`csrc/edgeblock_train_tc.cu`; I reads only
-the diff half of ee) wherever the block's weights and one point's rows fit
-in shared memory (at F = 128, F2 = 64: C <= 192 for J and L and C <= 208
-for K at k = 10, C <= 112 for J and K and C <= 80 for L at k = 40, C <= 80
-for J and C <= 64 for K and L at k = 64; I far wider); the f32 mode and
-wider blocks run them as f32 FMAs (`csrc/edgeblock_train.cu`), whose
-threads keep a point's k values in registers. `edge_train_route` names
-the engine a launch takes. The scratch each call takes is sized for the
-path that runs. Each wrapper launches its kernel for CUDA tensors and runs
-its plain PyTorch version (`*_plain`, the same arithmetic) for CPU
-tensors; `fn.launches` counts kernel launches. The CUDA kernels take C a
-multiple of 4, F2 a multiple of 4 dividing 256, F in {64, 128} and k <=
-64 (`--nk` <= 128) on bf16 edges, on the tensor cores past k = 32, and k
-<= 32 (`--nk` <= 64) on f32 edges (`MAX_K`); a call that no engine takes
-raises a ValueError before any launch and never falls back to the plain
-version. The plain versions take any widths.
+On an H100 the four are bound by bytes in bf16 mode and by operations in
+f32 mode (the CUDA sources have the counts and the design). In bf16 mode
+I, J, K and L run their products on the tensor cores
+(`csrc/edgeblock_train_tc.cu`; I reads only the diff half of ee) wherever
+the block's weights and one point's rows fit in shared memory (at F =
+128, F2 = 64: C <= 192 for J and L and C <= 208 for K at k = 10, C <= 112
+for J and K and C <= 80 for L at k = 40, C <= 80 for J and C <= 64 for K
+and L at k = 64; I far wider); the f32 mode and wider blocks run them as
+f32 FMAs (`csrc/edgeblock_train.cu`): up to k = 32 a thread keeps a
+point's k values in registers, past it (`train_wide_kernel`) the rows'
+p2 and px sit in shared memory and the softmax runs in passes over them.
+The FMA kernels hold one point's edge rows and their intermediates in a
+block's shared memory: at F = 128, F2 = 64 I takes C <= 692, J C <= 564,
+K C <= 532 and L C <= 500 at k = 40, and I C <= 420, J C <= 292, K C <=
+260 and L C <= 228 at k = 64. `edge_train_route` names the engine a
+launch takes. The scratch each call takes is sized for the path that
+runs. Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version (`*_plain`, the same arithmetic) for CPU tensors;
+`fn.launches` counts kernel launches. The CUDA kernels take C a multiple
+of 4, F2 a multiple of 4 dividing 256, F in {64, 128} and k <= 64
+(`--nk` <= 128) on f32 and bf16 edges (`MAX_K`), and widths whose tile of
+one point fits in a block's shared memory on one engine; a call that no
+engine takes raises a ValueError before any launch, naming the widest C
+it would take (`_refusal`), and never falls back to the plain version.
+The plain versions take any widths, and run in float64 on float64
+operands (`wide`).
 """
 
 from __future__ import annotations
@@ -51,10 +59,9 @@ from sp_gan_tpu_torch.ops.kernels import _build
 
 WIDTHS = (64, 128)      # output widths F the CUDA kernels are built for
 # the most neighbours a point the CUDA kernels take, by the dtype of ee: the
-# tensor cores (bf16) take k <= 64, the FMA kernels (f32, and bf16 at widths
-# the tensor cores' layout does not hold) k <= 32
-MAX_K = {torch.float32: 32, torch.bfloat16: 64}
-FMA_MAX_K = MAX_K[torch.float32]
+# tensor cores (bf16) and the FMA kernels (f32, and bf16 at widths the
+# tensor cores' layout does not hold) both take k <= 64
+MAX_K = {torch.float32: 64, torch.bfloat16: 64}
 EE_DTYPES = (torch.float32, torch.bfloat16)
 # the kernels by pass, as the CUDA entry points number them
 PASSES = ("I (edge_train_stats2)", "J (edge_train_bwd1)",
@@ -63,15 +70,24 @@ PASSES = ("I (edge_train_stats2)", "J (edge_train_bwd1)",
 ROUTES = ("tensor cores, bf16", "FMA")
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions compute in on operands of `dtype`: f32,
+    or f64 on f64 operands (the same function in exact arithmetic up to
+    f64 rounding, the oracle of chip_smoke.py's f32 checks)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def mm(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """The JAX `_mm`: both operands in `cd`, products summed in f32. A
-    product of two bf16 values is exact in f32, so the f32 matmul of the
-    rounded operands computes what the bf16 dot does, up to sum order."""
-    return x.to(cd).float() @ w.to(cd).float()
+    """The JAX `_mm`: both operands in `cd`, products summed in f32 (f64
+    when `cd` is). A product of two bf16 values is exact in f32, so the
+    f32 matmul of the rounded operands computes what the bf16 dot does, up
+    to sum order."""
+    return x.to(cd).to(wide(cd)) @ w.to(cd).to(wide(cd))
 
 
 def compute_dtype(ee: torch.Tensor) -> torch.dtype:
-    return torch.bfloat16 if ee.dtype == torch.bfloat16 else torch.float32
+    return ee.dtype if ee.dtype in (torch.bfloat16, torch.float64) \
+        else torch.float32
 
 
 def lrelu(v: torch.Tensor, neg: float) -> torch.Tensor:
@@ -88,7 +104,7 @@ def chain(ee, w1, a1, w2, a2, wx, ax, k: int, neg: float) -> dict:
     over k) and v [P, k, F] (P = B*N)."""
     cd = compute_dtype(ee)
     C2, F = ee.shape[-1], w2.shape[-1]
-    flat = ee.reshape(-1, C2).float()
+    flat = ee.reshape(-1, C2).to(wide(ee.dtype))
     diff = flat[:, C2 // 2:]
     p1 = mm(diff, w1, cd) * a1[0] + a1[1]
     y1 = lrelu(p1, neg)
@@ -139,7 +155,8 @@ def edge_train_stats2_plain(ee, w1, a1, w2, k: int,
                             neg: float = 0.01) -> torch.Tensor:
     """Kernel I's function in plain PyTorch: [sum h2; sum h2^2] [2, F]."""
     cd = compute_dtype(ee)
-    diff = ee.reshape(-1, ee.shape[-1]).float()[:, ee.shape[-1] // 2:]
+    diff = ee.reshape(-1, ee.shape[-1]).to(wide(ee.dtype))[
+        :, ee.shape[-1] // 2:]
     y1 = lrelu(mm(diff, w1, cd) * a1[0] + a1[1], neg)
     h2 = mm(y1, w2, cd)
     return torch.stack([h2.sum(0), (h2 * h2).sum(0)])
@@ -152,7 +169,7 @@ def edge_train_bwd1_plain(ee, d_out, w1, a1, w2, a2, wx, ax, gb2x, wout,
     cd = compute_dtype(ee)
     B, N = ee.shape[:2]
     F = w2.shape[-1]
-    dout = d_out.reshape(-1, F).float()
+    dout = d_out.reshape(-1, F).to(wide(d_out.dtype))
     d_u = mm(dout, wout.reshape(k * F, F).t(), cd).reshape(-1, k, F)
     ch = chain(ee, w1, a1, w2, a2, wx, ax, k, neg)
     top = _top(ch, d_u, gb2x, neg)
@@ -226,17 +243,21 @@ def _check(ee: torch.Tensor, k: int, **named) -> tuple:
     return B, N, C, F2, F
 
 
+def _k_refusal(pass_: int, k: int, dtype: torch.dtype) -> ValueError:
+    mode = "f32" if dtype == torch.float32 else "bf16"
+    return ValueError(
+        f"kernel {PASSES[pass_]} takes k <= {MAX_K[dtype]} (--nk <= "
+        f"{2 * MAX_K[dtype]}) in {mode} mode on CUDA; got k={k} (from "
+        f"--nk {2 * k})")
+
+
 def check_kernel_limits(pass_: int, k: int, dtype: torch.dtype) -> None:
     """The limit of kernel I, J, K or L (`pass_` 0-3) on k, checked before
-    a launch: k <= 64 on a bf16 ee (the generator's --nk <= 128), k <= 32
-    on an f32 ee (--nk <= 64). The plain versions have none, but a CUDA
-    tensor never falls back to them."""
+    a launch: k <= 64 (the generator's --nk <= 128) on an f32 or a bf16
+    ee. The plain versions have none, but a CUDA tensor never falls back
+    to them."""
     if k > MAX_K[dtype]:
-        mode = "f32" if dtype == torch.float32 else "bf16"
-        raise ValueError(
-            f"kernel {PASSES[pass_]} takes k <= {MAX_K[dtype]} (--nk <= "
-            f"{2 * MAX_K[dtype]}) in {mode} mode on CUDA; got k={k} (from "
-            f"--nk {2 * k})")
+        raise _k_refusal(pass_, k, dtype)
 
 
 def _check_limits(pass_: int, C: int, F2: int, F: int, k: int,
@@ -252,19 +273,41 @@ def _check_limits(pass_: int, C: int, F2: int, F: int, k: int,
 
 
 def _refusal(pass_: int, B: int, N: int, C: int, F2: int, F: int, k: int,
-             bf16: bool) -> ValueError:
-    """The error of a call within `_check_limits` that no engine takes
-    (the route and scratch queries' cudaErrorInvalidValue)."""
-    if bf16 and k > FMA_MAX_K:
+             bf16: bool, widest: int = 0) -> ValueError:
+    """The error of a call that no engine takes: past the k limit
+    (`check_kernel_limits`' words), or, within the widths and k limit, at
+    a C whose tile of one point does not fit in a block's shared memory on
+    either engine (the route and scratch queries' cudaErrorInvalidValue),
+    naming `widest`, the widest C an engine takes there (`_widest_c`)."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if k > MAX_K[dtype]:
+        return _k_refusal(pass_, k, dtype)
+    mode = "bf16" if bf16 else "f32"
+    if min(B, N, C, F2) > 0:
+        held = ("the tensor cores' weights and one point's rows, or the FMA "
+                "kernels' one point's rows and their intermediates"
+                if bf16 else "the FMA kernels' one point's rows and their "
+                "intermediates")
         return ValueError(
-            f"kernel {PASSES[pass_]} in bf16 mode takes k > {FMA_MAX_K} "
-            "only on the tensor cores, whose shared memory does not hold "
-            f"the weights and one point's rows at C={C}, F2={F2}, F={F}, "
-            f"k={k} (from --nk {2 * k}); the FMA kernels take k <= "
-            f"{FMA_MAX_K}")
+            f"kernel {PASSES[pass_]} in {mode} mode takes C <= {widest} at "
+            f"F2={F2}, F={F}, k={k} (from --nk {2 * k}): a block's shared "
+            f"memory must hold {held}; got C={C}")
     return ValueError(
-        f"kernel {PASSES[pass_]} in {'bf16' if bf16 else 'f32'} mode takes "
-        f"no launch at B={B}, N={N}, C={C}, F2={F2}, F={F}, k={k}")
+        f"kernel {PASSES[pass_]} in {mode} mode takes no launch at B={B}, "
+        f"N={N}, C={C}, F2={F2}, F={F}, k={k}")
+
+
+def _widest_c(lib, pass_: int, B: int, N: int, C: int, F2: int, F: int,
+              k: int, bf16: bool) -> int:
+    """The widest multiple of 4 below C that an engine takes at these
+    other widths on the current device (the route query; the shared
+    memory a tile of one point takes grows with C), 0 where none does."""
+    lo, hi = 0, C // 4
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        r = lib.spgan_ebt_route(pass_, B, N, 4 * mid, F2, F, k, int(bf16))
+        lo, hi = (mid, hi) if r >= 0 else (lo, mid)
+    return 4 * lo
 
 
 def _route(pass_: int, B: int, N: int, C: int, F2: int, F: int, k: int,
@@ -273,9 +316,11 @@ def _route(pass_: int, B: int, N: int, C: int, F2: int, F: int, k: int,
     the current CUDA device; raises a ValueError naming the widths and the
     limits where none takes them."""
     _check_limits(pass_, C, F2, F, k, bf16)
-    r = _build.library().spgan_ebt_route(pass_, B, N, C, F2, F, k, int(bf16))
+    lib = _build.library()
+    r = lib.spgan_ebt_route(pass_, B, N, C, F2, F, k, int(bf16))
     if r == -_build.CUDA_ERROR_INVALID_VALUE:
-        raise _refusal(pass_, B, N, C, F2, F, k, bf16)
+        raise _refusal(pass_, B, N, C, F2, F, k, bf16,
+                       _widest_c(lib, pass_, B, N, C, F2, F, k, bf16))
     if r < 0:
         _build.check(-r, "spgan_ebt_route")
     return r
@@ -301,7 +346,8 @@ def _launch(pass_: int, name: str, ee, k, neg, widths, fn_args,
         lib = _build.library()
         n = lib.spgan_ebt_scratch(pass_, B, N, C, F2, F, k, bf16)
         if n == -_build.CUDA_ERROR_INVALID_VALUE:
-            raise _refusal(pass_, B, N, C, F2, F, k, bf16)
+            raise _refusal(pass_, B, N, C, F2, F, k, bf16,
+                           _widest_c(lib, pass_, B, N, C, F2, F, k, bf16))
         if n < 0:
             _build.check(-n, "spgan_ebt_scratch")
         # freeing the scratch on return is safe: the caching allocator

@@ -2,18 +2,20 @@
 the CPU, where the port runs the plain versions of kernels I-L and of
 kernel C's bf16 mode, against the JAX package:
 
-- the wrappers' limits, checked before any launch: k <= 64 on bf16 edges
-  (the tensor cores), k <= 32 on f32 edges (the FMA kernels); on CPU
-  tensors the plain versions at any k, and no launch;
+- the wrappers' limits, checked before any launch: k <= 64 on f32 and
+  bf16 edges (the FMA kernels and the tensor cores), and the words of
+  each refusal (`_refusal`: past k = 64, past a block's shared memory); on
+  CPU tensors the plain versions at any k, and no launch;
 - the fused train-mode generator forward at --nk 80 (N 128, batch 4,
   `Config()` widths: EdgeConv2 through the fused EdgeBlock at k = 40), its
   VJP and its running statistics, in float32 and mixed_edge, against
   `sp_gan_tpu.nn.fused_train` with the port's picks and pools replayed, at
   the tolerances of tests/test_torch_fused_train.py's TestFusedGenerator;
-- one `fused_train=True` step at --nk 80 against the JAX step at the
-  bounds of tests/test_torch_train_step.py, D's and G's gradients also at
-  the step's own one-ulp response, as tests/test_torch_knn_wide_k.py
-  holds the default step at --nk 80.
+- one float32 `fused_train=True` step and one `fused_dphase=True` step at
+  --nk 80 against the JAX step at the bounds of
+  tests/test_torch_train_step.py, D's and G's gradients also at the step's
+  own one-ulp response, as tests/test_torch_knn_wide_k.py holds the
+  default step at --nk 80.
 
 Kernels I-L's plain versions against the Pallas kernels at k = 33, 40 and
 64 are tests/test_torch_edgeblock_train_wide_k.py's.
@@ -38,26 +40,49 @@ SC, SF = 8, 64
 
 class TestLimits:
     def test_bf16_takes_k_up_to_64_f32_up_to_32(self):
-        """The check passes bf16 edges at k = 64 (--nk 128) for each of
-        I-L, on the tensor cores, and f32 edges at k = 32 (--nk 64), the
-        largest the FMA kernels take."""
-        assert kebt.MAX_K == {torch.float32: 32, torch.bfloat16: 64}
+        """Both modes take k <= 64 (--nk 128) for each of I-L; f32's old
+        limit of 32, which the name still states, is gone: past k = 32 the
+        FMA kernels take f32 edges on their shared-memory design, as the
+        tensor cores take bf16 ones."""
+        assert kebt.MAX_K == {torch.float32: 64, torch.bfloat16: 64}
         for p in range(4):
             kebt.check_kernel_limits(p, 64, torch.bfloat16)
-            kebt.check_kernel_limits(p, 32, torch.float32)
+            kebt.check_kernel_limits(p, 64, torch.float32)
 
     @pytest.mark.parametrize("pass_", range(4))
     @pytest.mark.parametrize("k, dtype, limit", [
-        (33, torch.float32, "k <= 32 (--nk <= 64) in f32 mode"),
+        (65, torch.float32, "k <= 64 (--nk <= 128) in f32 mode"),
         (65, torch.bfloat16, "k <= 64 (--nk <= 128) in bf16 mode")])
     def test_refused_past_the_limit(self, pass_, k, dtype, limit):
-        """f32 at k = 33 and bf16 at k = 65 are refused before a launch,
-        naming the kernel, the limit and the --nk they came from."""
+        """f32 and bf16 at k = 65 are refused before a launch, naming the
+        kernel, the limit and the --nk they came from."""
         with pytest.raises(ValueError) as e:
             kebt.check_kernel_limits(pass_, k, dtype)
         msg = str(e.value)
         assert limit in msg and f"(from --nk {2 * k})" in msg
         assert "IJKL"[pass_] in msg.split()[1]
+
+    @pytest.mark.parametrize("bf16", [False, True])
+    def test_refusal_words(self, bf16):
+        """`_refusal`, the error of a call no engine takes: past k = 64
+        it is the k limit's; within it, at L's widths past the FMA kernels'
+        shared memory (C = 232, F2 = 64, F = 128, k = 64: one point's rows
+        and intermediates need 2C + 448 floats a row, 232,448 bytes hold
+        C <= 228), it names the widths, the widest C an engine takes there
+        and what the shared memory must hold, by engine."""
+        mode = "bf16" if bf16 else "f32"
+        msg = str(kebt._refusal(3, 24, 2048, 64, 64, 128, 65, bf16))
+        assert msg == (f"kernel L (edge_train_bwd3) takes k <= 64 (--nk <= "
+                       f"128) in {mode} mode on CUDA; got k=65 (from --nk "
+                       "130)")
+        msg = str(kebt._refusal(3, 24, 2048, 232, 64, 128, 64, bf16, 228))
+        assert msg.startswith(
+            f"kernel L (edge_train_bwd3) in {mode} mode takes C <= 228 at "
+            "F2=64, F=128, k=64 (from --nk 128): a block's shared memory "
+            "must hold ")
+        assert msg.endswith("got C=232")
+        assert "the FMA kernels' one point's rows" in msg
+        assert ("tensor cores' weights" in msg) == bf16
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_cpu_tensors_take_the_plain_versions_at_any_k(self, dtype):
@@ -90,6 +115,34 @@ class TestLimits:
             plain = [plain] if torch.is_tensor(plain) else plain
             assert all(torch.equal(a, b) for a, b in zip(ours, plain)), name
         assert not any(kernels.launch_counts().values())
+
+
+def test_plain_versions_run_in_float64():
+    """On float64 operands the plain versions of I-L compute in float64,
+    the oracle chip_smoke.py holds the FMA engine's f32 mode to: every
+    output float64, and within 1e-5 relative L2 of the f32 run on the
+    same values (k = 40, a small block)."""
+    k = 40
+    blk = ebt_base.block(2, SC, SF, k)
+    g = torch.Generator().manual_seed(2)
+    ee = torch.randn(1, 4, k, 2 * SC, generator=g)
+    inp = ebt_base.train_inputs(blk, ee, torch.randn(1, 4, SF, generator=g),
+                                k)
+    inp = {n: v.detach() if torch.is_tensor(v) else v
+           for n, v in inp.items()}
+    f32 = ebt_base.plain_j_k_l(inp)
+    f64 = ebt_base.plain_j_k_l({n: v.double() if torch.is_tensor(v) else v
+                                for n, v in inp.items()})
+    f32["stats2"] = kebt.edge_train_stats2_plain(
+        ee, inp["w1"], inp["a1"], inp["w2"], k)
+    f64["stats2"] = kebt.edge_train_stats2_plain(
+        ee.double(), inp["w1"].double(), inp["a1"].double(),
+        inp["w2"].double(), k)
+    for name, v in f64.items():
+        # the helper hands d_ee back as f32, from the f64 run's values
+        assert v.dtype == torch.float64 or name == "d_ee", name
+        assert ebt_base.rel(f32[name].double().numpy(), v.numpy()) <= 1e-5, \
+            name
 
 
 # ------------------------------------------- the fused generator at --nk 80
@@ -149,25 +202,39 @@ class TestFusedGeneratorNk80(fused_base.TestFusedGenerator):
 
 
 # -------------------------------------------------- the fused step at --nk 80
-@pytest.fixture(scope="module")
-def fused_nk80_step():
-    return base.run_both(dtype="float32", fused_train=True, nk=80, np=128,
-                         zd_one_ulp=True, one_ulp=True, replay_slopes=True)
+@pytest.fixture(scope="module", params=["fused_train", "fused_dphase"])
+def fused_nk80_step(request):
+    res = base.run_both(dtype="float32", nk=80, np=128, zd_one_ulp=True,
+                        one_ulp=True, replay_slopes=True,
+                        **{request.param: True})
+    return request.param, res
 
 
 class TestFusedNk80StepParity(fused_base.TestFusedStepParity):
-    """One `fused_train=True` float32 step at --nk 80 (k = 40; the port's G
-    through the fused forward in both phases, its EdgeBlock kernels' plain
-    versions) at N 128, bs 4, against the JAX step at the bounds of
-    tests/test_torch_train_step.py, EdgeConv2's conv biases still (their
-    fused gradient is exactly zero), D's leaky ReLU slopes replayed, D's
+    """One float32 step at --nk 80 (k = 40) with `fused_train=True` (the
+    port's G through the fused forward in both phases) and one with
+    `fused_dphase=True` (in the D phase), its EdgeBlock kernels' plain
+    versions, at N 128, bs 4, against the JAX step at the bounds of
+    tests/test_torch_train_step.py, D's leaky ReLU slopes replayed, D's
     gradients also within twice the port's own response to one ulp of z_d
     (`test_d_gradients`) and G's within twice its response to one ulp of
-    z_g (`test_g_phase`)."""
+    z_g (`test_g_phase`). Under `fused_train` EdgeConv2's conv biases stay
+    still (their fused gradient is exactly zero); under `fused_dphase` the
+    G phase is the module's, and every parameter moves."""
 
     @pytest.fixture
     def f32_step(self, fused_nk80_step):
-        return fused_nk80_step
+        return fused_nk80_step[1]
+
+    @pytest.mark.parametrize("net", ["d", "g"])
+    def test_parameters_after_step(self, f32_step, fused_nk80_step, net):
+        """`fused_train`: TestFusedStepParity's check; `fused_dphase`:
+        tests/test_torch_train_step.py's (the G phase unfused)."""
+        if fused_nk80_step[0] == "fused_train":
+            super().test_parameters_after_step(f32_step, net)
+        else:
+            base.TestOneStepParity.test_parameters_after_step(
+                self, f32_step, net)
 
     def test_d_gradients(self, f32_step):
         """As tests/test_torch_knn_wide_k.py holds the default step at

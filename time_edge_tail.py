@@ -1,13 +1,15 @@
 """Times kernel C's f32 mode (`edge_tail` on f32 edges) and kernel I
-(`edge_train_stats2` on bf16 edges) on the card, each on the same inputs,
-and the paths that run them end to end:
+(`edge_train_stats2` on bf16 edges, on the tensor cores, and on f32 edges,
+on its FMA engine) on the card, each on the same inputs, and the paths
+that run them end to end:
 
 - C serve edge1, edge2: the two calls of a serving request (64 shapes at
   `Config()`), on the edges that request hands kernel C;
 - C P2 edge1, edge2: the same at P2 (16 shapes at N = 16384);
 - I: the --fused_train step's EdgeConv2 (bf16 edges [24, 2048, 10, 128]
   from kernel B on seeded features, the block's weights and the affine of
-  its own batch statistics);
+  its own batch statistics); I f32: the same on f32 edges (the float32
+  step's);
 - serving and P2 requests through `Manipulator.generate` (the median of
   10 and 5 after a warm-up), and the --fused_train (F1) and
   --fused_dphase (F2) steps through `Trainer.time_steps` (3 warm-up steps,
@@ -20,8 +22,9 @@ and the paths that run them end to end:
 
 The edges are recorded from `Manipulator.generate` (seeded weights and
 codes). Each kernel's output is also held against the change's run on the
-same inputs: C's f32 gate (|err| <= 1e-5 + 1e-4 |out|) and I within 5e-3
-relative L2, so a checkout that computes something else is caught. To
+same inputs: C's f32 gate (|err| <= 1e-5 + 1e-4 |out|), I within 5e-3
+relative L2 and I f32 within 1e-5, so a checkout that computes something
+else is caught. To
 compare two checkouts on one card, make the inputs once and time each
 checkout on them, in one machine, in the order parent, change, change,
 parent:
@@ -103,9 +106,9 @@ def request_tails(np_: int, shapes: int) -> dict:
     return tails
 
 
-def stats_inputs() -> tuple:
+def stats_inputs(cd) -> tuple:
     """Kernel I's arguments (ee, w1, a1, w2) at the --fused_train step's
-    EdgeConv2."""
+    EdgeConv2, on edges of type `cd`."""
     import torch
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.nn.generator import Generator
@@ -116,7 +119,7 @@ def stats_inputs() -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(cfg.bs, cfg.np, 64, generator=gen, device="cuda")
     with torch.no_grad():
-        ee = knn_edge(x, cfg.k, torch.bfloat16, False, "packed")[0]
+        ee = knn_edge(x, cfg.k, cd, False, "packed")[0]
         p = {n: t.detach().float() for n, t in
              ebt.block_params(block).items()}
         a1 = ebt._fold_all(p, ebt.edge_block_train_stats(p, ee, cfg.k),
@@ -126,8 +129,11 @@ def stats_inputs() -> tuple:
 
 
 def make_inputs() -> dict:
+    import torch
     return {"serve": request_tails(2048, 64),
-            "p2": request_tails(16384, 16), "stats": stats_inputs()}
+            "p2": request_tails(16384, 16),
+            "stats": stats_inputs(torch.bfloat16),
+            "stats_f32": stats_inputs(torch.float32)}
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -220,12 +226,14 @@ def main() -> None:
                 ee=list(targs[0].shape),
                 ms=cuda_ms(lambda: edge_tail(*targs, k=k), args.reps))
             del targs
-    sargs = [t.cuda() for t in inputs["stats"]]
-    outs["I"] = edge_train_stats2(*sargs, k).cpu()
-    calls["I"] = dict(ee=list(sargs[0].shape),
-                      ms=cuda_ms(lambda: edge_train_stats2(*sargs, k),
-                                 args.reps))
-    del sargs, inputs
+    for name, key in (("I", "stats"), ("I f32", "stats_f32")):
+        sargs = [t.cuda() for t in inputs[key]]
+        outs[name] = edge_train_stats2(*sargs, k).cpu()
+        calls[name] = dict(ee=list(sargs[0].shape),
+                           ms=cuda_ms(lambda: edge_train_stats2(*sargs, k),
+                                      args.reps))
+        del sargs
+    del inputs
     torch.cuda.empty_cache()
     res = {"root": os.path.abspath(args.root), "calls": calls,
            "end_to_end": end_to_end()}
@@ -235,9 +243,9 @@ def main() -> None:
         ref = torch.load(ref_path)
         dev = {}
         for name, out in outs.items():
-            if name == "I":
+            if name.startswith("I"):
                 dev[name] = float((out - ref[name]).norm() / ref[name].norm())
-                ok = dev[name] <= 5e-3
+                ok = dev[name] <= (5e-3 if name == "I" else 1e-5)
             else:
                 excess = (out - ref[name]).abs() - (
                     1e-5 + 1e-4 * ref[name].abs())
