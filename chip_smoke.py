@@ -2288,9 +2288,10 @@ def g_margin_sweep(inputs: dict, k: int) -> dict:
     return {"mu": G_SWEEP_MU, "differ": differ, "smallest_exact_mu": smallest}
 
 
-# kernel G's launches (csrc/knn.cu on csrc/knn_filter.cuh) by pass
+# kernel G's launches (csrc/knn.cu on csrc/knn_filter.cuh) by pass; the
+# exact pass is knn_exact_kernel, or knn_exact_wide_kernel past k = 32
 G_PASSES = {"knn_filter_kernel": "G: filter pass (C > 4)",
-            "knn_exact_kernel": "G: exact pass (C <= 4)",
+            "knn_exact": "G: exact pass (C <= 4)",
             "knn_norms_kernel": "G: norms", "knn_merge_kernel": "G: merge"}
 
 
@@ -4578,10 +4579,62 @@ def wide_ptxas(text: str) -> list:
     """ptxas's lines for the wide-list instantiations (KM = 64) of the
     selection engine: the filter's, the CUDA-core pass's, the merge's and
     kernel F's CUDA-core kernel, by their whole mangled names."""
-    pat = re.compile(r"(knn_filter_kernelILi32ELi64E|knn_exact_kernelILi64E|"
+    pat = re.compile(r"(knn_filter_kernelILi32ELi64E|knn_exact_wide_kernel|"
                      r"knn_merge_kernelILi64E|knn_edge_window_kernelILi4E"
                      r"Li64E)")
     return [line for line in ptxas_report(text, 400) if pat.search(line)]
+
+
+# slice 25: the CUDA-core pass's wide list, a heap of k a query in shared
+# memory (knn_exact_wide_kernel: A, G and B's two orders), held to no
+# spill; the lists of its tie-heavy check, WIDE_K's and one short of the
+# widest
+WIDE_EXACT_KERNELS = re.compile(r"knn_exact_wide_kernel")
+WIDE_EXACT_MAX_SPILL = 0
+WIDE_TIE_K = (33, 40, 63, 64)
+# copies of one point in each tie-heavy cloud (at least)
+TIE_COPIES = 72
+
+
+def tie_cloud(b: int, n: int, seed: int):
+    """[b, n, 3] on the card: a coarse grid round(2 randn) (a few hundred
+    cells, so exact ties between distances everywhere), with each cloud's
+    point 0 copied to every (n // TIE_COPIES)-th row, TIE_COPIES or more
+    copies spread over the cloud's tiles: the copies' queries find more
+    keys at distance 0 than any list keeps, so the k-th distance ties with
+    keys past it, and the order within a tie is the index's alone."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.round(2 * torch.randn(b, n, 3, generator=gen, device="cuda"))
+    x[:, ::n // TIE_COPIES] = x[:, :1]
+    return x.contiguous()
+
+
+def check_wide_ties(seed: int) -> dict:
+    """The wide CUDA-core pass on tie_cloud at each k of WIDE_TIE_K: kernel
+    A at [64, 2048, 3] (one key chunk a block) and [1, 2048, 3] (32 chunks
+    and their merge), kernel G at [2, 16384, 3] (4 chunks), each bit-equal
+    to its plain version and to the other kernel and twice alike
+    (check_knn, check_knn_blocked). Then kernel B at [4, 2048, 3], k = 40,
+    on normal draws and on tie_cloud, in all eight forms against
+    knn_edge_plain: B's sinks on the wide pass, which no package path
+    takes."""
+    import torch
+    res = {}
+    for k in WIDE_TIE_K:
+        res[k] = {"A": check_knn(tie_cloud(64, 2048, seed), k, "ties, "),
+                  "A_split": check_knn(tie_cloud(1, 2048, seed + 1), k,
+                                       "ties, 32 chunks, "),
+                  "G": check_knn_blocked(tie_cloud(2, SERVE_16K, seed + 2),
+                                         k, "ties, ")}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    res["B_c3"] = {
+        "randn": check_knn_edge(torch.randn(4, 2048, 3, generator=gen,
+                                            device="cuda"), 40,
+                                label="C=3, "),
+        "ties": check_knn_edge(tie_cloud(4, 2048, seed + 4), 40,
+                               label="C=3 ties, ")}
+    return res
 
 
 def check_band_to_2w(x, k: int) -> dict:
@@ -4796,8 +4849,10 @@ def wide_k_phase(seed: int) -> tuple:
     """Kernels A, G, B and F at k = 33, 40 and 64 bit-equal to their plain
     versions and twice alike, on normal draws at the paths' shapes and on
     the hard inputs of the k <= 32 checks (knn_hard with the quantum cloud,
-    the quantum band, knn_blocked_hard), kernel F also at k = 2W; B's, F's
-    and G's margins swept at k = 40; k = 65 refused; the default step and
+    the quantum band, knn_blocked_hard), kernel F also at k = 2W; the wide
+    CUDA-core pass (no spill) on tie-heavy clouds at k = 33, 40, 63, 64
+    and kernel B on it at C = 3 (check_wide_ties); B's, F's and G's
+    margins swept at k = 40; k = 65 refused; the default step and
     P1 at --nk 80 (kernel B or F twice and D once a step, D held at its
     k = 40 call), the default one also through the trainer's loop, small
     --nk 80 steps against the CPU; and the k = 40 rows of the kernels line
@@ -4813,6 +4868,8 @@ def wide_k_phase(seed: int) -> tuple:
     res = {"ptxas_km64": wide_ptxas(_build.last_log), "seconds": {}}
     for line in res["ptxas_km64"]:
         log("  ptxas (KM = 64): " + line)
+    wide_fused_ptxas(_build.last_log, WIDE_EXACT_KERNELS, 3,
+                     WIDE_EXACT_MAX_SPILL, "knn_exact_wide_kernel")
     t0 = [time.perf_counter()]
 
     def lap(part):
@@ -4856,6 +4913,8 @@ def wide_k_phase(seed: int) -> tuple:
         c["G_hard"], g_hard_in = knn_blocked_hard(seed + 17, k)
         checks[k] = c
         lap(f"checks at k = {k}")
+    res["ties"] = check_wide_ties(seed + 41)
+    lap("tie-heavy clouds")
     res["checks"] = {k: {"A": c["A"], "G": c["G"], "F_2W": c["F_2W"]}
                      for k, c in checks.items()}
     k = cfg.k

@@ -29,9 +29,10 @@
 //
 // Two selection kernels, chosen by the width C:
 //
-//   * C <= kFilterAbove (4): knn_exact_kernel, the CUDA cores fold every
-//     pair: 2 C + 3 f32 operations a pair, 9 at EdgeConv1's C = 3, where a
-//     filter would spend as much on a pair before any exact fold.
+//   * C <= kFilterAbove (4): knn_exact_kernel (knn_exact_wide_kernel at
+//     KM = 64), the CUDA cores fold every pair: 2 C + 3 f32 operations a
+//     pair, 9 at EdgeConv1's C = 3, where a filter would spend as much on
+//     a pair before any exact fold.
 //   * C > 4: knn_filter_kernel, the tensor-core filter (below), after
 //     knn_norms_kernel has folded every point's |x|^2 once. It takes C at
 //     run time, so every width above 4 goes through one kernel.
@@ -55,7 +56,8 @@
 // keeps two or three). k <= 10 keeps a list of 10, 11 <= k <= 32 one of
 // 32, 33 <= k <= 64 (--nk <= 128) one of 64: KM, the list's compile-time
 // width (in exact order the filter keeps a list of 64's indices in shared
-// memory, FilterList below). A block walks its chunk in tiles (64 keys;
+// memory, FilterList below; the CUDA-core pass keeps a heap of k there,
+// knn_exact_wide_kernel). A block walks its chunk in tiles (64 keys;
 // the filter's 64 or 32, kFewBlocksPerSm below, and 32 at KM = 64)
 // starting at the tile that holds its own first query, wrapping around:
 // on a cloud stored in spatial order (the sphere template, and the
@@ -235,10 +237,12 @@ constexpr int kWideK = 64;         // the widest list (k <= 64)
 // its indices in a shared table of KM * kSelQ ints (32 KB), so that the
 // list takes 64 registers, as a packed one does: with TopK's 128 beside
 // the accumulators the filter spilled 1.3 KB a thread (G at P2's 64
-// channels 41.0-41.4 ms a call, split 35.1 on the H100). The CUDA-core
-// pass and the merge keep TopK: they hold no accumulators, and at the
-// CUDA-core pass's many pushes the shared indices cost more than they
-// save (A at [64, 2048, 3] 4.58-4.80 ms in registers, 6.34 split).
+// channels 41.0-41.4 ms a call, split 35.1 on the H100). The merge keeps
+// TopK. The CUDA-core pass keeps TopK up to KM = 32 and a heap of k in
+// shared memory at KM = 64 (knn_exact_wide_kernel, below): A at [64,
+// 2048, 3], k = 40, took 4.58-4.80 ms with TopK in registers (255 of
+// them, spilling), 6.34 with TopKSplit, 0.67 with the heap (32 registers)
+// on the H100.
 template <int KM, bool PACKED>
 struct FilterList {
   using type = TopK<KM, PACKED>;
@@ -442,10 +446,175 @@ __device__ __forceinline__ void end_block(const Out& out, const List& top,
   }
 }
 
+// The CUDA-core pass's wide lists (KM = kWideK: 33 <= k <= 64 at C <= 4).
+// A TopK of 64 in registers took 128 registers beside the fold's and
+// spilled, and every push swapped through all 64 slots, against the 64th
+// entry, whatever k was. Here a query keeps a bounded max-heap of exactly
+// k entries in the block's dynamic shared memory: k * kSelQ 64-bit words,
+// slot t of thread i at wide_heap[t * kSelQ + i], so the banks a thread
+// touches depend on i alone and a warp's access takes the two wavefronts
+// of 32 8-byte words whatever slots its threads are at. An entry is one
+// signed 64-bit word, the selection key in its high half: (key, idx) in
+// exact order, whose lexicographic order is then the word's; (key,
+// INT_MAX) in packed order, ordered by the key alone, as TopK<K, true>.
+// The heap starts as k sentinels (INT_MAX, INT_MAX) and its root, kept in
+// a register, is the k-th smallest entry pushed so far (a sentinel while
+// fewer than k have been). A push replaces the root and sifts the entry
+// down, at most ceil(log2 k) levels; the end sorts the k entries
+// ascending in place (heapsort), and the sink or the partial lists read
+// them as they read TopK's.
+//
+// A tile is taken in two steps: every key's distance, tested against the
+// root as it stood at the tile's start (exact: !(d > rd), rd the root's
+// distance, which a NaN passes; packed: key < the root's key), the keys
+// that pass marked in a 64-bit mask; then each marked key's distance is
+// folded again (the same operations, so the same bits) and pushed if it
+// still comes before the root. A warp's pushes of a tile take as many
+// rounds as its busiest thread has marks, not a round for every key that
+// any of its threads pushes.
+//
+// Why the result is the list's: the order is total over real entries
+// (distinct columns; in packed order the column sits in the key's low
+// bits), and a bounded heap keeps the k smallest of what is pushed into
+// it, whatever the order of the pushes. A key that is not pushed comes
+// after the root when tested, which is the k-th of the entries pushed so
+// far, or after the tile's first root, which is no earlier: so it is not
+// among the chunk's k smallest. The heap ends as the chunk's top-k in its
+// order, with the fold's distances, as TopK ends (the header's argument,
+// with the heap for the list).
+constexpr long long kHeapSentinel = 0x7fffffff7fffffffLL;
+
+__device__ __forceinline__ long long heap_entry(int key, int col) {
+  return (long long)(((unsigned long long)(unsigned)key << 32) |
+                     (unsigned)col);
+}
+
+// Sifts `e` down from the root of the max-heap h[0 .. n) (slot t at
+// h[t * kSelQ]), whose root slot is free, and returns the new root.
+__device__ __forceinline__ long long heap_sift(long long* h, int n,
+                                               long long e) {
+  long long root = e;
+  int i = 0;
+  for (int c = 1; c < n; c = 2 * i + 1) {
+    long long v = h[c * kSelQ];
+    if (c + 1 < n) {
+      const long long w = h[(c + 1) * kSelQ];
+      if (w > v) {
+        v = w;
+        ++c;
+      }
+    }
+    if (!(v > e)) break;
+    h[i * kSelQ] = v;
+    if (i == 0) root = v;
+    i = c;
+  }
+  h[i * kSelQ] = e;
+  return root;
+}
+
+// The sorted heap as a list: key[t] and idx[t] of entry t.
+struct HeapKeys {
+  const long long* h;
+  __device__ __forceinline__ int operator[](int t) const {
+    return (int)(h[t * kSelQ] >> 32);
+  }
+};
+
+struct HeapCols {
+  const long long* h;
+  __device__ __forceinline__ int operator[](int t) const {
+    return (int)(unsigned)(h[t * kSelQ] & 0xffffffffLL);
+  }
+};
+
+struct HeapList {
+  HeapKeys key;
+  HeapCols idx;
+};
+
+// Dynamic shared bytes of the wide pass: the heaps of a block.
+__host__ __device__ constexpr int wide_heap_bytes(int k) {
+  return k * kSelQ * (int)sizeof(long long);
+}
+
+// knn_exact_kernel (below) with the wide list (above): KM = kWideK,
+// launched with wide_heap_bytes(k) of dynamic shared memory.
+template <class Out>
+__global__ void __launch_bounds__(kSelQ)
+    knn_exact_wide_kernel(const float* __restrict__ x, Out out,
+                          int32_t* __restrict__ part_key,
+                          int32_t* __restrict__ part_idx,
+                          unsigned long long* __restrict__ refined, int N,
+                          int C, int k, int S, int chunk, int low_mask) {
+  constexpr int CM = kFilterAbove;
+  constexpr bool P = Out::kPacked;
+  __shared__ __align__(16) float sk[kT * CM];
+  __shared__ float skn[kT];
+  extern __shared__ long long wide_heap[];
+  long long* h = wide_heap + threadIdx.x;
+  const int b = blockIdx.z, s = blockIdx.y, q0 = blockIdx.x * kSelQ;
+  const int qi = q0 + threadIdx.x;
+  const bool valid = qi < N;
+  const int key0 = s * chunk, key1 = min(N, key0 + chunk);
+  const int tiles = (key1 - key0 + kT - 1) / kT;
+  const int first = first_tile(q0, key0, key1, kT);
+  const float* xb = x + (size_t)b * N * C;
+  float q[CM];
+  const float qn = load_query<CM>(xb, C, qi, valid, q);
+  for (int t = 0; t < k; ++t) h[t * kSelQ] = kHeapSentinel;
+  long long root = kHeapSentinel;
+  for (int it = 0; it < tiles; ++it) {
+    const int ti = first + it < tiles ? first + it : first + it - tiles;
+    const int tile0 = key0 + ti * kT, nt = min(kT, key1 - tile0);
+    stage_keys<CM>(xb, C, tile0, nt, RowsAsIs{}, sk, skn);
+    if (!valid) continue;
+    const int rk = (int)(root >> 32);
+    const float rd = unorderable(rk);  // NaN while the heap is short
+    unsigned long long mask = 0;
+    for (int t0 = 0; t0 < nt; t0 += 8) {
+      unsigned byte = 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = tile0 + t0 + u;
+        float d = key_dist<CM>(q, qn, sk + (t0 + u) * CM, skn[t0 + u]);
+        if (j == qi) d = kInf;  // self
+        const bool pass =
+            P ? pack_key(d, low_mask, j) < rk : !(d > rd);  // NaN too
+        if (t0 + u < nt && pass) byte |= 1u << u;
+      }
+      mask |= (unsigned long long)byte << t0;
+    }
+    while (mask != 0ull) {
+      const int t = __ffsll((long long)mask) - 1;
+      mask &= mask - 1ull;
+      const int j = tile0 + t;
+      float d = key_dist<CM>(q, qn, sk + t * CM, skn[t]);
+      if (j == qi) d = kInf;
+      const long long e =
+          heap_entry(select_key<P>(d, low_mask, j), P ? INT_MAX : j);
+      if (e < root) root = heap_sift(h, k, e);
+    }
+  }
+  if (refined != nullptr && threadIdx.x == 0)
+    atomicAdd(refined, (unsigned long long)min(kSelQ, N - q0) *
+                           (unsigned long long)(key1 - key0));
+  if (valid) {  // heapsort: the largest of h[0 .. m] to slot m, m = k-1 .. 1
+    for (int m = k - 1; m > 0; --m) {
+      const long long top = h[0];
+      const long long e = h[m * kSelQ];
+      h[m * kSelQ] = top;
+      heap_sift(h, m, e);
+    }
+  }
+  const HeapList list{{h}, {h}};
+  end_block<kWideK>(out, list, b, N, q0, valid, s, S, k, part_key, part_idx);
+}
+
 // C <= 4: every pair of the chunk folded on the CUDA cores (load_query,
 // stage_keys and key_dist), eight keys' distances at a time. A key that
 // would land after the list's last entry is not pushed: the push would
-// drop it.
+// drop it. KM = kWideK takes knn_exact_wide_kernel (above).
 template <int KM, class Out>
 __global__ void __launch_bounds__(kSelQ)
     knn_exact_kernel(const float* __restrict__ x, Out out,
@@ -1021,11 +1190,22 @@ struct Select {
     const dim3 grid((N + kSelQ - 1) / kSelQ, sp.S, B);
     if (C <= kFilterAbove) {
       // kernel F takes its CUDA-core pass (select_band) at these widths
-      if constexpr (Out::kBand) return (int)cudaErrorInvalidValue;
-      else
+      if constexpr (Out::kBand) {
+        return (int)cudaErrorInvalidValue;
+      } else if constexpr (KM == kWideK) {
+        const int bytes = wide_heap_bytes(k);
+        const cudaError_t e = cudaFuncSetAttribute(
+            knn_exact_wide_kernel<Out>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return (int)e;
+        knn_exact_wide_kernel<Out><<<grid, kSelQ, bytes, stream>>>(
+            x, out, part_key, part_idx, refined, N, C, k, sp.S, sp.chunk,
+            low_mask);
+      } else {
         knn_exact_kernel<KM, Out><<<grid, kSelQ, 0, stream>>>(
             x, out, part_key, part_idx, refined, N, C, k, sp.S, sp.chunk,
             low_mask);
+      }
     } else {
       knn_norms_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
           x, norms, rows, C);

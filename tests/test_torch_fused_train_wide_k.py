@@ -39,11 +39,10 @@ SC, SF = 8, 64
 
 
 class TestLimits:
-    def test_bf16_takes_k_up_to_64_f32_up_to_32(self):
-        """Both modes take k <= 64 (--nk 128) for each of I-L; f32's old
-        limit of 32, which the name still states, is gone: past k = 32 the
-        FMA kernels take f32 edges on their shared-memory design, as the
-        tensor cores take bf16 ones."""
+    def test_both_modes_take_k_up_to_64(self):
+        """Both modes take k <= 64 (--nk 128) for each of I-L: past k = 32
+        the FMA kernels take f32 edges on their shared-memory design, as
+        the tensor cores take bf16 ones."""
         assert kebt.MAX_K == {torch.float32: 64, torch.bfloat16: 64}
         for p in range(4):
             kebt.check_kernel_limits(p, 64, torch.bfloat16)

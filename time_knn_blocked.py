@@ -10,6 +10,9 @@ saved inputs, and the paths that run them end to end:
 - kernel A (`knn.py`) at a serving request's EdgeConv1 call ("A serve",
   the template 64 times, [64, 2048, 3]), and A through kernel G's route at
   that shape ("G at A's shape", which times G's C <= 4 pass there);
+- A and G's C <= 4 pass past k = 32, on the same inputs at k = 40
+  (`--nk` 80): "A serve k=40" and "G C=3 template k=40", the CUDA-core
+  pass's wide list (`knn_exact_wide_kernel`);
 - kernel B (`knn_edge.py`) at a serving request's EdgeConv2 call ("B
   serve", f32 concat edges of [64, 2048, 64]) and at the default training
   step's first call ("B train", bf16 diffs of [24, 2048, 64]), each on the
@@ -24,11 +27,13 @@ saved inputs, and the paths that run them end to end:
   "D F1 copy" times D on the copy in both) and P1's ("D P1", [4, 8192,
   10, 64] on kernel F's indices);
 - a serving request (64 shapes at `Config()`, the median of 10 after a
-  warm-up) through `Manipulator.generate`, and the default, --fused_train
-  (F1) and P1 steps through `Trainer.time_steps` (3 warm-up steps, then
-  three runs of 20 timed steps: their median, and each run), weights and
-  codes from a fixed seed; and each one's device-busy ms (the profiler's
-  device time over 5 requests or steps, divided by 5).
+  warm-up) through `Manipulator.generate`, the same at `--nk` 80, a P2
+  request (16 shapes at N = 16384) and a P2-80 request (the same at
+  `--nk` 80), and the default, --fused_train (F1) and P1 steps through
+  `Trainer.time_steps` (3 warm-up steps, then three runs of 20 timed
+  steps: their median, and each run), weights and codes from a fixed
+  seed; and each one's device-busy ms (the profiler's device time over 5
+  requests or steps, divided by 5).
 
 The inputs are recorded from `Manipulator.generate` and `Trainer` steps
 (seeded weights, codes and batches). Every kernel's outputs are held to the
@@ -58,6 +63,9 @@ from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, B, K = 16384, 16, 10
+# the calls also timed at k = 40 (--nk 80), on the same inputs as at K
+WIDE = {"A serve k=40": "A serve", "G C=3 template k=40": "G C=3 template"}
+WIDE_K = 40
 SEED = 0
 # the N=8192 approx campaign's step (P1), as chip_smoke.py runs it
 CAMPAIGN_N8192 = dict(np=8192, bs=4, nk=20, knn_mode="approx",
@@ -233,18 +241,23 @@ def path_inputs() -> dict:
 
 
 def end_to_end() -> dict:
-    """ms of a serving request and of a default, an F1 and a P1 step (host
-    clock), and their device-busy ms."""
+    """ms of a serving request at `--nk` 20 and 80, of a P2 and a P2-80
+    request, and of a default, an F1 and a P1 step (host clock), and their
+    device-busy ms."""
     from sp_gan_tpu_torch.config import Config
     from sp_gan_tpu_torch.manipulate import Manipulator
     from sp_gan_tpu_torch.nn.generator import Generator
     res = {}
-    cfg = Config()
-    man = Manipulator(cfg, Generator(cfg, seed=SEED), device="cuda")
-    req = lambda: man.generate(64, seed=SEED, batch=64)
-    res["serve request"] = host_ms(req, 10)
-    res["serve request, device"] = device_ms(req)
-    del man
+    for label, kw, shapes in (("serve request", {}, 64),
+                              ("serve request --nk 80", dict(nk=80), 64),
+                              ("P2 request", dict(np=N), B),
+                              ("P2-80 request", dict(np=N, nk=80), B)):
+        cfg = Config(**kw)
+        man = Manipulator(cfg, Generator(cfg, seed=SEED), device="cuda")
+        req = lambda: man.generate(shapes, seed=SEED, batch=shapes)
+        res[label] = host_ms(req, 10)
+        res[label + ", device"] = device_ms(req)
+        del man
     for label, kw in (("default step", {}),
                       ("F1 step", dict(fused_train=True)),
                       ("P1 step", CAMPAIGN_N8192)):
@@ -294,6 +307,7 @@ def main() -> None:
     strided = hasattr(scatter, "row_stride")
     if "D F1" in inputs:
         inputs["D F1 copy"] = inputs["D F1"]
+    inputs.update({w: inputs[n] for w, n in WIDE.items()})
     calls, outs = {}, {}
     for name, v in inputs.items():
         if name.startswith("B"):
@@ -326,19 +340,19 @@ def main() -> None:
             else:
                 fn = lambda: (scatter.scatter_diff_bwd(x, idx),)
         else:
-            x, k = v.cuda(), K
+            x, k = v.cuda(), (WIDE_K if name in WIDE else K)
             fn = lambda: (knn_blocked if name.startswith("G") else knn)(x, k)
-            calls[name] = dict(shape=list(x.shape))
+            calls[name] = dict(shape=list(x.shape), k=k)
         outs[name] = [t.cpu() for t in fn()]
         calls[name]["ms"] = cuda_ms(fn, args.reps)
-        if name.startswith("G") or name == "A serve":
-            ai, ad = knn(x, K)
-            gi, gd = knn_blocked(x, K)
+        if name.startswith("G") or name.startswith("A serve"):
+            ai, ad = knn(x, k)
+            gi, gd = knn_blocked(x, k)
             calls[name]["g_differs_from_a"] = (int((gi != ai).sum())
                                                + int((gd != ad).sum()))
             calls[name]["a_ms" if name.startswith("G") else "g_ms"] = \
                 cuda_ms(lambda: (knn if name.startswith("G")
-                                 else knn_blocked)(x, K), args.reps)
+                                 else knn_blocked)(x, k), args.reps)
         del x
     torch.cuda.empty_cache()
     res = {"root": os.path.abspath(args.root), "calls": calls}
